@@ -11,25 +11,38 @@ result line):
 2. build    every CUDA source of fedcola_tpu_torch/csrc, compiled in
             parallel into build/kernels/ (seconds printed).
 3. kernels  each kernel wrapper against its plain PyTorch version at every
-            shape the main path gives it: training (n=2 clients, B=96) and
-            central eval (eval flags of kernels 1 and 3; n=1, B=500), N in
-            {197, 40}, D=384, H=6; in float32 (max|d| <= 1e-4 * max(1,
-            max|ref|)) and bfloat16 (max|d| / max|ref| <= 3e-2), forward
-            outputs, P, cat and every gradient; median times of the
-            kernel, the plain version and a library composition
-            (torch.matmul + F.scaled_dot_product_attention / F.layer_norm
-            / F.gelu, one call sequence per client, so host launches count
-            in it).
+            shape its paths give it, N in {197, 40}: the fused kernels at
+            mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
+            central eval (eval flags of kernels 1 and 3; n=1, B=500); the
+            recompute backward kernels of the remat policies at the same
+            training shape; flash attention at mome_tiny's training shape
+            (n=2, B=96, H=3, hd=64) and its eval forward (n=1, B=500); in
+            float32 (max|d| <= 1e-4 * max(1, max|ref|)) and bfloat16
+            (max|d| / max|ref| <= 3e-2), forward outputs, P, cat and every
+            gradient; median times of the kernel, the plain version and a
+            library call (torch.matmul + F.scaled_dot_product_attention /
+            F.layer_norm / F.gelu, one call sequence per client, so host
+            launches count in it; SDPA alone for flash attention).
 4. model    the port's MAT forward and backward on the card (kernels) vs
-            on the CPU (plain versions), small float32 model.
+            on the CPU (plain versions), small float32 models on the fused
+            route (D=128) and the flash route (D=96); and on the card the
+            remat policies 'kernel', 'save_attn' and 'full' against each
+            other (D=128).
 5. main     two rounds of the scripts/coco.sh FedCola line through
             ``fedcola_tpu_torch.main`` at full mome_small width (D=384,
-            depth 12, B=96), synthetic data, two clients per group; the
-            launch counters are zeroed just before and read just after.
+            depth 12, B=96), synthetic data, two clients per group.
+6. tiny     the same line at mome_tiny width (D=192, 3 heads, depth 12):
+            attention through the flash kernels, no fused kernel.
+7. remat    two local steps of the img+txt group update at mome_small
+            (n=2, B=96) under each remat policy: finite losses that agree
+            with 'kernel' to bfloat16 tolerance, peak memory per policy.
 
-The second-to-last line is a JSON object with one entry per kernel (the
-bf16 N=197 training-shape times, and under "eval" the eval-shape times of
-kernels 1 and 3); the last line is ``{"ok": true, "device": {...}}``.
+Phases 5, 6 and 7 each zero the launch counters just before and read them
+just after; a kernel's launches are those of the path that runs it.  The
+second-to-last line is a JSON object with one entry per kernel (the bf16
+N=197 training-shape times, and under "eval" the eval-shape times of the
+kernels central eval runs); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -46,15 +59,24 @@ H100_BF16_FLOPS = 989e12    # dense, H100 SXM data sheet
 H100_F32_FLOPS = 67e12      # non-tensor-core float32
 H100_BYTES = 3.35e12        # HBM3
 
+# entry point: (source, TPU kernel it replaces, the path that launches it)
 KERNEL_INFO = {
     "attn_fwd": ("fedcola_tpu_torch/csrc/attn_fwd.cu",
-                 "fedcola_tpu/ops/fused_attention.py:546"),
+                 "fedcola_tpu/ops/fused_attention.py:546", "main"),
     "attn_bwd": ("fedcola_tpu_torch/csrc/attn_bwd.cu",
-                 "fedcola_tpu/ops/fused_attention.py:586"),
+                 "fedcola_tpu/ops/fused_attention.py:586", "main"),
     "mlp_fwd": ("fedcola_tpu_torch/csrc/mlp_fwd.cu",
-                "fedcola_tpu/ops/fused_mlp.py:684"),
+                "fedcola_tpu/ops/fused_mlp.py:684", "main"),
     "mlp_bwd": ("fedcola_tpu_torch/csrc/mlp_bwd.cu",
-                "fedcola_tpu/ops/fused_mlp.py:720"),
+                "fedcola_tpu/ops/fused_mlp.py:720", "main"),
+    "attn_bwd_recompute": ("fedcola_tpu_torch/csrc/attn_bwd.cu",
+                           "fedcola_tpu/ops/fused_attention.py:488", "remat"),
+    "mlp_bwd_nores": ("fedcola_tpu_torch/csrc/mlp_bwd.cu",
+                      "fedcola_tpu/ops/fused_mlp.py:720", "remat"),
+    "flash_fwd": ("fedcola_tpu_torch/csrc/flash_fwd.cu",
+                  "fedcola_tpu/ops/flash_attention.py:129", "tiny"),
+    "flash_bwd": ("fedcola_tpu_torch/csrc/flash_bwd.cu",
+                  "fedcola_tpu/ops/flash_attention.py:164", "tiny"),
 }
 
 
@@ -300,11 +322,125 @@ def check_mlp(N, dtype, dev, timing):
     return res
 
 
-def check_eval(N, dtype, dev, timing):
-    """Kernels 1 and 3 with the eval flags (no saves, no residual) at the
-    central evaluation's shape: the unstacked global model (n=1) on one
-    batch of min(--eval_batch_size 512, 500 synthetic test rows) = 500."""
+def _lib_grad_timer(lib, t, wnames, dout):
+    """Time torch autograd through a library composition: the gradients
+    of every input the kernel differentiates."""
     import torch
+    lib_in = [t["x"].clone().requires_grad_(True), None] + \
+        [t[k].clone().requires_grad_(True) for k in wnames]
+    lib_out = lib(*lib_in)
+    grads_of = [lib_in[0]] + lib_in[2:]
+    return time_ms(lambda: torch.autograd.grad(lib_out, grads_of, dout,
+                                               retain_graph=True))
+
+
+def check_remat(N, dtype, dev, timing):
+    """Kernels 5 and 6, the backward of the remat policies, at the
+    training shape (n=2, B=96): the recompute attention backward and the
+    MLP backward without residual."""
+    from fedcola_tpu_torch.ops import fused_attention as fa
+    from fedcola_tpu_torch.ops import fused_mlp as fm
+    n, B, D, H = 2, 96, 384, 6
+    ta = _attn_inputs(n, B, N, dtype, dev)
+    wa = [ta[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj")]
+    args5 = (ta["x"], *wa, ta["da"], H)
+    got5 = fa.attn_bwd_recompute(*args5)
+    ref5 = fa.attn_bwd_recompute_plain(*args5)
+    names = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwproj", "dbproj")
+    res = {"attn_bwd_recompute": {"max_abs_err": _compare(got5, ref5, dtype,
+                                                          names)}}
+    del ref5
+    tm = _mlp_inputs(n, B, N, dtype, dev)
+    wm = [tm[k] for k in ("lns", "lnb", "w1", "b1", "w2")]
+    args6 = (tm["x"], None, *wm, tm["do"])
+    got6 = fm.mlp_bwd(*args6)
+    ref6 = fm.mlp_bwd_plain(*args6)
+    res["mlp_bwd_nores"] = {"max_abs_err": _compare(
+        got6, ref6, dtype, ("dx", "dlns", "dlnb", "dw1", "db1", "dw2",
+                            "db2"))}
+    del ref6
+    if not timing:
+        return res
+    M = B * N
+    Fh = 4 * D
+    res["attn_bwd_recompute"].update(
+        ms=time_ms(lambda: fa.attn_bwd_recompute(*args5)),
+        plain_ms=time_ms(lambda: fa.attn_bwd_recompute_plain(*args5)),
+        library_ms=_lib_grad_timer(lib_attn, ta, ("lns", "lnb", "wqkv",
+                                                  "bqkv", "wproj", "bproj"),
+                                   ta["da"]),
+        # kernel 2's products plus the recomputed q.k^T and P.v
+        flops=n * (22.0 * M * D * D + 12.0 * B * N * N * D),
+        bytes=_nbytes(ta["x"], *wa, ta["da"], *got5))
+    res["mlp_bwd_nores"].update(
+        ms=time_ms(lambda: fm.mlp_bwd(*args6)),
+        plain_ms=time_ms(lambda: fm.mlp_bwd_plain(*args6)),
+        library_ms=_lib_grad_timer(lib_mlp, tm, ("lns", "lnb", "w1", "b1",
+                                                 "w2", "b2"), tm["do"]),
+        flops=n * 10.0 * M * D * Fh,
+        bytes=_nbytes(tm["x"], *wm, tm["do"], *got6))
+    return res
+
+
+def _flash_inputs(n, B, N, dtype, dev):
+    H, hd = 3, 64
+    return _tensors(31 + N + B, {k: ((n, B, H, N, hd), 1.0, "a")
+                                 for k in ("q", "k", "v", "do")}, dtype, dev)
+
+
+def _sdpa(q, k, v, scale):
+    """F.scaled_dot_product_attention over [n*B, H, N, hd]: the library
+    yardstick of flash attention."""
+    import torch.nn.functional as F
+    sh = q.shape
+    q4, k4, v4 = (t.reshape((-1,) + tuple(sh[-3:])) for t in (q, k, v))
+    return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+
+def check_flash(N, dtype, dev, timing):
+    """Kernels 11 and 12 at mome_tiny's training shape (n=2, B=96, H=3,
+    hd=64): one launch covers all n*B*H pairs."""
+    import torch
+    from fedcola_tpu_torch.ops import flash_attention as fl
+    t = _flash_inputs(2, 96, N, dtype, dev)
+    q, k, v, do = (t[x] for x in ("q", "k", "v", "do"))
+    scale = 64 ** -0.5
+    got = fl.flash_fwd(q, k, v, scale)
+    res = {"flash_fwd": {"max_abs_err": _compare(
+        [got], [fl.flash_fwd_plain(q, k, v, scale)], dtype, ("o",))}}
+    gotb = fl.flash_bwd(q, k, v, do, scale)
+    res["flash_bwd"] = {"max_abs_err": _compare(
+        gotb, fl.flash_bwd_plain(q, k, v, do, scale), dtype,
+        ("dq", "dk", "dv"))}
+    if not timing:
+        return res
+    pairs = q.numel() // (N * 64)
+    lib_in = [u.clone().requires_grad_(True) for u in (q, k, v)]
+    lib_out = _sdpa(*lib_in, scale)
+    do4 = do.reshape(lib_out.shape)
+    with torch.no_grad():
+        res["flash_fwd"].update(
+            ms=time_ms(lambda: fl.flash_fwd(q, k, v, scale)),
+            plain_ms=time_ms(lambda: fl.flash_fwd_plain(q, k, v, scale)),
+            library_ms=time_ms(lambda: _sdpa(q, k, v, scale)),
+            flops=4.0 * pairs * N * N * 64, bytes=_nbytes(q, k, v, got))
+    res["flash_bwd"].update(
+        ms=time_ms(lambda: fl.flash_bwd(q, k, v, do, scale)),
+        plain_ms=time_ms(lambda: fl.flash_bwd_plain(q, k, v, do, scale)),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, do4, retain_graph=True)),
+        # recomputed q.k^T, then dP, dV, dQ and dK
+        flops=10.0 * pairs * N * N * 64, bytes=_nbytes(q, k, v, do, *gotb))
+    return res
+
+
+def check_eval(N, dtype, dev, timing):
+    """Kernels 1 and 3 with the eval flags (no saves, no residual), and the
+    flash forward (mome_tiny), at the central evaluation's shape: the
+    unstacked global model (n=1) on one batch of min(--eval_batch_size
+    512, 500 synthetic test rows) = 500."""
+    import torch
+    from fedcola_tpu_torch.ops import flash_attention as fl
     from fedcola_tpu_torch.ops import fused_attention as fa
     from fedcola_tpu_torch.ops import fused_mlp as fm
     n, B, D, H = 1, 500, 384, 6
@@ -322,6 +458,11 @@ def check_eval(N, dtype, dev, timing):
     res["mlp_fwd"] = {"max_abs_err": _compare(
         [got_m], [ref_m], dtype, ("out_eval",))}
     del ref_m
+    tf = _flash_inputs(n, B, N, dtype, dev)
+    fq, fk, fv = (tf[x] for x in ("q", "k", "v"))
+    got_f = fl.flash_fwd(fq, fk, fv, 0.125)
+    res["flash_fwd"] = {"max_abs_err": _compare(
+        [got_f], [fl.flash_fwd_plain(fq, fk, fv, 0.125)], dtype, ("o",))}
     if not timing:
         return res
     M = B * N
@@ -340,6 +481,11 @@ def check_eval(N, dtype, dev, timing):
             library_ms=time_ms(lambda: lib_mlp(tm["x"], None, *wm)),
             flops=n * 4.0 * M * D * 4 * D,
             bytes=_nbytes(tm["x"], *wm, got_m))
+        res["flash_fwd"].update(
+            ms=time_ms(lambda: fl.flash_fwd(fq, fk, fv, 0.125)),
+            plain_ms=time_ms(lambda: fl.flash_fwd_plain(fq, fk, fv, 0.125)),
+            library_ms=time_ms(lambda: _sdpa(fq, fk, fv, 0.125)),
+            flops=4.0 * fq.numel() * N, bytes=_nbytes(fq, fk, fv, got_f))
     return res
 
 
@@ -356,11 +502,12 @@ def phase_kernels():
         timing = dtype == torch.bfloat16
         for N in (197, 40):
             for shape, check in (("train", check_attention),
-                                 ("train", check_mlp), ("eval", check_eval)):
+                                 ("train", check_mlp), ("train", check_remat),
+                                 ("train", check_flash), ("eval", check_eval)):
                 res = check(N, dtype, dev, timing)
                 for name, r in res.items():
                     worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
-                    line = (f"[kernels] {name:8s} {shape:5s} "
+                    line = (f"[kernels] {name:18s} {shape:5s} "
                             f"{str(dtype)[6:]:8s} N={N:3d} "
                             f"max|d|={r['max_abs_err']:.3e}")
                     if timing:
@@ -387,66 +534,98 @@ def phase_kernels():
 
 # --------------------------------------------------------------- model ----
 
+def _model_grads(cfg, params, inputs, dev):
+    """Features and every leaf gradient of one training forward on ``dev``
+    (DropPath draws from a generator seeded alike on every run)."""
+    import torch
+    from fedcola_tpu_torch.models import mat
+    p = mat.tree_map(lambda a: a.detach().to(dev).requires_grad_(True),
+                     params)
+    fi, ft = mat.mat_apply(cfg, p, [a.to(dev) for a in inputs],
+                           feat_out=True, train=True,
+                           gen=torch.Generator(dev).manual_seed(0))
+    loss = (fi * ft).sum() + fi.square().sum()
+    grads = torch.autograd.grad(loss, mat.tree_leaves(p))
+    return [fi.detach().cpu(), ft.detach().cpu()], [g.cpu() for g in grads]
+
+
+def _agree_model(got, ref, what):
+    """Features within 1e-4, every gradient within 1e-4 * max(1, max|ref|);
+    returns the worst scaled gradient error."""
+    for a, b in zip(got[0], ref[0]):
+        d = (a - b).abs().max().item()
+        assert d <= 1e-4, f"{what}: features differ by {d:.3e}"
+    worst = 0.0
+    for a, b in zip(got[1], ref[1]):
+        d = (a - b).abs().max().item()
+        m = b.abs().max().item()
+        assert d <= 1e-4 * max(1.0, m), \
+            f"{what}: gradient differs: {d:.3e} ({m:.3e})"
+        worst = max(worst, d / max(1.0, m))
+    return worst
+
+
 def phase_model():
     """MAT forward + backward on the card (kernels) against the CPU (plain
-    versions), small float32 multimodal model with aux-free colearn tying:
-    features within 1e-4, every gradient within 1e-4 * max(1, max|ref|)."""
+    versions), small float32 multimodal models with colearn tying: the
+    fused route (D=128) and the flash route (D=96, off the 128 grid).  Then
+    the remat policies against each other on the card (D=128, DropPath
+    on)."""
     import numpy as np
     import torch
     from fedcola_tpu_torch.models import mat
     from fedcola_tpu_torch.ops import kernels
-    cfg = mat.MATConfig(modalities=("img", "txt"), tasks=("rtv", "rtv"),
-                        num_classes=(None, None), img_size=64, patch_size=16,
-                        embed_dim=128, depth=2, num_heads=2, vocab_size=50,
-                        max_text_len=12, colearn_param="attn",
-                        use_fused_mlp=True, compute_dtype="float32")
-    params = mat.init_mat(cfg, torch.Generator().manual_seed(0))
     r = np.random.RandomState(0)
-    img = torch.from_numpy(r.randn(4, 64, 64, 3).astype(np.float32))
-    ids = torch.from_numpy(r.randint(0, 50, (4, 12)).astype(np.int64))
-    out = {}
-    for dev in ("cpu", "cuda"):
-        p = mat.tree_map(
-            lambda a: a.detach().to(dev).requires_grad_(True), params)
-        fi, ft = mat.mat_apply(cfg, p, [img.to(dev), ids.to(dev)],
-                               feat_out=True, train=True,
-                               gen=torch.Generator(dev).manual_seed(0))
-        loss = (fi * ft).sum() + fi.square().sum()
-        leaves = mat.tree_leaves(p)
-        grads = torch.autograd.grad(loss, leaves)
-        out[dev] = ([fi.detach().cpu(), ft.detach().cpu()],
-                    [g.cpu() for g in grads])
-    for a, b in zip(out["cuda"][0], out["cpu"][0]):
-        d = (a - b).abs().max().item()
-        assert d <= 1e-4, f"features differ by {d:.3e}"
-    worst = 0.0
-    for a, b in zip(out["cuda"][1], out["cpu"][1]):
-        d = (a - b).abs().max().item()
-        m = b.abs().max().item()
-        assert d <= 1e-4 * max(1.0, m), f"gradient differs: {d:.3e} ({m:.3e})"
-        worst = max(worst, d / max(1.0, m))
-    assert kernels.LAUNCHES["attn_bwd"] > 0 and kernels.LAUNCHES["mlp_bwd"] > 0
-    log(f"[model] card vs CPU: features and {len(out['cpu'][1])} gradients "
-        f"agree (worst scaled gradient error {worst:.3e})")
+    inputs = [torch.from_numpy(r.randn(4, 64, 64, 3).astype(np.float32)),
+              torch.from_numpy(r.randint(0, 50, (4, 12)).astype(np.int64))]
+    base = mat.MATConfig(modalities=("img", "txt"), tasks=("rtv", "rtv"),
+                         num_classes=(None, None), img_size=64, patch_size=16,
+                         embed_dim=128, depth=2, num_heads=2, vocab_size=50,
+                         max_text_len=12, colearn_param="attn",
+                         use_fused_mlp=True, compute_dtype="float32")
+    for route, cfg, used in (
+            ("fused", base, ("attn_bwd", "mlp_bwd")),
+            ("flash", base.replace(embed_dim=96), ("flash_fwd", "flash_bwd"))):
+        params = mat.init_mat(cfg, torch.Generator().manual_seed(0))
+        ref = _model_grads(cfg, params, inputs, "cpu")
+        kernels.reset_launches()
+        got = _model_grads(cfg, params, inputs, "cuda")
+        assert all(kernels.LAUNCHES[k] > 0 for k in used), kernels.LAUNCHES
+        worst = _agree_model(got, ref, route)
+        log(f"[model] {route} route (D={cfg.embed_dim}) card vs CPU: "
+            f"features and {len(ref[1])} gradients agree (worst scaled "
+            f"gradient error {worst:.3e})")
+    cfg = base.replace(drop_path_rate=0.2)
+    params = mat.init_mat(cfg, torch.Generator().manual_seed(1))
+    ref = _model_grads(cfg, params, inputs, "cuda")
+    for policy in ("save_attn", "full"):
+        kernels.reset_launches()
+        got = _model_grads(cfg.replace(remat_policy=policy), params, inputs,
+                           "cuda")
+        assert kernels.LAUNCHES["attn_bwd_recompute"] > 0 and \
+            kernels.LAUNCHES["mlp_bwd_nores"] > 0, kernels.LAUNCHES
+        worst = _agree_model(got, ref, policy)
+        log(f"[model] remat {policy!r} vs 'kernel' on the card: features "
+            f"and {len(ref[1])} gradients agree (worst scaled gradient "
+            f"error {worst:.3e})")
 
 
-# ---------------------------------------------------------------- main ----
+# ------------------------------------------------------ main and tiny ----
 
-def phase_main():
-    """Two FedCola rounds through the port's entry point; returns the
-    launch counts of that run."""
+def run_line(tag: str, flags) -> dict:
+    """Two rounds of a coco.sh line through the port's entry point; returns
+    the launch counts of that run."""
     with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
-        return _run_main(out)
+        return _run_line(tag, flags, out)
 
 
-def _run_main(out: str):
+def _run_line(tag, flags, out):
     import math
     import torch
     from fedcola_tpu_torch import main as port_main
     from fedcola_tpu_torch.ops import kernels
-    argv = list(port_main.MAIN_PATH_FLAGS) + [
-        "--result_path", os.path.join(out, "result"),
-        "--log_path", os.path.join(out, "log")]
+    argv = list(flags) + ["--result_path", os.path.join(out, "result"),
+                          "--log_path", os.path.join(out, "log")]
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.time()
@@ -466,15 +645,105 @@ def _run_main(out: str):
               for k, v in res.items() if k.startswith("server_evaluated_")
               and "metrics" not in v}
         r1 = {k: v[f"{k} r@1sum"] for k, v in r1.items()}
-        log(f"[main] round {r}: loss {loss:.4f} acc1 {acc} r@1sum {r1} "
+        log(f"[{tag}] round {r}: loss {loss:.4f} acc1 {acc} r@1sum {r1} "
             f"round_seconds {res['round_seconds']:.2f} "
             f"eval_seconds {res.get('eval_seconds', float('nan')):.2f}")
-    log(f"[main] wall {wall:.1f}s, peak device memory "
+    log(f"[{tag}] wall {wall:.1f}s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+        f"launches { {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase_main():
+    """The mome_small line: the four fused kernels of the first slice."""
+    from fedcola_tpu_torch import main as port_main
+    launches = run_line("main", port_main.MAIN_PATH_FLAGS)
+    missing = [k for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
+    return launches
+
+
+def phase_tiny():
+    """The mome_tiny line: attention through the flash kernels only."""
+    from fedcola_tpu_torch import main as port_main
+    launches = run_line("tiny", port_main.MOME_TINY_FLAGS)
+    if not (launches["flash_fwd"] and launches["flash_bwd"]):
+        raise AssertionError(f"mome_tiny never launched flash: {launches}")
+    fused = {k: v for k, v in launches.items()
+             if v and not k.startswith("flash")}
+    if fused:
+        raise AssertionError(f"mome_tiny launched fused kernels: {fused}")
+    return launches
+
+
+# --------------------------------------------------------------- remat ----
+
+def phase_remat():
+    """Two local steps of the Coco img+txt group update (both stacks, N=197
+    and 40) at mome_small, n=2 clients, B=96, under each remat policy, from
+    the same weights, batches and DropPath draws.  Returns the launch
+    counts of the three runs."""
+    import math
+    import numpy as np
+    import torch
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.models.mat import stack_clients, tree_map
+    from fedcola_tpu_torch.models.registry import create_model
+    from fedcola_tpu_torch.ops import kernels
+    from fedcola_tpu_torch.parallel.client_update import GroupSpec, run_chunk
+    from fedcola_tpu_torch.parallel.optim import (init_opt_state,
+                                                  make_optimizer_spec)
+    cfg = parse_args(list(port_main.MAIN_PATH_FLAGS))
+    mcfg, params = create_model(cfg.model_name, cfg, "Coco",
+                                torch.Generator().manual_seed(cfg.seed))
+    params = tree_map(lambda a: a.cuda(), params)
+    opt = make_optimizer_spec(cfg)
+    spec = GroupSpec(modality="img+txt", criterion="ContrastiveLoss",
+                     imnorm=True)
+    n, S, B = 2, 2, cfg.B
+    r = np.random.RandomState(0)
+    chunk = {"x": r.randint(0, 256, (n, S, B, 224, 224, 3)).astype(np.uint8),
+             "y": r.randint(0, mcfg.vocab_size,
+                            (n, S, B, mcfg.max_text_len)).astype(np.int32),
+             "valid": np.ones((n, S, B), bool),
+             "step_valid": np.ones((n, S), bool)}
+    losses = {}
+    kernels.reset_launches()
+    for policy in ("kernel", "save_attn", "full"):
+        stacked = tree_map(lambda a: a.requires_grad_(True),
+                           stack_clients(params, n))
+        state = init_opt_state(opt, stacked, n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ls, _, _ = run_chunk(mcfg.replace(remat_policy=policy), spec, opt,
+                             stacked, state, chunk, cfg.lr,
+                             torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        losses[policy] = ls.float().cpu()
+        if not all(math.isfinite(v) for v in losses[policy].flatten()):
+            raise AssertionError(f"{policy}: non-finite loss {losses[policy]}")
+        log(f"[remat] {policy:9s} losses {losses[policy].tolist()} "
+            f"{secs:.2f}s for {S} steps, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del stacked, state
+    launches = dict(kernels.LAUNCHES)
+    ref = losses["kernel"]
+    for policy in ("save_attn", "full"):
+        d = (losses[policy] - ref).abs().max().item()
+        m = ref.abs().max().item()
+        if d > 3e-2 * max(1.0, m):
+            raise AssertionError(f"{policy} losses differ from 'kernel' by "
+                                 f"{d:.3e} (max |loss| {m:.3e})")
+        log(f"[remat] {policy} vs 'kernel': max |d loss| {d:.3e}")
+    log(f"[remat] launches { {k: v for k, v in launches.items() if v} }")
+    if not (launches["attn_bwd_recompute"] and launches["mlp_bwd_nores"]):
+        raise AssertionError(f"remat path never launched rows 5/6: "
+                             f"{launches}")
     return launches
 
 
@@ -500,20 +769,25 @@ def main() -> int:
 
     measured = phase_kernels()
     phase_model()
-    launches = phase_main()
+    paths = {"main": phase_main(), "tiny": phase_tiny(),
+             "remat": phase_remat()}
 
     rows = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name, (source, replaces, path) in KERNEL_INFO.items():
         m = measured[name]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": launches[name],
+               "replaces": replaces, "launches": paths[path][name],
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
         if "eval" in m:
-            # the eval flag variant at the central evaluation's shape
+            # the same entry point at the central evaluation's shape
             row["eval"] = {k: m["eval"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         rows.append(row)
+    missing = [r["name"] for r in rows if r["launches"] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on their path: "
+                             f"{missing}")
     log(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,12 @@
 //
 // Replaces the TPU kernel fedcola_tpu/ops/fused_attention.py:
 // _make_bwd_save_kernel (via _bwd_save_call, residual=True on the training
-// path; s=NULL gives its residual=False variant).
+// path; s=NULL gives its residual=False variant).  The second entry point,
+// fc_attn_bwd_recompute, replaces _make_bwd_kernel / _bwd_one (via
+// _bwd_call, the backward of the remat policies 'save_attn' and 'full'):
+// no saves, no residual; it recomputes LN1, qkv, P and the head concat from
+// x, and like _bwd_one keeps the recomputed P in f32 for the softmax
+// gradient (delta and dS) and rounds it to T only for dV.
 //
 // What bounds it on the H100: ~2x the forward's FLOPs (four D-wide GEMMs,
 // two of them reductions over all B*N rows of a client, plus four N x N
@@ -19,7 +24,7 @@
 // The per-head backward runs on CUDA cores in two passes per (item, head):
 // a row pass (dP, the softmax-gradient row sums, dS and dQ) and a column
 // pass (dK and dV), with dS in T as the TPU kernel rounds it.
-#include "common.cuh"
+#include "attn_core.cuh"
 
 namespace {
 
@@ -31,7 +36,10 @@ constexpr int AB_RC = 32;     // rows per chunk in the column pass
 // Row pass: one warp per query row i of one (item, head).
 //   dP[i,j] = dO[i] . V[j];  delta_i = sum_j dP[i,j] P[i,j]
 //   dS[i,j] = T(P[i,j] (dP[i,j] - delta_i));  dQ[i] = scale * dS[i] . K
-template <typename T>
+// RECOMP: P[i,:] is recomputed in f32 from Q[i] and K (softmax of the
+// scaled f32 scores, as attn_core_fwd computes it before rounding) instead
+// of read from the saved T copy.
+template <typename T, bool RECOMP>
 __global__ void __launch_bounds__(AB_WARPS * 32)
 attn_bwd_rows_kernel(const T* qkv, const T* P, const T* dO, T* dS,
                      float* dqkv, int N, int D, int H, float scale) {
@@ -42,6 +50,7 @@ attn_bwd_rows_kernel(const T* qkv, const T* P, const T* dO, T* dS,
   float* Vs = Ks + N * ld;
   float* orow = Vs + N * ld;                 // [warps][hd]
   float* srow = orow + AB_WARPS * AB_MAXHD;  // [warps][NP]
+  float* qrow = srow + AB_WARPS * NP;        // [warps][hd] (RECOMP)
 
   const int h = blockIdx.x;
   const long long item = blockIdx.y;
@@ -56,24 +65,54 @@ attn_bwd_rows_kernel(const T* qkv, const T* P, const T* dO, T* dS,
 
   float* o = orow + warp * AB_MAXHD;
   float* ds = srow + warp * NP;
+  float* q = qrow + warp * AB_MAXHD;
   for (int i = warp; i < N; i += AB_WARPS) {
-    for (int d = lane; d < hd; d += 32)
+    for (int d = lane; d < hd; d += 32) {
       o[d] = to_f(dO[(item * N + i) * D + h * hd + d]);
+      if (RECOMP) q[d] = to_f(base[(long long)i * 3 * D + h * hd + d]);
+    }
     __syncwarp();
     const long long prow = ((item * H + h) * N + i) * (long long)N;
     float dp[AB_MAXR], pv[AB_MAXR];
+    if (RECOMP) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int r = 0; r < AB_MAXR; ++r) {
+        const int j = lane + 32 * r;
+        float v = -INFINITY;
+        if (j < N) {
+          float a = 0.0f;
+          const float* kr = Ks + j * ld;
+          for (int d = 0; d < hd; ++d) a += q[d] * kr[d];
+          v = a * scale;
+        }
+        pv[r] = v;
+        mx = fmaxf(mx, v);
+      }
+      mx = warp_max(mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < AB_MAXR; ++r) {
+        const int j = lane + 32 * r;
+        pv[r] = j < N ? expf(pv[r] - mx) : 0.0f;
+        sum += pv[r];
+      }
+      sum = warp_sum(sum);
+#pragma unroll
+      for (int r = 0; r < AB_MAXR; ++r) pv[r] /= sum;
+    }
     float delta = 0.0f;
 #pragma unroll
     for (int r = 0; r < AB_MAXR; ++r) {
       const int j = lane + 32 * r;
       dp[r] = 0.0f;
-      pv[r] = 0.0f;
+      if (!RECOMP) pv[r] = 0.0f;
       if (j < N) {
         const float* vr = Vs + j * ld;
         float a = 0.0f;
         for (int d = 0; d < hd; ++d) a += o[d] * vr[d];
         dp[r] = a;
-        pv[r] = to_f(P[prow + j]);
+        if (!RECOMP) pv[r] = to_f(P[prow + j]);
         delta += a * pv[r];
       }
     }
@@ -160,15 +199,16 @@ template <typename T>
 int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
                   const float* s, const float* lns, const float* lnb,
                   const void* wqkv, const void* bqkv, const void* wproj,
-                  const void* P_, const void* cat, const void* da_, void* dx,
+                  void* P_, void* cat_, const void* da_, void* dx,
                   float* dlns, float* dlnb, float* dwqkv, float* dbqkv,
                   float* dwproj, float* dbproj, void* h_, float* mean,
                   float* rstd, void* qkv_, void* dac_, void* dO_, void* dS_,
                   float* dqkv, void* dqkvc_, float* dh, float* partial,
-                  cudaStream_t st) {
+                  bool recompute, cudaStream_t st) {
   const T* x = static_cast<const T*>(x_);
   const T* da = static_cast<const T*>(da_);
-  const T* P = static_cast<const T*>(P_);
+  T* P = static_cast<T*>(P_);
+  T* cat = static_cast<T*>(cat_);
   T* h = static_cast<T*>(h_);
   T* qkv = static_cast<T*>(qkv_);
   T* dac = static_cast<T*>(dac_);
@@ -183,6 +223,7 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
   int err;
 
   // recompute LN1 and qkv (the only forward pieces the saves do not cover)
+  // and, without saves, P (rounded to T, for dV) and the head concat
   if ((err = ln_fwd<T>(x, lns, lnb, h, mean, rstd, rows, M, D, 1e-5f, st))) return err;
   GemmArgs g = gemm_args(M, 3 * D, D);
   set_a_rows(g, h, D, MD);
@@ -190,6 +231,8 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
   set_c(g, qkv, 3 * D, 3 * MD);
   g.bias = bqkv; g.sbiasc = 3 * D;
   if ((err = gemm<T, T>(g, n, st))) return err;
+  if (recompute &&
+      (err = attn_core_fwd_packed<T>(qkv, P, cat, n * B, N, D, H, st))) return err;
 
   // branch gradient s*da (rounded to T for the products; dbproj sums it in f32)
   if ((err = row_scale<T>(da, s, N, D, rows * D, dac, st))) return err;
@@ -210,12 +253,14 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
 
   // per-head attention backward
   const int NP = (N + 31) / 32 * 32;
-  const size_t smem_r = (size_t)(2 * N * (hd + 1) + AB_WARPS * AB_MAXHD +
+  const size_t smem_r = (size_t)(2 * N * (hd + 1) + 2 * AB_WARPS * AB_MAXHD +
                                  AB_WARPS * NP) * sizeof(float);
-  cudaFuncSetAttribute(attn_bwd_rows_kernel<T>,
+  auto rows_kernel = recompute ? attn_bwd_rows_kernel<T, true>
+                               : attn_bwd_rows_kernel<T, false>;
+  cudaFuncSetAttribute(rows_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_r);
   FC_CHECK();
-  attn_bwd_rows_kernel<T><<<dim3(H, n * B), AB_WARPS * 32, smem_r, st>>>(
+  rows_kernel<<<dim3(H, n * B), AB_WARPS * 32, smem_r, st>>>(
       qkv, P, dO, dS, dqkv, N, D, H, scale);
   FC_CHECK();
   const size_t smem_c = (size_t)(2 * N * hd + 2 * AB_RC * NP + 2 * AB_RC * hd) *
@@ -270,13 +315,38 @@ extern "C" int fc_attn_bwd(int dtype, int n, int B, int N, int D, int H,
                            void* dac, void* dO, void* dS, float* dqkv,
                            void* dqkvc, float* dh, float* partial,
                            cudaStream_t st) {
+  // the saves are only read on this path
+  void* Pm = const_cast<void*>(P);
+  void* catm = const_cast<void*>(cat);
   if (dtype == 1)
     return attn_bwd_impl<bf16>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
-                               wproj, P, cat, da, dx, dlns, dlnb, dwqkv, dbqkv,
-                               dwproj, dbproj, h, mean, rstd, qkv, dac, dO, dS,
-                               dqkv, dqkvc, dh, partial, st);
+                               wproj, Pm, catm, da, dx, dlns, dlnb, dwqkv,
+                               dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
+                               dO, dS, dqkv, dqkvc, dh, partial, false, st);
   return attn_bwd_impl<float>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
-                              wproj, P, cat, da, dx, dlns, dlnb, dwqkv, dbqkv,
-                              dwproj, dbproj, h, mean, rstd, qkv, dac, dO, dS,
-                              dqkv, dqkvc, dh, partial, st);
+                              wproj, Pm, catm, da, dx, dlns, dlnb, dwqkv,
+                              dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
+                              dO, dS, dqkv, dqkvc, dh, partial, false, st);
+}
+
+// The recompute backward (no residual, no saves): inputs x, lns, lnb, wqkv,
+// bqkv, wproj, da as fc_attn_bwd; outputs as fc_attn_bwd; P [n,B,H,N,N] and
+// cat [n,B,N,D] (T) become scratch, with the rest of fc_attn_bwd's.
+extern "C" int fc_attn_bwd_recompute(
+    int dtype, int n, int B, int N, int D, int H, const void* x,
+    const float* lns, const float* lnb, const void* wqkv, const void* bqkv,
+    const void* wproj, const void* da, void* dx, float* dlns, float* dlnb,
+    float* dwqkv, float* dbqkv, float* dwproj, float* dbproj, void* h,
+    float* mean, float* rstd, void* qkv, void* P, void* cat, void* dac,
+    void* dO, void* dS, float* dqkv, void* dqkvc, float* dh, float* partial,
+    cudaStream_t st) {
+  if (dtype == 1)
+    return attn_bwd_impl<bf16>(n, B, N, D, H, x, nullptr, lns, lnb, wqkv,
+                               bqkv, wproj, P, cat, da, dx, dlns, dlnb, dwqkv,
+                               dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
+                               dO, dS, dqkv, dqkvc, dh, partial, true, st);
+  return attn_bwd_impl<float>(n, B, N, D, H, x, nullptr, lns, lnb, wqkv,
+                              bqkv, wproj, P, cat, da, dx, dlns, dlnb, dwqkv,
+                              dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
+                              dO, dS, dqkv, dqkvc, dh, partial, true, st);
 }

@@ -15,91 +15,9 @@
 // attention core runs on CUDA cores, one block per (client, item, head)
 // holding that head's K and V (N <= 256) in shared memory.  Fusing the
 // whole sublayer into one kernel with wgmma/TMA is later work.
-#include "common.cuh"
+#include "attn_core.cuh"
 
 namespace {
-
-constexpr int AT_WARPS = 8;
-constexpr int AT_MAXR = 8;   // keys per lane: N <= 256
-constexpr int AT_MAXHD = 64; // dims per lane pair: hd <= 64
-
-// One block per (item, head); one warp per query row.  Scores and softmax in
-// f32 over the whole key range (masked tail = -inf), P rounded to T as the
-// TPU kernel stores and uses it, P.V accumulated in f32.
-template <typename T>
-__global__ void __launch_bounds__(AT_WARPS * 32)
-attn_core_fwd_kernel(const T* qkv, T* P, T* cat, int N, int D, int H,
-                     float scale, int save) {
-  extern __shared__ float smf[];
-  const int hd = D / H;
-  const int ld = hd + 1;
-  const int NP = (N + 31) / 32 * 32;
-  float* Ks = smf;                   // [N][hd+1]
-  float* Vs = Ks + N * ld;           // [N][hd+1]
-  float* qrow = Vs + N * ld;         // [warps][hd]
-  float* prow = qrow + AT_WARPS * AT_MAXHD;  // [warps][NP]
-
-  const int h = blockIdx.x;
-  const long long item = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* base = qkv + item * N * 3LL * D;
-
-  for (int e = tid; e < N * hd; e += blockDim.x) {
-    const int j = e / hd, d = e % hd;
-    Ks[j * ld + d] = to_f(base[(long long)j * 3 * D + D + h * hd + d]);
-    Vs[j * ld + d] = to_f(base[(long long)j * 3 * D + 2 * D + h * hd + d]);
-  }
-  __syncthreads();
-
-  float* q = qrow + warp * AT_MAXHD;
-  float* p = prow + warp * NP;
-  for (int i = warp; i < N; i += AT_WARPS) {
-    for (int d = lane; d < hd; d += 32)
-      q[d] = to_f(base[(long long)i * 3 * D + h * hd + d]);
-    __syncwarp();
-    float sc[AT_MAXR];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < AT_MAXR; ++r) {
-      const int j = lane + 32 * r;
-      float v = -INFINITY;
-      if (j < N) {
-        float a = 0.0f;
-        const float* kr = Ks + j * ld;
-        for (int d = 0; d < hd; ++d) a += q[d] * kr[d];
-        v = a * scale;
-      }
-      sc[r] = v;
-      mx = fmaxf(mx, v);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < AT_MAXR; ++r) {
-      const int j = lane + 32 * r;
-      sc[r] = j < N ? expf(sc[r] - mx) : 0.0f;
-      sum += sc[r];
-    }
-    sum = warp_sum(sum);
-    T* prow_out = save ? P + ((item * H + h) * N + i) * (long long)N : nullptr;
-#pragma unroll
-    for (int r = 0; r < AT_MAXR; ++r) {
-      const int j = lane + 32 * r;
-      if (j < N) {
-        const T pt = from_f<T>(sc[r] / sum);
-        if (prow_out) prow_out[j] = pt;
-        p[j] = to_f(pt);
-      }
-    }
-    __syncwarp();
-    for (int d = lane; d < hd; d += 32) {
-      float o = 0.0f;
-      for (int j = 0; j < N; ++j) o += p[j] * Vs[j * ld + d];
-      cat[(item * N + i) * D + h * hd + d] = from_f<T>(o);
-    }
-    __syncwarp();
-  }
-}
 
 template <typename T>
 int attn_fwd_impl(int n, int B, int N, int D, int H, const void* x_,
@@ -124,16 +42,8 @@ int attn_fwd_impl(int n, int B, int N, int D, int H, const void* x_,
   g.bias = bqkv; g.sbiasc = 3 * D;
   if ((err = gemm<T, T>(g, n, st))) return err;
 
-  const int hd = D / H;
-  const int NP = (N + 31) / 32 * 32;
-  const size_t smem = (size_t)(2 * N * (hd + 1) + AT_WARPS * AT_MAXHD +
-                               AT_WARPS * NP) * sizeof(float);
-  cudaFuncSetAttribute(attn_core_fwd_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  FC_CHECK();
-  attn_core_fwd_kernel<T><<<dim3(H, n * B), AT_WARPS * 32, smem, st>>>(
-      qkv, static_cast<T*>(P), cat, N, D, H, 1.0f / sqrtf((float)hd), save);
-  FC_CHECK();
+  if ((err = attn_core_fwd_packed<T>(qkv, save ? static_cast<T*>(P) : nullptr,
+                                     cat, n * B, N, D, H, st))) return err;
 
   GemmArgs p = gemm_args(M, D, D);
   set_a_rows(p, cat, D, (long long)M * D);

@@ -1,0 +1,248 @@
+// Flash attention, backward: dq, dk, dv of o = softmax(qm . k^T) . v with
+// qm = T(q * scale), for every (batch, head) pair.
+//
+// Replaces the TPU kernel fedcola_tpu/ops/flash_attention.py: _bwd_kernel
+// (via _fa_bwd).  Its numerics, which this kernel keeps: P is recomputed in
+// f32 and never rounded; dv = P^T . do, dp = do . v^T, o = P . v recomputed
+// in f32 (no saved output), delta = rowsum(do * o), ds = P * (dp - delta),
+// dq = ds . k, dk = ds^T . qm, all in f32; each result is cast to its
+// input's dtype, and dq is then multiplied by scale in q's dtype (a second
+// rounding, as _fa_bwd applies it after the pallas_call).
+//
+// What bounds it on the H100: at mome_tiny's training shape (576 pairs,
+// N=197, hd=64) ~14 GFLOP against ~116 MB in bf16: the bytes.  On the TPU
+// one program holds a pair's q, k, v and do in f32 VMEM; four [197, 64]
+// f32 operands (~200 KB) leave too little of a block's 227 KB, so the
+// backward is split as attention backward kernels usually are on a GPU:
+//   * a row pass (one warp per query row, the pair's K and V in shared
+//     memory) computes P, o, delta and dS for its row and dq, and writes the
+//     row's softmax max, sum and delta (12 bytes a row);
+//   * a column pass (one warp per key row, the pair's qm and do in shared
+//     memory) recomputes P and dS from those statistics in the same order
+//     of operations and reduces dk and dv over the query rows.
+// No atomics; every result is reproducible run to run.
+#include "common.cuh"
+
+namespace {
+
+constexpr int FB_WARPS = 8;
+constexpr int FB_MAXR = 8;    // rows per lane: N <= 256
+constexpr int FB_MAXHD = 64;  // hd <= 64
+
+template <typename T>
+__device__ __forceinline__ float prescaled(T q, float qscale) {
+  return to_f(from_f<T>(to_f(q) * qscale));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FB_WARPS * 32)
+flash_bwd_rows_kernel(const T* qg, const T* kg, const T* vg, const T* dog,
+                      T* dq, float* stats, int N, int hd, float qscale) {
+  extern __shared__ float smf[];
+  const int ld = hd + 1;
+  const int NP = (N + 31) / 32 * 32;
+  float* Ks = smf;                              // [N][hd+1]
+  float* Vs = Ks + N * ld;                      // [N][hd+1]
+  float* qrow = Vs + N * ld;                    // [warps][hd]
+  float* grow = qrow + FB_WARPS * FB_MAXHD;     // [warps][hd]
+  float* prow = grow + FB_WARPS * FB_MAXHD;     // [warps][NP]
+
+  const long long pair = blockIdx.x;
+  const long long base = pair * N * hd;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < N * hd; e += blockDim.x) {
+    const int j = e / hd, d = e % hd;
+    Ks[j * ld + d] = to_f(kg[base + e]);
+    Vs[j * ld + d] = to_f(vg[base + e]);
+  }
+  __syncthreads();
+
+  float* q = qrow + warp * FB_MAXHD;
+  float* g = grow + warp * FB_MAXHD;
+  float* p = prow + warp * NP;
+  for (int i = warp; i < N; i += FB_WARPS) {
+    for (int d = lane; d < hd; d += 32) {
+      q[d] = prescaled(qg[base + (long long)i * hd + d], qscale);
+      g[d] = to_f(dog[base + (long long)i * hd + d]);
+    }
+    __syncwarp();
+    float pv[FB_MAXR], dp[FB_MAXR];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int r = 0; r < FB_MAXR; ++r) {
+      const int j = lane + 32 * r;
+      float s = -INFINITY, a = 0.0f;
+      if (j < N) {
+        const float* kr = Ks + j * ld;
+        const float* vr = Vs + j * ld;
+        float sk = 0.0f;
+        for (int d = 0; d < hd; ++d) sk += q[d] * kr[d];
+        for (int d = 0; d < hd; ++d) a += g[d] * vr[d];
+        s = sk;
+      }
+      pv[r] = s;
+      dp[r] = a;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int r = 0; r < FB_MAXR; ++r) {
+      const int j = lane + 32 * r;
+      pv[r] = j < N ? expf(pv[r] - mx) : 0.0f;
+      sum += pv[r];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int r = 0; r < FB_MAXR; ++r) {
+      const int j = lane + 32 * r;
+      pv[r] /= sum;
+      if (j < N) p[j] = pv[r];
+    }
+    __syncwarp();
+    // o = P . V (f32) and delta = do . o
+    float dl = 0.0f;
+    for (int d = lane; d < hd; d += 32) {
+      float o = 0.0f;
+      for (int j = 0; j < N; ++j) o += p[j] * Vs[j * ld + d];
+      dl += g[d] * o;
+    }
+    const float delta = warp_sum(dl);
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < FB_MAXR; ++r) {
+      const int j = lane + 32 * r;
+      if (j < N) p[j] = pv[r] * (dp[r] - delta);
+    }
+    __syncwarp();
+    for (int d = lane; d < hd; d += 32) {
+      float a = 0.0f;
+      for (int j = 0; j < N; ++j) a += p[j] * Ks[j * ld + d];
+      dq[base + (long long)i * hd + d] = from_f<T>(to_f(from_f<T>(a)) * qscale);
+    }
+    if (lane == 0) {
+      float* st = stats + (pair * N + i) * 3;
+      st[0] = mx;
+      st[1] = sum;
+      st[2] = delta;
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FB_WARPS * 32)
+flash_bwd_cols_kernel(const T* qg, const T* kg, const T* vg, const T* dog,
+                      T* dk, T* dv, const float* stats, int N, int hd,
+                      float qscale) {
+  extern __shared__ float smf[];
+  const int ld = hd + 1;
+  const int NP = (N + 31) / 32 * 32;
+  float* Qs = smf;                              // [N][hd+1] (qm)
+  float* Gs = Qs + N * ld;                      // [N][hd+1] (do)
+  float* sm = Gs + N * ld;                      // [NP] row max
+  float* sl = sm + NP;                          // [NP] row sum
+  float* sd = sl + NP;                          // [NP] row delta
+  float* krow = sd + NP;                        // [warps][hd]
+  float* vrow = krow + FB_WARPS * FB_MAXHD;     // [warps][hd]
+  float* prow = vrow + FB_WARPS * FB_MAXHD;     // [warps][NP]
+  float* srow = prow + FB_WARPS * NP;           // [warps][NP]
+
+  const long long pair = blockIdx.x;
+  const long long base = pair * N * hd;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < N * hd; e += blockDim.x) {
+    const int i = e / hd, d = e % hd;
+    Qs[i * ld + d] = prescaled(qg[base + e], qscale);
+    Gs[i * ld + d] = to_f(dog[base + e]);
+  }
+  for (int i = tid; i < N; i += blockDim.x) {
+    const float* st = stats + (pair * N + i) * 3;
+    sm[i] = st[0];
+    sl[i] = st[1];
+    sd[i] = st[2];
+  }
+  __syncthreads();
+
+  float* kk = krow + warp * FB_MAXHD;
+  float* vv = vrow + warp * FB_MAXHD;
+  float* p = prow + warp * NP;
+  float* s = srow + warp * NP;
+  for (int j = warp; j < N; j += FB_WARPS) {
+    for (int d = lane; d < hd; d += 32) {
+      kk[d] = to_f(kg[base + (long long)j * hd + d]);
+      vv[d] = to_f(vg[base + (long long)j * hd + d]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < FB_MAXR; ++r) {
+      const int i = lane + 32 * r;
+      if (i < N) {
+        const float* qr = Qs + i * ld;
+        const float* gr = Gs + i * ld;
+        float sk = 0.0f, a = 0.0f;
+        for (int d = 0; d < hd; ++d) sk += qr[d] * kk[d];
+        for (int d = 0; d < hd; ++d) a += gr[d] * vv[d];
+        const float pij = expf(sk - sm[i]) / sl[i];
+        p[i] = pij;
+        s[i] = pij * (a - sd[i]);
+      }
+    }
+    __syncwarp();
+    for (int d = lane; d < hd; d += 32) {
+      float av = 0.0f, ak = 0.0f;
+      for (int i = 0; i < N; ++i) {
+        av += p[i] * Gs[i * ld + d];
+        ak += s[i] * Qs[i * ld + d];
+      }
+      dv[base + (long long)j * hd + d] = from_f<T>(av);
+      dk[base + (long long)j * hd + d] = from_f<T>(ak);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T>
+int flash_bwd_impl(int pairs, int N, int hd, float qscale, const void* q_,
+                   const void* k_, const void* v_, const void* do_, void* dq,
+                   void* dk, void* dv, float* stats, cudaStream_t st) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* dO = static_cast<const T*>(do_);
+  const int NP = (N + 31) / 32 * 32;
+  const size_t smem_r = (size_t)(2 * N * (hd + 1) + 2 * FB_WARPS * FB_MAXHD +
+                                 FB_WARPS * NP) * sizeof(float);
+  cudaFuncSetAttribute(flash_bwd_rows_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_r);
+  FC_CHECK();
+  flash_bwd_rows_kernel<T><<<pairs, FB_WARPS * 32, smem_r, st>>>(
+      q, k, v, dO, static_cast<T*>(dq), stats, N, hd, qscale);
+  FC_CHECK();
+  const size_t smem_c = (size_t)(2 * N * (hd + 1) + 3 * NP +
+                                 2 * FB_WARPS * FB_MAXHD + 2 * FB_WARPS * NP) *
+                        sizeof(float);
+  cudaFuncSetAttribute(flash_bwd_cols_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
+  FC_CHECK();
+  flash_bwd_cols_kernel<T><<<pairs, FB_WARPS * 32, smem_c, st>>>(
+      q, k, v, dO, static_cast<T*>(dk), static_cast<T*>(dv), stats, N, hd,
+      qscale);
+  FC_CHECK();
+  return 0;
+}
+
+}  // namespace
+
+// q, k, v, do, dq, dk, dv [pairs, N, hd] (T), contiguous; qscale as
+// fc_flash_fwd.  Scratch: stats [pairs, N, 3] f32.  N <= 256, hd <= 64.
+extern "C" int fc_flash_bwd(int dtype, int pairs, int N, int hd, float qscale,
+                            const void* q, const void* k, const void* v,
+                            const void* dout, void* dq, void* dk, void* dv,
+                            float* stats, cudaStream_t st) {
+  if (dtype == 1)
+    return flash_bwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, dout, dq, dk,
+                                dv, stats, st);
+  return flash_bwd_impl<float>(pairs, N, hd, qscale, q, k, v, dout, dq, dk,
+                               dv, stats, st);
+}

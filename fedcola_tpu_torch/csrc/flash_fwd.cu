@@ -1,0 +1,42 @@
+// Flash attention, forward:  o = softmax( T(q * scale) . k^T ) . v  for every
+// (batch, head) pair, all leading axes merged into `pairs` (the client axis
+// of a client-stacked group folds in as the JAX package's vmap does).
+//
+// Replaces the TPU kernel fedcola_tpu/ops/flash_attention.py: _fwd_kernel
+// (via _fa_fwd): f32 scores of the pre-scaled q (rounded to q's dtype, as
+// _fa_fwd rounds q * scale before the pallas_call), f32 softmax, P rounded
+// to v's dtype, P.v accumulated in f32 and stored in q's dtype.  Used by
+// the MAT blocks whose width is off the fused kernels' 128 grid (mome_tiny,
+// D=192, H=3, hd=64) on both stacks and in central eval.
+//
+// What bounds it on the H100: at mome_tiny's training shape (576 pairs,
+// N=197, hd=64) the 4*N^2*hd products per pair are ~5.7 GFLOP against
+// ~58 MB of q, k, v and o in bf16, so the bytes bound it.  This first
+// version is the attention core of attn_core.cuh (one block per pair, K and
+// V of the pair in shared memory, one warp per query row, CUDA cores);
+// moving the products to tensor cores is later work.
+#include "attn_core.cuh"
+
+namespace {
+
+template <typename T>
+int flash_fwd_impl(int pairs, int N, int hd, float qscale, const void* q,
+                   const void* k, const void* v, void* o, cudaStream_t st) {
+  const CoreLayout L = {(long long)N * hd, hd, (long long)N * hd, hd};
+  return attn_core_fwd<T>(static_cast<const T*>(q), static_cast<const T*>(k),
+                          static_cast<const T*>(v), static_cast<T*>(o),
+                          nullptr, L, pairs, 1, N, hd, 1.0f, qscale, st);
+}
+
+}  // namespace
+
+// q, k, v, o [pairs, N, hd] (T), contiguous; qscale = the softmax scale
+// hd^-0.5 as a value of T (the TPU code multiplies q by scale cast to q's
+// dtype).  N <= 256, hd <= 64.  dtype: 0 = float32, 1 = bfloat16.
+extern "C" int fc_flash_fwd(int dtype, int pairs, int N, int hd, float qscale,
+                            const void* q, const void* k, const void* v,
+                            void* o, cudaStream_t st) {
+  if (dtype == 1)
+    return flash_fwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, o, st);
+  return flash_fwd_impl<float>(pairs, N, hd, qscale, q, k, v, o, st);
+}

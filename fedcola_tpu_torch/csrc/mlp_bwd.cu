@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernel fedcola_tpu/ops/fused_mlp.py:
 // _make_ln_item_bwd_kernel (via _ln_item_bwd_call), residual=True on the
-// training path; s=NULL gives its residual=False variant.
+// training path (fc_mlp_bwd); its residual=False variant, the backward of
+// fused_mlp_sublayer_items under the remat policies, is fc_mlp_bwd_nores
+// (s=NULL: the branch gradient is do itself and dx has no identity term).
 //
 // What bounds it on the H100: 12*B*N*D*4D FLOPs per client (~87 GFLOP at
 // the main-path shape), half of them the two weight-gradient GEMMs that
@@ -133,4 +135,20 @@ extern "C" int fc_mlp_bwd(int dtype, int n, int B, int N, int D, int F,
                              dx, dlns, dlnb, dw1, db1, dw2, db2, h, mean,
                              rstd, dos, pre, dhid, hg, dprec, dhn, partial,
                              st);
+}
+
+// The residual=False variant: fc_mlp_bwd without s.
+extern "C" int fc_mlp_bwd_nores(int dtype, int n, int B, int N, int D, int F,
+                                const void* x, const float* lns,
+                                const float* lnb, const void* w1,
+                                const void* b1, const void* w2,
+                                const void* dout, void* dx, float* dlns,
+                                float* dlnb, float* dw1, float* db1,
+                                float* dw2, float* db2, void* h, float* mean,
+                                float* rstd, void* dos, float* pre,
+                                float* dhid, void* hg, void* dprec,
+                                float* dhn, float* partial, cudaStream_t st) {
+  return fc_mlp_bwd(dtype, n, B, N, D, F, x, nullptr, lns, lnb, w1, b1, w2,
+                    dout, dx, dlns, dlnb, dw1, db1, dw2, db2, h, mean, rstd,
+                    dos, pre, dhid, hg, dprec, dhn, partial, st);
 }

@@ -38,6 +38,12 @@ MAIN_PATH_FLAGS = (
     "--equal_sampled", "--eval_batch_size", "512", "--dropout", "0.1",
     "--synthetic_data", "--debug", "--device", "cuda")
 
+# The same line at mome_tiny width (D=192, 3 heads, depth 12): off the
+# fused kernels' 128 grid, so attention runs through the flash kernels.
+MOME_TINY_FLAGS = tuple(
+    "mome_tiny_patch16" if prev == "--model_name" else flag
+    for prev, flag in zip(("",) + MAIN_PATH_FLAGS, MAIN_PATH_FLAGS))
+
 
 class JsonlWriter:
     """Per-round metrics as JSON lines under ``--result_path``."""

@@ -14,13 +14,18 @@ call trains or evaluates a whole client group and each kernel launch
 covers all ``n`` clients.  :func:`mat_apply` is the single-model form
 (``n = 1``).
 
-Per block the stack runs the fused sublayers of ``ops/``: on CUDA tensors
-they launch the hand-written kernels, on CPU tensors their plain versions.
-Training uses the residual-folded sublayers with a per-sample DropPath
-scale ``s`` drawn from a ``torch.Generator``; eval uses the no-save,
-no-residual variants.  Numerics follow the reference: f32 attention scores
-and softmax, exact-erf GELU, LayerNorm eps 1e-5 in blocks, 1e-6 for the
-final norm and 1e-12 for the text embedding.
+Per block the stack is routed as the JAX ``_run_stack`` routes it.  Widths
+on the 128 grid take the fused sublayers of ``ops/fused_*.py``: under
+``remat_policy='kernel'`` the residual-folded training pair (kernels 1-4),
+otherwise (eval, 'save_attn', 'full') the no-residual pair (kernels 1e, 5,
+3e, 6).  Other widths (mome_tiny) take LayerNorm + ``multi_head_attention``
+(the flash kernels 11/12, or plain ops with ``use_pallas`` off) and a plain
+MLP, under 'save_attn'.  On CUDA tensors the kernels launch, on CPU
+tensors their plain versions run; the route does not depend on the device.
+DropPath draws come from a ``torch.Generator`` before any checkpointed
+region, so a recompute sees the same draws.  Numerics follow the
+reference: f32 attention scores and softmax, exact-erf GELU, LayerNorm eps
+1e-5 in blocks, 1e-6 for the final norm and 1e-12 for the text embedding.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from fedcola_tpu_torch.ops.attention import multi_head_attention
+from fedcola_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, MAX_SEQ,
+                                                   scale_as)
 from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
 from fedcola_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_residual
@@ -45,7 +54,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclass(frozen=True)
 class MATConfig:
     """Static model configuration: the JAX package's fields, less the
-    scan/remat tuning knobs the eager port has no use for."""
+    tuning knobs the eager port has no use for (scan unroll, per-layer
+    I/O, the remat on/off switch)."""
     modalities: Tuple[Optional[str], ...] = ("img", "txt")
     tasks: Tuple[Optional[str], ...] = ("cls", None)
     num_classes: Tuple[Optional[int], ...] = (None, None)
@@ -68,10 +78,14 @@ class MATConfig:
     aux_attn_only: bool = False
     aux_mlp_only: bool = False
     use_pallas: bool = True
+    # stacks shorter than this take the unfused attention path
+    fused_attn_min_seq: int = 0
     use_fused_mlp: bool = False
     compute_dtype: str = "bfloat16"
-    # 'kernel': the fused sublayers save what their backward kernels need
-    # (the only policy with ported kernels)
+    # 'kernel': the residual-folded fused sublayers save what their
+    # backward kernels need (falls back to 'save_attn' where the fused
+    # sublayers are off); 'save_attn': keep each layer's input and
+    # attention output, recompute the rest; 'full': keep only the input
     remat_policy: str = "kernel"
 
     FUSED_MAX_EMBED_DIM = 1024
@@ -273,42 +287,95 @@ def _effective_kernels(cfg: MATConfig, params: Params, slot: str) -> Params:
 
 
 def check_kernel_support(cfg: MATConfig) -> None:
-    """Refuse, on the card, what the CUDA kernels of this port do not
-    cover yet (the plain versions run only on CPU tensors)."""
+    """Refuse, on the card, what no CUDA kernel of this port covers: both
+    attention routes take head_dim <= 64 and sequences of at most 256
+    tokens (the JAX package falls back to XLA past 1024; the port
+    raises)."""
     if not cfg.use_pallas:
+        return
+    hd = cfg.embed_dim // cfg.num_heads
+    seqs = [cfg.num_patches + 1 if m == "img" else cfg.max_text_len
+            for m in cfg.modalities if m is not None]
+    if hd > MAX_HEAD_DIM or max(seqs) > MAX_SEQ:
         raise NotImplementedError(
-            "--no_pallas: the port runs the fused kernels on CUDA; the "
-            "unfused XLA-equivalent path is not ported (use --device cpu "
-            "for the plain versions)")
-    if not (cfg.fused_attn_ok and cfg.fused_mlp_ok):
-        raise NotImplementedError(
-            f"embed_dim {cfg.embed_dim}: the fused kernels need D % 128 == 0 "
-            f"and D <= {cfg.FUSED_MAX_EMBED_DIM}; other widths take the "
-            "flash-attention kernels, a later slice of the port")
-    if cfg.remat_policy != "kernel":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: only 'kernel' is ported; "
-            "the recompute attention backward is a later slice of the port")
+            f"embed_dim {cfg.embed_dim} / {cfg.num_heads} heads, sequences "
+            f"{seqs}: the attention kernels take head_dim <= {MAX_HEAD_DIM} "
+            f"and N <= {MAX_SEQ}")
 
 
-def _drop_path_scale(rate: float, n: int, B: int, use_dp: bool, gen,
-                     device) -> torch.Tensor:
-    """Per-sample DropPath scale ``[n, B]``: bernoulli(keep) / keep."""
-    if not use_dp:
-        return torch.ones((n, B), dtype=torch.float32, device=device)
-    keep = 1.0 - rate
-    mask = torch.rand((n, B), generator=gen, device=device) < keep
-    return mask.float() / keep
+def _drop_path_mask(rate: float, n: int, B: int, gen,
+                    device) -> torch.Tensor:
+    """Per-sample keep mask ``[n, B]``: uniform < 1 - rate."""
+    return torch.rand((n, B), generator=gen, device=device) < 1.0 - rate
+
+
+def _keep_inv(rate: float, dtype) -> float:
+    """``1 / keep`` computed in float32 and rounded to the activation dtype
+    (the JAX ``_drop_path``)."""
+    return scale_as(dtype, np.float32(1.0) / (np.float32(1.0)
+                                              - np.float32(rate)))
+
+
+def _drop_path(x: torch.Tensor, mask: Optional[torch.Tensor],
+               inv: Optional[float]) -> torch.Tensor:
+    """timm DropPath with the draw passed in: ``where(mask, x * inv, 0)``
+    in x's dtype (mat.py ``_drop_path``); identity without a mask."""
+    if mask is None:
+        return x
+    return torch.where(mask[:, :, None, None], x * inv, torch.zeros_like(x))
+
+
+def _mlp_plain(h, ln2, w):
+    """The unfused MLP sublayer (LN, fc1, exact GELU, fc2), matmul operands
+    and results in h's dtype as the JAX package's XLA branch."""
+    n, B, N, D = h.shape
+    w1, b1, w2, b2 = w
+    m = _layer_norm(h, ln2[0], ln2[1], 1e-5).reshape(n, B * N, D)
+    m = torch.nn.functional.gelu(torch.matmul(m, w1) + b1[:, None, :])
+    return (torch.matmul(m, w2) + b2[:, None, :]).reshape(n, B, N, D)
+
+
+def _sublayers(cfg: MATConfig, fused_attn: bool, fused_mlp_: bool,
+               flash: bool, ln1, attn_w, ln2, mlp_w, masks, inv):
+    """One layer's non-residual-folded pieces, bound to its weights and
+    DropPath draws (so a checkpoint's recompute sees the same ones):
+    ``attn(h) -> a``, ``mlp_join(h1) -> h1 + dp(mlp(h1))`` and the whole
+    ``layer(h)``."""
+    def attn(h):
+        if fused_attn:
+            return fused_attention(h, *ln1, *attn_w, cfg.num_heads)
+        return multi_head_attention(_layer_norm(h, ln1[0], ln1[1], 1e-5),
+                                    *attn_w, cfg.num_heads,
+                                    use_pallas=flash)
+
+    def mlp_join(h1):
+        m = fused_mlp(h1, *ln2, *mlp_w) if fused_mlp_ else \
+            _mlp_plain(h1, ln2, mlp_w)
+        return h1 + _drop_path(m, masks[1], inv)
+
+    def layer(h):
+        return mlp_join(h + _drop_path(attn(h), masks[0], inv))
+
+    return attn, mlp_join, layer
+
+
+def _ckpt(fn, x):
+    # the DropPath draws are taken outside, so no RNG state to replay
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
                gen) -> torch.Tensor:
-    """The ``depth`` blocks over x ``[n, B, N, D]`` (a Python loop)."""
-    if x.is_cuda:
-        check_kernel_support(cfg)
-    n, B = x.shape[:2]
+    """The ``depth`` blocks over x ``[n, B, N, D]`` (a Python loop), routed
+    as the JAX ``_run_stack`` (mat.py:427-591)."""
+    n, B, N = x.shape[:3]
     dt = x.dtype
-    use_dp = cfg.drop_path_rate > 0
+    use_dp = train and cfg.drop_path_rate > 0
+    fused_attn_here = cfg.fused_attn_ok and N >= cfg.fused_attn_min_seq
+    flash = cfg.use_pallas and N >= cfg.fused_attn_min_seq
+    policy = cfg.remat_policy
+    if policy == "kernel" and not (fused_attn_here and cfg.fused_mlp_ok):
+        policy = "save_attn"
     h = x
 
     def layer(l, key, cast=False):
@@ -322,14 +389,29 @@ def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
                                               "proj_kernel", "proj_bias")]
         mlp_w = [layer(l, k, True) for k in ("fc1_kernel", "fc1_bias",
                                              "fc2_kernel", "fc2_bias")]
-        if train:
-            s_a = _drop_path_scale(rate, n, B, use_dp, gen, x.device)
-            s_m = _drop_path_scale(rate, n, B, use_dp, gen, x.device)
+        masks = [_drop_path_mask(rate, n, B, gen, x.device)
+                 if use_dp else None for _ in range(2)]
+        if train and policy == "kernel":
+            # the residual join and the DropPath scale run in the kernels
+            s_a, s_m = (torch.ones((n, B), device=x.device) if m is None
+                        else m.float() / (1.0 - rate) for m in masks)
             h = fused_attention_residual(h, s_a, *ln1, *attn_w, cfg.num_heads)
             h = fused_mlp_residual(h, s_m, *ln2, *mlp_w)
+            continue
+        inv = _keep_inv(rate, dt) if use_dp else None
+        attn, mlp_join, whole = _sublayers(
+            cfg, fused_attn_here, cfg.fused_mlp_ok, flash, ln1, attn_w, ln2,
+            mlp_w, masks, inv)
+        if not train:
+            h = whole(h)
+        elif policy == "full":
+            h = _ckpt(whole, h)
         else:
-            h = h + fused_attention(h, *ln1, *attn_w, cfg.num_heads)
-            h = h + fused_mlp(h, *ln2, *mlp_w)
+            # 'save_attn': keep the attention output; recompute the rest.
+            # The fused sublayers save only their inputs already.
+            a = attn(h) if fused_attn_here else _ckpt(attn, h)
+            h = h + _drop_path(a, masks[0], inv)
+            h = mlp_join(h) if cfg.fused_mlp_ok else _ckpt(mlp_join, h)
     return h
 
 

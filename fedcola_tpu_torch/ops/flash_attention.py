@@ -1,0 +1,136 @@
+"""Flash attention: ``softmax(q k^T * scale) v`` per (batch, head) pair with
+f32 scores and softmax, and its backward, which recomputes P.
+
+Counterpart of ``fedcola_tpu/ops/flash_attention.py``.  Two wrappers, one
+per TPU kernel, each with its plain PyTorch version:
+
+* :func:`flash_fwd` — kernel ``csrc/flash_fwd.cu`` (replaces ``_fwd_kernel``
+  via ``_fa_fwd``);
+* :func:`flash_bwd` — kernel ``csrc/flash_bwd.cu`` (replaces
+  ``_bwd_kernel`` via ``_fa_bwd``).
+
+q, k, v are ``[..., N, hd]``; every leading axis is merged into one pair
+axis, so one launch covers a client-stacked group (``[n, B, H, N, hd]``)
+as the JAX package's vmap does.  Rounding points, as ``_fa_fwd`` /
+``_fa_bwd`` place them: ``qm = q * scale`` in q's dtype (scale cast to that
+dtype first); scores of the upcast operands and softmax in f32; forward P
+rounded to v's dtype, P.v accumulated in f32 and stored in q's dtype;
+backward P, o, delta and dS in f32, each gradient cast to its input's dtype
+and dq then multiplied by scale in q's dtype.
+
+A wrapper given CUDA tensors launches its kernel or raises; given CPU
+tensors it runs the plain version.  The kernels take N <= 256 and
+hd <= 64; the JAX package falls back to XLA above N = 1024 (and where one
+pair exceeds its VMEM budget), the port raises instead.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from fedcola_tpu_torch.ops import kernels
+
+Tensor = torch.Tensor
+
+MAX_SEQ = 256
+MAX_HEAD_DIM = 64
+
+
+def scale_as(dtype: torch.dtype, value: float) -> float:
+    """``value`` rounded to ``dtype`` (JAX's ``jnp.asarray(value, dtype)``),
+    as a Python float: multiplying a tensor of that dtype by it rounds the
+    exact product once, as the JAX product of two such values does, and
+    needs no device copy."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+# ------------------------------------------------------------ plain --------
+
+def flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    qm = q * scale_as(q.dtype, scale)
+    p = torch.softmax(torch.matmul(qm.float(), k.float().transpose(-1, -2)),
+                      dim=-1).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                    scale: float) -> Tuple[Tensor, Tensor, Tensor]:
+    sc = scale_as(q.dtype, scale)
+    qm = (q * sc).float()
+    kf, vf, dof = k.float(), v.float(), do.float()
+    p = torch.softmax(torch.matmul(qm, kf.transpose(-1, -2)), dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    o = torch.matmul(p, vf)
+    delta = (dof * o).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qm)
+    return dq.to(q.dtype) * sc, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------- wrappers -------
+
+def _check(q: Tensor, *others: Tuple[str, Tensor]) -> Tuple[int, int, int]:
+    N, hd = q.shape[-2:]
+    if N > MAX_SEQ or hd > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"flash attention kernel takes N <= {MAX_SEQ} and head_dim <= "
+            f"{MAX_HEAD_DIM} (got N={N}, head_dim={hd}); the JAX package's "
+            "XLA fallback for long sequences is not ported")
+    for name, t in (("q", q),) + others:
+        kernels.check(t, name, q.shape, q.dtype, q.device)
+    return q.numel() // (N * hd), N, hd
+
+
+def flash_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """Kernel 11: the attention output ``[..., N, hd]`` in q's dtype."""
+    if not q.is_cuda:
+        return flash_fwd_plain(q, k, v, scale)
+    pairs, N, hd = _check(q, ("k", k), ("v", v))
+    o = torch.empty_like(q)
+    P_ = kernels.ptr
+    kernels.launch("flash_fwd", kernels.dtype_code(q.dtype), pairs, N, hd,
+                   scale_as(q.dtype, scale), P_(q), P_(k), P_(v), P_(o))
+    return o
+
+
+def flash_bwd(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+              scale: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """Kernel 12: (dq, dk, dv), each in its input's dtype."""
+    if not q.is_cuda:
+        return flash_bwd_plain(q, k, v, do, scale)
+    pairs, N, hd = _check(q, ("k", k), ("v", v), ("do", do))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty((pairs, N, 3), dtype=torch.float32, device=q.device)
+    P_ = kernels.ptr
+    kernels.launch("flash_bwd", kernels.dtype_code(q.dtype), pairs, N, hd,
+                   scale_as(q.dtype, scale), P_(q), P_(k), P_(v), P_(do),
+                   P_(dq), P_(dk), P_(dv), P_(stats))
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------- autograd -------
+
+class FlashAttention(torch.autograd.Function):
+    """Forward kernel 11; backward kernel 12 from the saved q, k, v (P is
+    recomputed, as ``_fa_bwd`` recomputes it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return flash_fwd(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
+    """Differentiable ``softmax(q k^T * scale) v`` over ``[..., N, hd]``."""
+    return FlashAttention.apply(q, k, v, scale)

@@ -1,14 +1,17 @@
 """Fused attention sublayer: ``[x + s*] proj(MHA(LN1(x)))`` over stacked
 clients.
 
-Counterpart of ``fedcola_tpu/ops/fused_attention.py``.  Two wrappers, one
-per TPU kernel of the training path, each with its plain PyTorch version:
+Counterpart of ``fedcola_tpu/ops/fused_attention.py``.  Three wrappers,
+one per TPU kernel, each with its plain PyTorch version:
 
 * :func:`attn_fwd` — kernel ``csrc/attn_fwd.cu`` (replaces
-  ``_make_fwd_save_kernel``; ``save=False, s=None`` is the eval variant
-  that replaces ``_make_fwd_kernel``);
+  ``_make_fwd_save_kernel``; ``save=False, s=None`` is the eval and remat
+  variant that replaces ``_make_fwd_kernel``);
 * :func:`attn_bwd` — kernel ``csrc/attn_bwd.cu`` (replaces
-  ``_make_bwd_save_kernel``).
+  ``_make_bwd_save_kernel``);
+* :func:`attn_bwd_recompute` — entry ``fc_attn_bwd_recompute`` of
+  ``csrc/attn_bwd.cu`` (replaces ``_make_bwd_kernel`` / ``_bwd_one``, the
+  backward under the remat policies: no saves, no residual).
 
 Shapes (leading client axis ``n``): x ``[n, B, N, D]``; s ``[n, B]`` f32
 (per-sample DropPath scale, None = no residual); lns/lnb ``[n, D]`` f32;
@@ -18,7 +21,9 @@ wqkv ``[n, D, 3D]``, bqkv ``[n, 3D]``, wproj ``[n, D, D]``, bproj
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  The plain versions round to x's dtype
 at the same points as the kernels (LN output, qkv, P, the head concat, the
-branch gradient, dS, dqkv) and accumulate in float32.
+branch gradient, dS, dqkv) and accumulate in float32.  The recompute
+backward keeps P in float32 for delta and dS and rounds it only for dV, as
+``_bwd_one`` does.
 """
 
 from __future__ import annotations
@@ -85,17 +90,28 @@ def _qkv(x, lns, lnb, wqkv, bqkv):
 
 # ------------------------------------------------------------ plain --------
 
+def _probs(qkv: Tensor, num_heads: int) -> Tensor:
+    """float32 softmax of the scaled float32 scores, ``[n, B, H, N, N]``."""
+    D = qkv.shape[-1] // 3
+    q, k, _ = (_heads(t, num_heads).float() for t in qkv.split(D, dim=-1))
+    scores = torch.matmul(q, k.transpose(-1, -2)) * (D // num_heads) ** -0.5
+    return torch.softmax(scores, dim=-1)
+
+
+def _cat(p: Tensor, qkv: Tensor) -> Tensor:
+    """Head concat ``T(P.V)`` from P in x's dtype."""
+    D = qkv.shape[-1] // 3
+    v = _heads(qkv[..., 2 * D:], p.shape[2]).float()
+    return _merge(torch.matmul(p.float(), v)).to(qkv.dtype)
+
+
 def attn_fwd_plain(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads: int,
                    save: bool = True):
     """Plain version of :func:`attn_fwd`: returns (out, P, cat)."""
     dt = x.dtype
-    D = x.shape[-1]
-    hd = D // num_heads
     _, _, _, qkv = _qkv(x, lns, lnb, wqkv, bqkv)
-    q, k, v = (_heads(t, num_heads) for t in qkv.split(D, dim=-1))
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd ** -0.5
-    p = torch.softmax(scores, dim=-1).to(dt)
-    cat = _merge(torch.matmul(p.float(), v.float())).to(dt)
+    p = _probs(qkv, num_heads).to(dt)
+    cat = _cat(p, qkv)
     a = _mm(cat, wproj) + bproj.float()[:, None, None, :]
     if s is not None:
         a = x.float() + s[:, :, None, None] * a
@@ -106,22 +122,42 @@ def attn_bwd_plain(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da,
                    num_heads: int):
     """Plain version of :func:`attn_bwd`: returns (dx, dlns, dlnb, dwqkv,
     dbqkv, dwproj, dbproj); dx in x's dtype, the rest float32."""
+    pf = P.float()
+    return _attn_bwd(x, s, lns, wqkv, _qkv(x, lns, lnb, wqkv, bqkv), wproj,
+                     pf, pf, cat, da, num_heads)
+
+
+def attn_bwd_recompute_plain(x, lns, lnb, wqkv, bqkv, wproj, da,
+                             num_heads: int):
+    """Plain version of :func:`attn_bwd_recompute` (``_bwd_one``): P, the
+    head concat and everything before them recomputed from x; P stays
+    float32 for delta and dS and is rounded to x's dtype for dV and cat."""
+    fwd = _qkv(x, lns, lnb, wqkv, bqkv)
+    p32 = _probs(fwd[3], num_heads)
+    pt = p32.to(x.dtype)
+    return _attn_bwd(x, None, lns, wqkv, fwd, wproj, pt.float(), p32,
+                     _cat(pt, fwd[3]), da, num_heads)
+
+
+def _attn_bwd(x, s, lns, wqkv, fwd, wproj, p_dv, p_ds, cat, da,
+              num_heads: int):
+    """The sublayer backward given P for dV (``p_dv``) and for the softmax
+    gradient (``p_ds``), both float32."""
     dt = x.dtype
     D = x.shape[-1]
     H = num_heads
     scale = (D // H) ** -0.5
-    h, xhat, inv, qkv = _qkv(x, lns, lnb, wqkv, bqkv)
+    h, xhat, inv, qkv = fwd
     das = da.float() * s[:, :, None, None] if s is not None else da.float()
     dac = das.to(dt)
     dwproj = _rows_t_mm(cat, dac)
     dbproj = das.sum(dim=(1, 2))
     do = _heads(_mm(dac, wproj.transpose(1, 2)).to(dt), H).float()
     q, k, v = (_heads(t, H).float() for t in qkv.split(D, dim=-1))
-    pf = P.float()
-    dv = torch.matmul(pf.transpose(-1, -2), do)
+    dv = torch.matmul(p_dv.transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
-    delta = (dp * pf).sum(-1, keepdim=True)
-    ds = (pf * (dp - delta)).to(dt).float()
+    delta = (dp * p_ds).sum(-1, keepdim=True)
+    ds = (p_ds * (dp - delta)).to(dt).float()
     dq = torch.matmul(ds, k) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q) * scale
     dqkv = torch.cat([_merge(dq), _merge(dk), _merge(dv)], dim=-1)
@@ -228,6 +264,49 @@ def attn_bwd(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da, num_heads: int):
     return dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj
 
 
+def attn_bwd_recompute(x, lns, lnb, wqkv, bqkv, wproj, da, num_heads: int):
+    """Kernel 5: gradients of ``attn(x)`` (no residual) recomputing the
+    forward from x; returns (dx, dlns, dlnb, dwqkv, dbqkv, dwproj,
+    dbproj)."""
+    if not x.is_cuda:
+        return attn_bwd_recompute_plain(x, lns, lnb, wqkv, bqkv, wproj, da,
+                                        num_heads)
+    _check_fwd_args(x, None, lns, lnb, wqkv, bqkv, wproj, None, num_heads)
+    n, B, N, D = x.shape
+    H = num_heads
+    dt, dev = x.dtype, x.device
+    kernels.check(da, "da", (n, B, N, D), dt, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dlns = torch.empty((n, D), **f32)
+    dlnb = torch.empty((n, D), **f32)
+    dwqkv = torch.empty((n, D, 3 * D), **f32)
+    dbqkv = torch.empty((n, 3 * D), **f32)
+    dwproj = torch.empty((n, D, D), **f32)
+    dbproj = torch.empty((n, D), **f32)
+    h = torch.empty_like(x)
+    mean = torch.empty((n * B * N,), **f32)
+    rstd = torch.empty_like(mean)
+    qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)
+    P = torch.empty((n, B, H, N, N), dtype=dt, device=dev)
+    cat = torch.empty_like(x)
+    dac = torch.empty_like(x)
+    dO = torch.empty_like(x)
+    dS = torch.empty_like(P)
+    dqkv = torch.empty((n, B, N, 3 * D), **f32)
+    dqkvc = torch.empty_like(qkv)
+    dh = torch.empty((n, B, N, D), **f32)
+    partial = torch.empty((n, 32, 3 * D), **f32)
+    P_ = kernels.ptr
+    kernels.launch("attn_bwd_recompute", kernels.dtype_code(dt), n, B, N, D,
+                   H, P_(x), P_(lns), P_(lnb), P_(wqkv), P_(bqkv), P_(wproj),
+                   P_(da), P_(dx), P_(dlns), P_(dlnb), P_(dwqkv), P_(dbqkv),
+                   P_(dwproj), P_(dbproj), P_(h), P_(mean), P_(rstd), P_(qkv),
+                   P_(P), P_(cat), P_(dac), P_(dO), P_(dS), P_(dqkv),
+                   P_(dqkvc), P_(dh), P_(partial))
+    return dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj
+
+
 # ---------------------------------------------------------- autograd -------
 
 class FusedAttentionResidual(torch.autograd.Function):
@@ -263,9 +342,31 @@ def fused_attention_residual(x, s, lns, lnb, wqkv, bqkv, wproj, bproj,
                                         bproj, num_heads)
 
 
-def fused_attention(x, lns, lnb, wqkv, bqkv, wproj, bproj,
-                    num_heads: int) -> Tensor:
-    """Eval sublayer ``attn(x)``: kernel 1 without saves or residual."""
-    with torch.no_grad():
+class FusedAttention(torch.autograd.Function):
+    """``attn(x)`` without residual: forward is kernel 1 without saves, the
+    backward kernel 5 recomputes everything from x, so only the inputs are
+    saved (``make_fused_attention_sublayer(save_residuals=False)``)."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads):
+        ctx.save_for_backward(x, lns, lnb, wqkv, bqkv, wproj, bproj)
+        ctx.num_heads = num_heads
         return attn_fwd(x, None, lns, lnb, wqkv, bqkv, wproj, bproj,
                         num_heads, save=False)[0]
+
+    @staticmethod
+    def backward(ctx, da):
+        x, lns, lnb, wqkv, bqkv, wproj, bproj = ctx.saved_tensors
+        dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj = attn_bwd_recompute(
+            x, lns, lnb, wqkv, bqkv, wproj, da.contiguous(), ctx.num_heads)
+        return (dx, dlns.to(lns.dtype), dlnb.to(lnb.dtype),
+                dwqkv.to(wqkv.dtype), dbqkv.to(bqkv.dtype),
+                dwproj.to(wproj.dtype), dbproj.to(bproj.dtype), None)
+
+
+def fused_attention(x, lns, lnb, wqkv, bqkv, wproj, bproj,
+                    num_heads: int) -> Tensor:
+    """Sublayer ``attn(x)`` (eval, and training under the remat policies):
+    kernel 1 without saves or residual; differentiable through kernel 5."""
+    return FusedAttention.apply(x, lns, lnb, wqkv, bqkv, wproj, bproj,
+                                num_heads)

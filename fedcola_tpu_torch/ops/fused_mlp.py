@@ -9,7 +9,9 @@ PyTorch version:
   ``_make_ln_item_fwd_kernel``; ``s=None`` is its residual=False eval
   variant);
 * :func:`mlp_bwd` — kernel ``csrc/mlp_bwd.cu`` (replaces
-  ``_make_ln_item_bwd_kernel``, residual=True).
+  ``_make_ln_item_bwd_kernel``: ``fc_mlp_bwd`` with residual=True;
+  ``s=None`` launches ``fc_mlp_bwd_nores``, its residual=False variant,
+  the backward of ``fused_mlp_sublayer_items`` under the remat policies).
 
 Shapes: x ``[n, B, N, D]``; s ``[n, B]`` f32 or None; lns/lnb ``[n, D]``
 f32; w1 ``[n, D, F]``, b1 ``[n, F]``, w2 ``[n, F, D]``, b2 ``[n, D]`` in
@@ -116,8 +118,8 @@ def mlp_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, w1, b1, w2,
 
 
 def mlp_bwd(x, s, lns, lnb, w1, b1, w2, do):
-    """Kernel 4: gradients of ``[x + s*] mlp(LN2(x))``; returns (dx, dlns,
-    dlnb, dw1, db1, dw2, db2)."""
+    """Kernel 4 (kernel 6 when ``s`` is None): gradients of ``[x + s*]
+    mlp(LN2(x))``; returns (dx, dlns, dlnb, dw1, db1, dw2, db2)."""
     if not x.is_cuda:
         return mlp_bwd_plain(x, s, lns, lnb, w1, b1, w2, do)
     n, B, N, D, F = _check_args(x, s, lns, lnb, w1, b1, w2, None)
@@ -142,8 +144,10 @@ def mlp_bwd(x, s, lns, lnb, w1, b1, w2, do):
     dhn = torch.empty((n, B, N, D), **f32)
     partial = torch.empty((n, 32, max(F, D)), **f32)
     P_ = kernels.ptr
-    kernels.launch("mlp_bwd", kernels.dtype_code(dt), n, B, N, D, F,
-                   P_(x), P_(s), P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
+    head = (("mlp_bwd", kernels.dtype_code(dt), n, B, N, D, F, P_(x), P_(s))
+            if s is not None else
+            ("mlp_bwd_nores", kernels.dtype_code(dt), n, B, N, D, F, P_(x)))
+    kernels.launch(*head, P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
                    P_(do), P_(dx), P_(dlns), P_(dlnb), P_(dw1), P_(db1),
                    P_(dw2), P_(db2), P_(h), P_(mean), P_(rstd), P_(dos),
                    P_(pre), P_(dhid), P_(hg), P_(dprec), P_(dhn),
@@ -177,7 +181,25 @@ def fused_mlp_residual(x, s, lns, lnb, w1, b1, w2, b2) -> Tensor:
     return FusedMLPResidual.apply(x, s, lns, lnb, w1, b1, w2, b2)
 
 
-def fused_mlp(x, lns, lnb, w1, b1, w2, b2) -> Tensor:
-    """Eval sublayer ``mlp(x)``: kernel 3 without the residual."""
-    with torch.no_grad():
+class FusedMLP(torch.autograd.Function):
+    """``mlp(x)`` without residual (``fused_mlp_sublayer_items``): forward
+    kernel 3 with ``s=None``, backward kernel 6."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w1, b1, w2, b2):
+        ctx.save_for_backward(x, lns, lnb, w1, b1, w2, b2)
         return mlp_fwd(x, None, lns, lnb, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, lns, lnb, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dlns, dlnb, dw1, db1, dw2, db2 = mlp_bwd(
+            x, None, lns, lnb, w1, b1, w2, dout.contiguous())
+        return (dx, dlns.to(lns.dtype), dlnb.to(lnb.dtype), dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def fused_mlp(x, lns, lnb, w1, b1, w2, b2) -> Tensor:
+    """Sublayer ``mlp(x)`` (eval, and training under the remat policies):
+    kernel 3 without the residual; differentiable through kernel 6."""
+    return FusedMLP.apply(x, lns, lnb, w1, b1, w2, b2)

@@ -29,20 +29,28 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libfedcola_kernels.so"
-SOURCES = ("attn_fwd.cu", "attn_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu")
+SOURCES = ("attn_fwd.cu", "attn_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
+           "flash_fwd.cu", "flash_bwd.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches per entry point, counted by the ops wrappers (CUDA branch only)
-LAUNCHES: Dict[str, int] = {"attn_fwd": 0, "attn_bwd": 0,
-                            "mlp_fwd": 0, "mlp_bwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "attn_fwd": 0, "attn_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+    "attn_bwd_recompute": 0, "mlp_bwd_nores": 0,
+    "flash_fwd": 0, "flash_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "fc_attn_fwd": [_I] * 6 + [_P] * 15 + [_I, _P],
     "fc_attn_bwd": [_I] * 6 + [_P] * 29,
+    "fc_attn_bwd_recompute": [_I] * 6 + [_P] * 28,
     "fc_mlp_fwd": [_I] * 6 + [_P] * 14,
     "fc_mlp_bwd": [_I] * 6 + [_P] * 26,
+    "fc_mlp_bwd_nores": [_I] * 6 + [_P] * 25,
+    "fc_flash_fwd": [_I] * 4 + [_F] + [_P] * 5,
+    "fc_flash_bwd": [_I] * 4 + [_F] + [_P] * 9,
 }
 
 _lib: Optional[ctypes.CDLL] = None

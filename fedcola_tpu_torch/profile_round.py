@@ -1,6 +1,6 @@
 """Where one FedCola round's device time goes, by kernel and by wrapper.
 
-    python -m fedcola_tpu_torch.profile_round [main.py flags]
+    python -m fedcola_tpu_torch.profile_round [--tiny | main.py flags]
 
 Runs the configured experiment for one untraced warm-up round, then traces
 the next round's update (train + aggregate) with ``torch.profiler`` and
@@ -8,7 +8,8 @@ prints the wall time, the summed device kernel time, the device idle share
 (1 - kernel time / wall time, one stream), the device time under each
 kernel wrapper (``fc_*`` ranges, one per TPU kernel of the JAX package)
 and the top kernels by device time.  Without flags it runs the main path
-of ``chip_smoke.py`` (``main.MAIN_PATH_FLAGS``).
+of ``chip_smoke.py`` (``main.MAIN_PATH_FLAGS``); ``--tiny`` runs the same
+line at mome_tiny width (``main.MOME_TINY_FLAGS``, the flash route).
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ def main(argv=None) -> int:
     from fedcola_tpu_torch.config import parse_args
     from fedcola_tpu_torch.data.loaders import load_federated_data
     from fedcola_tpu_torch.federation.server import create_server
-    from fedcola_tpu_torch.main import MAIN_PATH_FLAGS
-    argv = list(argv if argv is not None else sys.argv[1:]) or \
-        list(MAIN_PATH_FLAGS)
+    from fedcola_tpu_torch.main import MAIN_PATH_FLAGS, MOME_TINY_FLAGS
+    argv = list(argv if argv is not None else sys.argv[1:])
+    if argv in ([], ["--tiny"]):
+        argv = list(MOME_TINY_FLAGS if argv else MAIN_PATH_FLAGS)
     with tempfile.TemporaryDirectory(prefix="fedcola_profile_") as out:
         cfg = parse_args(argv + ["--result_path", out, "--log_path", out])
         if cfg.device != "cuda":
@@ -62,7 +64,7 @@ def _profile(server) -> int:
           f"{busy:.3f}s, device idle share {1 - busy / wall:.3f}")
     in_wrappers = sum(e.device_time_total for e in wrappers) / 1e6
     in_bwd = sum(e.device_time_total for e in wrappers
-                 if e.key.endswith("_bwd")) / 1e6
+                 if "_bwd" in e.key) / 1e6
     print(f"[profile] kernel wrappers {in_wrappers:.3f}s "
           f"({in_wrappers / wall:.3f} of wall); backward wrappers "
           f"{in_bwd:.3f}s ({in_bwd / busy:.3f} of device kernel time)")

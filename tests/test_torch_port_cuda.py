@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small ragged shapes (N = 37 and 5, D = 128, H = 2), float32 and bfloat16,
-forward outputs, P, cat and every gradient; plus the launch counters.
+small ragged shapes (N = 37 and 5, D = 128, H = 2; flash attention at
+hd = 64 and 48), float32 and bfloat16, forward outputs, P, cat and every
+gradient; plus the launch counters and the wrappers' refusals.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from fedcola_tpu_torch.ops import flash_attention as fl
 from fedcola_tpu_torch.ops import fused_attention as fa
 from fedcola_tpu_torch.ops import fused_mlp as fm
 from fedcola_tpu_torch.ops import kernels
@@ -79,6 +81,9 @@ def test_attention_kernels_match_plain(dev, N, dtype):
     _, P, cat = fa.attn_fwd_plain(t["x"], t["s"], *w, H)
     args = (t["x"], t["s"], *w[:5], P, cat, t["do"], H)
     _agree(fa.attn_bwd(*args), fa.attn_bwd_plain(*args), dtype)
+    args = (t["x"], *w[:5], t["do"], H)
+    _agree(fa.attn_bwd_recompute(*args), fa.attn_bwd_recompute_plain(*args),
+           dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -89,8 +94,22 @@ def test_mlp_kernels_match_plain(dev, N, dtype):
     for s in (t["s"], None):
         _agree([fm.mlp_fwd(t["x"], s, *w)], [fm.mlp_fwd_plain(t["x"], s, *w)],
                dtype)
-    args = (t["x"], t["s"], *w[:5], t["do"])
-    _agree(fm.mlp_bwd(*args), fm.mlp_bwd_plain(*args), dtype)
+    for s in (t["s"], None):
+        args = (t["x"], s, *w[:5], t["do"])
+        _agree(fm.mlp_bwd(*args), fm.mlp_bwd_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,hd", [(197, 64), (37, 48), (5, 64)])
+def test_flash_kernels_match_plain(dev, N, hd, dtype):
+    r = np.random.RandomState(N)
+    q, k, v, do = (torch.from_numpy(r.randn(2, 3, 2, N, hd).astype(
+        np.float32)).to(dev).to(dtype) for _ in range(4))
+    scale = hd ** -0.5
+    _agree([fl.flash_fwd(q, k, v, scale)], [fl.flash_fwd_plain(q, k, v, scale)],
+           dtype)
+    _agree(fl.flash_bwd(q, k, v, do, scale),
+           fl.flash_bwd_plain(q, k, v, do, scale), dtype)
 
 
 def test_autograd_functions_launch_each_kernel_once(dev):
@@ -103,8 +122,23 @@ def test_autograd_functions_launch_each_kernel_once(dev):
                               t["b1"], t["w2"], t["b2"])
     h.backward(t["do"])
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"attn_fwd": 1, "attn_bwd": 1,
-                                "mlp_fwd": 1, "mlp_bwd": 1}
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "attn_fwd": 1, "attn_bwd": 1, "mlp_fwd": 1, "mlp_bwd": 1}
+    assert torch.isfinite(x.grad.float()).all()
+
+    kernels.reset_launches()
+    x = t["x"].clone().requires_grad_(True)
+    h = fa.fused_attention(x, t["lns"], t["lnb"], t["wqkv"], t["bqkv"],
+                           t["wproj"], t["bproj"], H)
+    h = fm.fused_mlp(h, t["lns"], t["lnb"], t["w1"], t["b1"], t["w2"],
+                     t["b2"])
+    q = h.reshape(NC, B, 9, H, D // H).transpose(2, 3).contiguous()
+    h = fl.flash_attention(q, q, q, 0.125)
+    h.backward(t["do"].reshape(NC, B, 9, H, D // H).transpose(2, 3))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "attn_fwd": 1, "attn_bwd_recompute": 1, "mlp_fwd": 1,
+        "mlp_bwd_nores": 1, "flash_fwd": 1, "flash_bwd": 1}
     assert torch.isfinite(x.grad.float()).all()
 
 
@@ -118,3 +152,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fa.attn_fwd(t["x"], t["s"], *w[:2], w[2].double(), *w[3:], H)
     with pytest.raises(NotImplementedError):
         fa.attn_fwd(t["x"], t["s"], *w, 1)        # head_dim 128 > 64
+    q = torch.zeros(2, 4, 300, 64, device=dev)
+    with pytest.raises(NotImplementedError):
+        fl.flash_fwd(q, q, q, 0.125)              # N 300 > 256
+    q = torch.zeros(2, 4, 16, 96, device=dev)
+    with pytest.raises(NotImplementedError):
+        fl.flash_fwd(q, q, q, 0.125)              # head_dim 96 > 64

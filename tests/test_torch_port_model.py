@@ -2,9 +2,12 @@
 aggregation against the JAX package on the CPU (float32).
 
 Model cases run the JAX XLA path of ``mat_apply`` (the CPU never takes the
-Pallas kernels) against the port's forward, whose fused sublayers run
-their plain versions on CPU tensors.  Both start from identical weights
-via ``models/convert.py``.  Tolerance 1e-4 (atol and rtol) unless noted.
+Pallas kernels) against the port's forward on each of its routes: plain
+ops (``use_pallas`` off), the flash route (a width off the 128 grid) and
+the fused sublayers (D=128) under the 'kernel' and 'full' remat policies;
+on CPU tensors the kernels' plain versions run.  Both start from identical
+weights via ``models/convert.py``.  Tolerance 1e-4 (atol and rtol) unless
+noted.
 """
 
 import dataclasses
@@ -25,6 +28,9 @@ from fedcola_tpu.parallel import client_update as jcu
 from fedcola_tpu.parallel import optim as joptim
 from fedcola_tpu_torch.models import convert
 from fedcola_tpu_torch.models import mat as tmat
+from fedcola_tpu_torch.ops import flash_attention as tfa
+from fedcola_tpu_torch.ops import fused_attention as tat
+from fedcola_tpu_torch.ops import fused_mlp as tmlp
 from fedcola_tpu_torch.ops import losses as tlosses
 from fedcola_tpu_torch.parallel import client_update as tcu
 from fedcola_tpu_torch.parallel import optim as toptim
@@ -43,6 +49,26 @@ CASES = {
     "img_txt_feat": dict(modalities=("img", "txt"), tasks=("rtv", "rtv"),
                          num_classes=(None, None), colearn_param="attn",
                          with_aux=True),
+    # the flash route: a width off the 128 grid with the kernels on
+    "img_cls_flash": dict(modalities=("img", None), tasks=("cls", None),
+                          num_classes=(5, None), with_aux=True,
+                          aux_trained=True, use_pallas=True,
+                          use_fused_mlp=True),
+    "img_txt_feat_flash": dict(modalities=("img", "txt"),
+                               tasks=("rtv", "rtv"), num_classes=(None, None),
+                               colearn_param="attn", use_pallas=True,
+                               use_fused_mlp=True),
+    # the fused sublayers on the 128 grid: residual-folded ('kernel') and
+    # the remat pair (kernels 1e, 5, 3e, 6)
+    "img_txt_feat_fused": dict(modalities=("img", "txt"),
+                               tasks=("rtv", "rtv"), num_classes=(None, None),
+                               colearn_param="attn", embed_dim=128,
+                               use_pallas=True, use_fused_mlp=True),
+    "txt_cls_fused_full": dict(modalities=(None, "txt"), tasks=(None, "cls"),
+                               num_classes=(None, 4), with_aux=True,
+                               aux_trained=True, embed_dim=128,
+                               use_pallas=True, use_fused_mlp=True,
+                               remat_policy="full"),
 }
 
 
@@ -84,9 +110,9 @@ def test_mat_forward_and_grads_match_jax(case):
                           for k, v in jparams["aux"].items()}
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     ins = _inputs(jcfg, r)
-    feat = case == "img_txt_feat"
+    feat = case.startswith("img_txt_feat")
     slots = [i for i, m in enumerate(jcfg.modalities) if m is not None]
-    cot = {i: r.randn(3, 32 if feat else jcfg.num_classes[i])
+    cot = {i: r.randn(3, jcfg.embed_dim if feat else jcfg.num_classes[i])
            .astype(np.float32) for i in slots}
 
     def jloss(p, train):
@@ -278,14 +304,81 @@ def test_device_cuda_without_a_card_raises():
         port_main.main(["--device", "cuda", "--synthetic_data"])
 
 
-def test_kernel_gates_refuse_unported_configs():
-    """On the card, widths outside the fused kernels' gates, --no_pallas
-    and remat policies other than 'kernel' raise NotImplementedError."""
+ROUTES = {
+    # case: (config overrides, wrappers of a training step, of an eval)
+    "off_grid_flash": (dict(embed_dim=48), {"flash_fwd", "flash_bwd"},
+                       {"flash_fwd"}),
+    "grid_kernel": (dict(), {"attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd"},
+                    {"attn_fwd", "mlp_fwd"}),
+    "grid_save_attn": (dict(remat_policy="save_attn"),
+                       {"attn_fwd", "attn_bwd_recompute", "mlp_fwd",
+                        "mlp_bwd_nores"}, {"attn_fwd", "mlp_fwd"}),
+    "grid_full": (dict(remat_policy="full"),
+                  {"attn_fwd", "attn_bwd_recompute", "mlp_fwd",
+                   "mlp_bwd_nores"}, {"attn_fwd", "mlp_fwd"}),
+    "grid_short_stack": (dict(fused_attn_min_seq=8),
+                         {"mlp_fwd", "mlp_bwd_nores"}, {"mlp_fwd"}),
+    "no_pallas": (dict(use_pallas=False, use_fused_mlp=False), set(), set()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_stack_routing_follows_jax(case, monkeypatch):
+    """Which kernel wrappers a training step and an eval forward reach, per
+    route: width off the 128 grid -> flash; 'kernel' -> rows 1-4; the remat
+    policies -> rows 1e, 5, 3e, 6; a stack below fused_attn_min_seq ->
+    plain attention with the fused MLP; --no_pallas -> none."""
+    over, want_train, want_eval = ROUTES[case]
+    seen = set()
+
+    def record(mod, name, key=None):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            seen.add(key(a) if key else name)
+            return fn(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    for name in ("attn_fwd", "attn_bwd", "attn_bwd_recompute"):
+        record(tat, name)
+    record(tmlp, "mlp_fwd")
+    record(tmlp, "mlp_bwd",
+           lambda a: "mlp_bwd" if a[1] is not None else "mlp_bwd_nores")
+    record(tfa, "flash_fwd")
+    record(tfa, "flash_bwd")
+
+    cfg = tmat.MATConfig(**{**dict(
+        modalities=("img", None), tasks=("cls", None), num_classes=(3, None),
+        img_size=32, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+        compute_dtype="float32", use_pallas=True, use_fused_mlp=True,
+        drop_path_rate=0.1), **over})
+    params = tmat.tree_map(lambda t: t.requires_grad_(True),
+                           tmat.init_mat(cfg, torch.Generator().manual_seed(0)))
+    img = torch.from_numpy(np.random.RandomState(0).randn(2, 32, 32, 3)
+                           .astype(np.float32))
+    out = tmat.mat_apply(cfg, params, [img, None], train=True,
+                         gen=torch.Generator().manual_seed(1))[0]
+    out.sum().backward()
+    assert seen == want_train
+    seen.clear()
+    with torch.no_grad():
+        tmat.mat_apply(cfg, params, [img, None])
+    assert seen == want_eval
+
+
+def test_kernel_support_refuses_uncovered_shapes():
+    """On the card, check_kernel_support passes every registered width
+    (mome_tiny's D=192 on the flash route), --no_pallas and the remat
+    policies, and refuses head_dim > 64 (a width above 1024 at 6 heads)
+    and sequences over 256 tokens."""
     base = tmat.MATConfig(embed_dim=384, use_pallas=True, use_fused_mlp=True)
-    tmat.check_kernel_support(base)
-    for bad in (dataclasses.replace(base, embed_dim=192),
-                dataclasses.replace(base, embed_dim=1152),
-                dataclasses.replace(base, use_pallas=False),
-                dataclasses.replace(base, remat_policy="save_attn")):
+    for ok in (base, dataclasses.replace(base, embed_dim=192, num_heads=3),
+               dataclasses.replace(base, embed_dim=768, num_heads=12),
+               dataclasses.replace(base, use_pallas=False),
+               dataclasses.replace(base, remat_policy="save_attn"),
+               dataclasses.replace(base, remat_policy="full")):
+        tmat.check_kernel_support(ok)
+    for bad in (dataclasses.replace(base, embed_dim=1152),
+                dataclasses.replace(base, max_text_len=300)):
         with pytest.raises(NotImplementedError):
             tmat.check_kernel_support(bad)

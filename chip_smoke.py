@@ -19,10 +19,12 @@ result line):
             (n=2, B=96, H=3, hd=64) and its eval forward (n=1, B=500); in
             float32 (max|d| <= 1e-4 * max(1, max|ref|)) and bfloat16
             (max|d| / max|ref| <= 3e-2), forward outputs, P, cat and every
-            gradient; median times of the kernel, the plain version and a
-            library call (torch.matmul + F.scaled_dot_product_attention /
-            F.layer_norm / F.gelu, one call sequence per client, so host
-            launches count in it; SDPA alone for flash attention).
+            gradient; the rows-mode MLP kernels at that batch flattened
+            (n=2, rows = 96*N, D=384, F=1536); median times of the kernel,
+            the plain version and a library call (torch.matmul +
+            F.scaled_dot_product_attention / F.layer_norm / F.gelu, one
+            call sequence per client, so host launches count in it; SDPA
+            alone for flash attention).
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -36,8 +38,14 @@ result line):
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
+8. rows     the rows-mode MLP through its public functions
+            (fused_mlp_sublayer, fused_mlp) on every layer of both stacks
+            of the mome_small Coco img+txt model, n=2 clients, B=96
+            flattened: output and every gradient against the item
+            sublayer on the unflattened batch, and fused_mlp against its
+            plain version, in bfloat16.
 
-Phases 5, 6 and 7 each zero the launch counters just before and read them
+Phases 5 to 8 each zero the launch counters just before and read them
 just after; a kernel's launches are those of the path that runs it.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
 N=197 training-shape times, and under "eval" the eval-shape times of the
@@ -77,6 +85,14 @@ KERNEL_INFO = {
                   "fedcola_tpu/ops/flash_attention.py:129", "tiny"),
     "flash_bwd": ("fedcola_tpu_torch/csrc/flash_bwd.cu",
                   "fedcola_tpu/ops/flash_attention.py:164", "tiny"),
+    "mlp_fwd_rows": ("fedcola_tpu_torch/csrc/mlp_fwd.cu",
+                     "fedcola_tpu/ops/fused_mlp.py:166", "rows"),
+    "mlp_bwd_rows": ("fedcola_tpu_torch/csrc/mlp_bwd.cu",
+                     "fedcola_tpu/ops/fused_mlp.py:197", "rows"),
+    "mlp_ln_fwd_rows": ("fedcola_tpu_torch/csrc/mlp_fwd.cu",
+                        "fedcola_tpu/ops/fused_mlp.py:385", "rows"),
+    "mlp_ln_bwd_rows": ("fedcola_tpu_torch/csrc/mlp_bwd.cu",
+                        "fedcola_tpu/ops/fused_mlp.py:418", "rows"),
 }
 
 
@@ -208,14 +224,15 @@ def lib_attn(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, H=6):
 
 
 def lib_mlp(x, s, lns, lnb, w1, b1, w2, b2):
-    """The MLP sublayer as torch.matmul + F.layer_norm + F.gelu."""
+    """The MLP sublayer as torch.matmul + F.layer_norm + F.gelu (no
+    F.layer_norm when lns is None: the rows-mode MLP without LN)."""
     import torch
     import torch.nn.functional as F
     D = x.shape[-1]
     outs = []
     for c in range(x.shape[0]):
-        h = F.layer_norm(x[c], (D,), lns[c].to(x.dtype), lnb[c].to(x.dtype),
-                         1e-5)
+        h = x[c] if lns is None else F.layer_norm(
+            x[c], (D,), lns[c].to(x.dtype), lnb[c].to(x.dtype), 1e-5)
         m = torch.matmul(F.gelu(torch.matmul(h, w1[c]) + b1[c]), w2[c]) \
             + b2[c]
         outs.append(m if s is None
@@ -382,6 +399,60 @@ def check_remat(N, dtype, dev, timing):
     return res
 
 
+def check_rows(N, dtype, dev, timing):
+    """Rows 7-10, the rows-mode MLP, at the training batch flattened: n=2
+    clients, rows = 96*N (18,912 and 3,840), D=384, F=1536."""
+    import torch
+    from fedcola_tpu_torch.ops import fused_mlp as fm
+    n, D = 2, 384
+    Fh, M = 4 * D, 96 * N
+    t = _mlp_inputs(n, 96, N, dtype, dev)
+    for k in ("x", "do"):
+        t[k] = t[k].reshape(n, M, D)
+    x, do = t["x"], t["do"]
+    ln = [t["lns"], t["lnb"]]
+    w = [t[k] for k in ("w1", "b1", "w2", "b2")]
+    grads = ("dx", "dw1", "db1", "dw2", "db2")
+    cases = {
+        "mlp_fwd_rows": (fm.mlp_fwd_rows, fm.mlp_fwd_rows_plain, (x, *w),
+                         ("out",), 4.0),
+        "mlp_bwd_rows": (fm.mlp_bwd_rows, fm.mlp_bwd_rows_plain,
+                         (x, *w[:3], do), grads, 10.0),
+        "mlp_ln_fwd_rows": (fm.mlp_ln_fwd_rows, fm.mlp_ln_fwd_rows_plain,
+                            (x, *ln, *w), ("out",), 4.0),
+        "mlp_ln_bwd_rows": (fm.mlp_ln_bwd_rows, fm.mlp_ln_bwd_rows_plain,
+                            (x, *ln, *w[:3], do),
+                            ("dx", "dlns", "dlnb") + grads[1:], 10.0),
+    }
+    res = {}
+    for name, (kern, plain, args, what, per_mdf) in cases.items():
+        got, ref = kern(*args), plain(*args)
+        if torch.is_tensor(got):
+            got, ref = [got], [ref]
+        res[name] = {"max_abs_err": _compare(got, ref, dtype, what)}
+        del ref
+        if timing:
+            # fc1 and fc2 forward; the backward recomputes fc1, then dh,
+            # dW1, dW2 and dx: five rows x D x F products
+            res[name].update(
+                ms=time_ms(lambda: kern(*args)),
+                plain_ms=time_ms(lambda: plain(*args)),
+                flops=n * per_mdf * M * D * Fh, bytes=_nbytes(*args, *got))
+    if not timing:
+        return res
+    no_ln = lambda x_, s_, *w_: lib_mlp(x_, s_, None, None, *w_)
+    with torch.no_grad():
+        res["mlp_fwd_rows"]["library_ms"] = time_ms(
+            lambda: no_ln(x, None, *w))
+        res["mlp_ln_fwd_rows"]["library_ms"] = time_ms(
+            lambda: lib_mlp(x, None, *ln, *w))
+    res["mlp_bwd_rows"]["library_ms"] = _lib_grad_timer(
+        no_ln, t, ("w1", "b1", "w2", "b2"), do)
+    res["mlp_ln_bwd_rows"]["library_ms"] = _lib_grad_timer(
+        lib_mlp, t, ("lns", "lnb", "w1", "b1", "w2", "b2"), do)
+    return res
+
+
 def _flash_inputs(n, B, N, dtype, dev):
     H, hd = 3, 64
     return _tensors(31 + N + B, {k: ((n, B, H, N, hd), 1.0, "a")
@@ -490,7 +561,7 @@ def check_eval(N, dtype, dev, timing):
 
 
 def phase_kernels():
-    """Every kernel against its plain version at every shape the main path
+    """Every kernel against its plain version at every shape its path
     gives it.  Returns, per kernel, the bf16 N=197 training-shape
     measurements (the image stack, the main path's largest shape), the
     bf16 N=197 eval-shape ones under "eval", and the worst absolute error
@@ -503,7 +574,8 @@ def phase_kernels():
         for N in (197, 40):
             for shape, check in (("train", check_attention),
                                  ("train", check_mlp), ("train", check_remat),
-                                 ("train", check_flash), ("eval", check_eval)):
+                                 ("train", check_flash), ("rows", check_rows),
+                                 ("eval", check_eval)):
                 res = check(N, dtype, dev, timing)
                 for name, r in res.items():
                     worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
@@ -519,7 +591,7 @@ def phase_kernels():
                                  f" ({by}) ms/bound={r['ms'] / bound:.1f}"
                                  f" ms/library="
                                  f"{r['ms'] / r['library_ms']:.1f}")
-                        if N == 197 and shape == "train":
+                        if N == 197 and shape != "eval":
                             measured[name] = r
                         elif N == 197:
                             measured[name + ":eval"] = r
@@ -747,6 +819,91 @@ def phase_remat():
     return launches
 
 
+# ---------------------------------------------------------------- rows ----
+
+def phase_rows():
+    """The rows-mode MLP through its public functions on every layer of
+    both stacks of the mome_small Coco img+txt model (the model's own
+    norm2 and fc weights, stacked for n=2 clients), on seeded bf16
+    activations of the training batch (B=96, N=197 and 40) flattened to
+    [n, B*N, D]: fused_mlp_sublayer (rows 9/10) forward and backward
+    against the item sublayer (3e/6) on the unflattened batch, and
+    fused_mlp (rows 7/8) on T(LN2(x)) against its plain version.  Returns
+    the launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.models.mat import stack_clients
+    from fedcola_tpu_torch.models.registry import create_model
+    from fedcola_tpu_torch.ops import fused_mlp as fm
+    from fedcola_tpu_torch.ops import kernels
+    cfg = parse_args(list(port_main.MAIN_PATH_FLAGS))
+    mcfg, params = create_model(cfg.model_name, cfg, "Coco",
+                                torch.Generator().manual_seed(cfg.seed))
+    n, B, D, dt = 2, cfg.B, mcfg.embed_dim, torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(0)
+    sub_names = ("out", "dx", "dlns", "dlnb", "dw1", "db1", "dw2", "db2")
+    mlp_names = ("out", "dx", "dw1", "db1", "dw2", "db2")
+    kernels.reset_launches()
+    t0 = time.time()
+    for slot, modality in enumerate(mcfg.modalities):
+        N = mcfg.num_patches + 1 if modality == "img" else mcfg.max_text_len
+        blk = stack_clients(params["blk"][str(slot)], n)
+        worst_sub = worst_mlp = 0.0
+        for l in range(mcfg.depth):
+            lw = {k: blk[k][:, l].cuda().contiguous() for k in (
+                "norm2_scale", "norm2_bias", "fc1_kernel", "fc1_bias",
+                "fc2_kernel", "fc2_bias")}
+            ln = [lw["norm2_scale"], lw["norm2_bias"]]
+            w = [lw[k] for k in ("fc1_kernel", "fc1_bias", "fc2_kernel",
+                                 "fc2_bias")]
+            x4, do4 = (torch.randn((n, B, N, D), generator=gen,
+                                   device="cuda").to(dt) for _ in range(2))
+            x, do = x4.reshape(n, B * N, D), do4.reshape(n, B * N, D)
+            # rows 9/10 (float32 master weights, cast as the JAX op casts
+            # them) against the item sublayer on the weights in T, as
+            # models/mat.py passes them
+            leaves = [x.clone().requires_grad_(True)] + \
+                [u.clone().requires_grad_(True) for u in ln + w]
+            out = fm.fused_mlp_sublayer(*leaves)
+            got = [out] + list(torch.autograd.grad(out, leaves, do))
+            ileaves = [x4.clone().requires_grad_(True)] + \
+                [u.clone().requires_grad_(True) for u in ln] + \
+                [u.to(dt).requires_grad_(True) for u in w]
+            iout = fm.fused_mlp_sublayer_items(*ileaves)
+            ref = [iout] + list(torch.autograd.grad(iout, ileaves, do4))
+            got = [g.reshape(r.shape).to(r.dtype) for g, r in zip(got, ref)]
+            worst_sub = max(worst_sub, _compare(got, ref, dt, sub_names))
+            # rows 7/8 on T(LN2(x)) against their plain versions
+            h = F.layer_norm(x.float(), (D,), None, None, 1e-5)
+            h = (h * ln[0][:, None] + ln[1][:, None]).to(dt)
+            leaves = [h.requires_grad_(True)] + \
+                [u.clone().requires_grad_(True) for u in w]
+            out = fm.fused_mlp(*leaves)
+            got = [out] + list(torch.autograd.grad(out, leaves, do))
+            wt = [u.to(dt) for u in w]
+            ref = [fm.mlp_fwd_rows_plain(h.detach(), *wt)] + \
+                list(fm.mlp_bwd_rows_plain(h.detach(), *wt[:3], do))
+            worst_mlp = max(worst_mlp, _compare(got, ref, dt, mlp_names))
+        log(f"[rows] {modality} stack (N={N}, rows={B * N}, {mcfg.depth} "
+            f"layers): fused_mlp_sublayer vs the item sublayer, output and "
+            f"7 gradients, max|d| {worst_sub:.3e}; fused_mlp vs its plain "
+            f"version max|d| {worst_mlp:.3e}")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = len(mcfg.modalities) * mcfg.depth
+    log(f"[rows] {time.time() - t0:.1f}s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    wrong = {k: launches[k] for k in ("mlp_fwd_rows", "mlp_bwd_rows",
+                                      "mlp_ln_fwd_rows", "mlp_ln_bwd_rows")
+             if launches[k] != want}
+    if wrong:
+        raise AssertionError(f"rows path launched {wrong}, expected {want} "
+                             f"each (one per layer per stack)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -770,7 +927,7 @@ def main() -> int:
     measured = phase_kernels()
     phase_model()
     paths = {"main": phase_main(), "tiny": phase_tiny(),
-             "remat": phase_remat()}
+             "remat": phase_remat(), "rows": phase_rows()}
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

@@ -1,22 +1,34 @@
-// Fused MLP sublayer, backward (recomputes LN2, fc1 and GELU from x):
+// Fused MLP, backward (recomputes LN2, fc1 and GELU from x):
 //     do_s = s_i * do;  pre = LN2(x) . W1 + b1;  dh = do_s . W2^T
 //     dpre = dh * (Phi(pre) + pre * phi(pre));  dhn = dpre . W1^T
 //     dx = LN2-backward(dhn) [+ do];  per client dW1, db1, dW2, db2, dLN2.
 //
-// Replaces the TPU kernel fedcola_tpu/ops/fused_mlp.py:
-// _make_ln_item_bwd_kernel (via _ln_item_bwd_call), residual=True on the
-// training path (fc_mlp_bwd); its residual=False variant, the backward of
-// fused_mlp_sublayer_items under the remat policies, is fc_mlp_bwd_nores
-// (s=NULL: the branch gradient is do itself and dx has no identity term).
+// Replaces the TPU kernels of fedcola_tpu/ops/fused_mlp.py:
+//   fc_mlp_bwd          _make_ln_item_bwd_kernel (via _ln_item_bwd_call),
+//                       residual=True on the training path;
+//   fc_mlp_bwd_nores    its residual=False variant, the backward of
+//                       fused_mlp_sublayer_items under the remat policies
+//                       (s=NULL: the branch gradient is do itself and dx has
+//                       no identity term);
+//   fc_mlp_ln_bwd_rows  _ln_bwd_kernel (via _ln_bwd_call, "mlp_ln_bwd_rows"):
+//                       fc_mlp_bwd_nores on x [n, rows, D], one item of
+//                       `rows` tokens per client;
+//   fc_mlp_bwd_rows     _bwd_kernel (via _bwd_call, "mlp_bwd_rows"): no LN,
+//                       so fc1 reads x, dx = dpre . W1^T is accumulated in
+//                       f32 and rounded to T once (as _bwd_math), and there
+//                       is no LN backward and no dLN2.
+// The rows-mode Pallas calls pad rows to their 256-row tile (the zero rows
+// add nothing: their do is zero); here every edge is masked instead.
 //
-// What bounds it on the H100: 12*B*N*D*4D FLOPs per client (~87 GFLOP at
-// the main-path shape), half of them the two weight-gradient GEMMs that
-// reduce over all B*N rows of a client.  The TPU kernel carries those sums
-// across its sequential grid in VMEM; here each output tile of dW1 / dW2 is
-// owned by one block that walks every row (the GEMM's K axis), and the bias
-// and LayerNorm sums use the deterministic two-pass column sums.  The
-// [rows, 4D] intermediates (pre, dh in f32; GELU(pre) and dpre in T) go to
-// device memory in this first version.
+// What bounds it on the H100: 10*rows*D*4D FLOPs per client (~112 GFLOP at
+// the main-path shape: fc1 recomputed, dh, dW1, dW2, dx), two of the five
+// products the weight gradients that reduce over all rows of a client.
+// The TPU kernel carries those sums across its sequential grid in VMEM;
+// here each output tile of dW1 / dW2 is owned by one block that walks every
+// row (the GEMM's K axis), and the bias and LayerNorm sums use the
+// deterministic two-pass column sums.  The [rows, 4D] intermediates (pre,
+// dh in f32; GELU(pre) and dpre in T) go to device memory in this first
+// version.
 #include "common.cuh"
 
 namespace {
@@ -57,12 +69,17 @@ int mlp_bwd_impl(int n, int B, int N, int D, int F, const void* x_,
   const long long MD = (long long)M * D, MF = (long long)M * F;
   int err;
 
-  if ((err = ln_fwd<T>(x, lns, lnb, h, mean, rstd, rows, M, D, 1e-5f, st))) return err;
+  const void* a = x_;  // fc1's input: LN2(x), or x when lns is NULL
+  if (lns) {
+    if ((err = ln_fwd<T>(x, lns, lnb, h, mean, rstd, rows, M, D, 1e-5f,
+                         st))) return err;
+    a = h;
+  }
   if ((err = row_scale<T>(dout, s, N, D, rows * D, dos, st))) return err;
 
   // pre = h . W1 + b1 (f32);  dh = dos . W2^T (f32)
   GemmArgs gp = gemm_args(M, F, D);
-  set_a_rows(gp, h, D, MD);
+  set_a_rows(gp, a, D, MD);
   set_b_rows(gp, w1, F, (long long)D * F);
   set_c(gp, pre, F, MF);
   gp.bias = b1; gp.sbiasc = F;
@@ -83,7 +100,7 @@ int mlp_bwd_impl(int n, int B, int N, int D, int F, const void* x_,
   if ((err = colsum<float, T>(dhid, n, M, F, nullptr, 1, nullptr, nullptr,
                               nullptr, nullptr, partial, db1, st))) return err;
   GemmArgs w1g = gemm_args(D, F, M);
-  set_a_cols(w1g, h, D, MD);
+  set_a_cols(w1g, a, D, MD);
   set_b_rows(w1g, dprec, F, MF);
   set_c(w1g, dw1, F, (long long)D * F);
   if ((err = gemm<T, float>(w1g, n, st))) return err;
@@ -95,10 +112,15 @@ int mlp_bwd_impl(int n, int B, int N, int D, int F, const void* x_,
   if ((err = colsum<T, T>(dos, n, M, D, nullptr, 1, nullptr, nullptr, nullptr,
                           nullptr, partial, db2, st))) return err;
 
-  // dhn = dpre . W1^T;  LayerNorm backward (+ the identity branch do)
+  // dhn = dpre . W1^T;  LayerNorm backward (+ the identity branch do).
+  // Without LN it is dx itself, rounded to T in the GEMM's epilogue.
   GemmArgs gn = gemm_args(M, D, F);
   set_a_rows(gn, dprec, F, MF);
   set_b_cols(gn, w1, F, (long long)D * F);
+  if (!lns) {
+    set_c(gn, dx, D, MD);
+    return gemm<T, T>(gn, n, st);
+  }
   set_c(gn, dhn, D, MD);
   if ((err = gemm<T, float>(gn, n, st))) return err;
   if ((err = ln_bwd<T>(dhn, x, mean, rstd, lns, s ? dout : nullptr,
@@ -151,4 +173,37 @@ extern "C" int fc_mlp_bwd_nores(int dtype, int n, int B, int N, int D, int F,
   return fc_mlp_bwd(dtype, n, B, N, D, F, x, nullptr, lns, lnb, w1, b1, w2,
                     dout, dx, dlns, dlnb, dw1, db1, dw2, db2, h, mean, rstd,
                     dos, pre, dhid, hg, dprec, dhn, partial, st);
+}
+
+// Rows mode: x, do [n,rows,D] (T); w1, b1, w2 as fc_mlp_bwd.
+// Outputs: dx [n,rows,D] (T); dw1 [n,D,F]; db1 [n,F]; dw2 [n,F,D];
+// db2 [n,D] (f32).  Scratch: dos [n,rows,D] (T); pre, dhid [n,rows,F] f32;
+// hg, dprec [n,rows,F] (T); partial [n,32,max(F,D)] f32.
+extern "C" int fc_mlp_bwd_rows(int dtype, int n, int rows, int D, int F,
+                               const void* x, const void* w1, const void* b1,
+                               const void* w2, const void* dout, void* dx,
+                               float* dw1, float* db1, float* dw2, float* db2,
+                               void* dos, float* pre, float* dhid, void* hg,
+                               void* dprec, float* partial, cudaStream_t st) {
+  return fc_mlp_bwd(dtype, n, 1, rows, D, F, x, nullptr, nullptr, nullptr, w1,
+                    b1, w2, dout, dx, nullptr, nullptr, dw1, db1, dw2, db2,
+                    nullptr, nullptr, nullptr, dos, pre, dhid, hg, dprec,
+                    nullptr, partial, st);
+}
+
+// Rows mode with LN2: fc_mlp_bwd_nores with B=1, N=rows.
+extern "C" int fc_mlp_ln_bwd_rows(int dtype, int n, int rows, int D, int F,
+                                  const void* x, const float* lns,
+                                  const float* lnb, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* dout, void* dx, float* dlns,
+                                  float* dlnb, float* dw1, float* db1,
+                                  float* dw2, float* db2, void* h,
+                                  float* mean, float* rstd, void* dos,
+                                  float* pre, float* dhid, void* hg,
+                                  void* dprec, float* dhn, float* partial,
+                                  cudaStream_t st) {
+  return fc_mlp_bwd_nores(dtype, n, 1, rows, D, F, x, lns, lnb, w1, b1, w2,
+                          dout, dx, dlns, dlnb, dw1, db1, dw2, db2, h, mean,
+                          rstd, dos, pre, dhid, hg, dprec, dhn, partial, st);
 }

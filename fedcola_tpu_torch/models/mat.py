@@ -44,7 +44,8 @@ from fedcola_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, MAX_SEQ,
                                                    scale_as)
 from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
-from fedcola_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_residual
+from fedcola_tpu_torch.ops.fused_mlp import (
+    fused_mlp_residual_sublayer_items, fused_mlp_sublayer_items)
 
 Params = Dict[str, Any]
 
@@ -349,7 +350,7 @@ def _sublayers(cfg: MATConfig, fused_attn: bool, fused_mlp_: bool,
                                     use_pallas=flash)
 
     def mlp_join(h1):
-        m = fused_mlp(h1, *ln2, *mlp_w) if fused_mlp_ else \
+        m = fused_mlp_sublayer_items(h1, *ln2, *mlp_w) if fused_mlp_ else \
             _mlp_plain(h1, ln2, mlp_w)
         return h1 + _drop_path(m, masks[1], inv)
 
@@ -396,7 +397,7 @@ def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
             s_a, s_m = (torch.ones((n, B), device=x.device) if m is None
                         else m.float() / (1.0 - rate) for m in masks)
             h = fused_attention_residual(h, s_a, *ln1, *attn_w, cfg.num_heads)
-            h = fused_mlp_residual(h, s_m, *ln2, *mlp_w)
+            h = fused_mlp_residual_sublayer_items(h, s_m, *ln2, *mlp_w)
             continue
         inv = _keep_inv(rate, dt) if use_dp else None
         attn, mlp_join, whole = _sublayers(

@@ -37,7 +37,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 LAUNCHES: Dict[str, int] = {
     "attn_fwd": 0, "attn_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
     "attn_bwd_recompute": 0, "mlp_bwd_nores": 0,
-    "flash_fwd": 0, "flash_bwd": 0}
+    "flash_fwd": 0, "flash_bwd": 0,
+    "mlp_fwd_rows": 0, "mlp_bwd_rows": 0,
+    "mlp_ln_fwd_rows": 0, "mlp_ln_bwd_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +53,10 @@ _SIGNATURES = {
     "fc_mlp_bwd_nores": [_I] * 6 + [_P] * 25,
     "fc_flash_fwd": [_I] * 4 + [_F] + [_P] * 5,
     "fc_flash_bwd": [_I] * 4 + [_F] + [_P] * 9,
+    "fc_mlp_fwd_rows": [_I] * 5 + [_P] * 8,
+    "fc_mlp_bwd_rows": [_I] * 5 + [_P] * 17,
+    "fc_mlp_ln_fwd_rows": [_I] * 5 + [_P] * 13,
+    "fc_mlp_ln_bwd_rows": [_I] * 5 + [_P] * 25,
 }
 
 _lib: Optional[ctypes.CDLL] = None

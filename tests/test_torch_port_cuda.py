@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
 small ragged shapes (N = 37 and 5, D = 128, H = 2; flash attention at
-hd = 64 and 48), float32 and bfloat16, forward outputs, P, cat and every
-gradient; plus the launch counters and the wrappers' refusals.
+hd = 64 and 48; the rows-mode MLP at 600 and 15 rows), float32 and
+bfloat16, forward outputs, P, cat and every gradient; plus the launch
+counters and the wrappers' refusals.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -100,6 +101,24 @@ def test_mlp_kernels_match_plain(dev, N, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [200, 5])
+def test_rows_mlp_kernels_match_plain(dev, N, dtype):
+    """Rows 7-10 over B*N = 600 and 15 flattened rows (neither a multiple
+    of the Pallas row tiles, 512 and 256)."""
+    t = _inputs(MLP, N, dtype, dev)
+    x, do = (t[k].reshape(NC, B * N, D) for k in ("x", "do"))
+    ln = [t["lns"], t["lnb"]]
+    w = [t[k] for k in MLP[4:8]]
+    _agree([fm.mlp_fwd_rows(x, *w)], [fm.mlp_fwd_rows_plain(x, *w)], dtype)
+    _agree(fm.mlp_bwd_rows(x, *w[:3], do),
+           fm.mlp_bwd_rows_plain(x, *w[:3], do), dtype)
+    _agree([fm.mlp_ln_fwd_rows(x, *ln, *w)],
+           [fm.mlp_ln_fwd_rows_plain(x, *ln, *w)], dtype)
+    _agree(fm.mlp_ln_bwd_rows(x, *ln, *w[:3], do),
+           fm.mlp_ln_bwd_rows_plain(x, *ln, *w[:3], do), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,hd", [(197, 64), (37, 48), (5, 64)])
 def test_flash_kernels_match_plain(dev, N, hd, dtype):
     r = np.random.RandomState(N)
@@ -118,8 +137,9 @@ def test_autograd_functions_launch_each_kernel_once(dev):
     x = t["x"].clone().requires_grad_(True)
     h = fa.fused_attention_residual(x, t["s"], t["lns"], t["lnb"], t["wqkv"],
                                     t["bqkv"], t["wproj"], t["bproj"], H)
-    h = fm.fused_mlp_residual(h, t["s"], t["lns"], t["lnb"], t["w1"],
-                              t["b1"], t["w2"], t["b2"])
+    h = fm.fused_mlp_residual_sublayer_items(h, t["s"], t["lns"], t["lnb"],
+                                             t["w1"], t["b1"], t["w2"],
+                                             t["b2"])
     h.backward(t["do"])
     torch.cuda.synchronize()
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
@@ -130,8 +150,8 @@ def test_autograd_functions_launch_each_kernel_once(dev):
     x = t["x"].clone().requires_grad_(True)
     h = fa.fused_attention(x, t["lns"], t["lnb"], t["wqkv"], t["bqkv"],
                            t["wproj"], t["bproj"], H)
-    h = fm.fused_mlp(h, t["lns"], t["lnb"], t["w1"], t["b1"], t["w2"],
-                     t["b2"])
+    h = fm.fused_mlp_sublayer_items(h, t["lns"], t["lnb"], t["w1"], t["b1"],
+                                    t["w2"], t["b2"])
     q = h.reshape(NC, B, 9, H, D // H).transpose(2, 3).contiguous()
     h = fl.flash_attention(q, q, q, 0.125)
     h.backward(t["do"].reshape(NC, B, 9, H, D // H).transpose(2, 3))
@@ -139,6 +159,18 @@ def test_autograd_functions_launch_each_kernel_once(dev):
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
         "attn_fwd": 1, "attn_bwd_recompute": 1, "mlp_fwd": 1,
         "mlp_bwd_nores": 1, "flash_fwd": 1, "flash_bwd": 1}
+    assert torch.isfinite(x.grad.float()).all()
+
+    kernels.reset_launches()
+    x = t["x"].reshape(NC, B * 9, D).clone().requires_grad_(True)
+    w = [t[k] for k in ("w1", "b1", "w2", "b2")]
+    h = fm.fused_mlp_sublayer(x, t["lns"], t["lnb"], *w)
+    h = fm.fused_mlp(h, *w)
+    h.backward(t["do"].reshape(NC, B * 9, D))
+    torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "mlp_ln_fwd_rows": 1, "mlp_ln_bwd_rows": 1, "mlp_fwd_rows": 1,
+        "mlp_bwd_rows": 1}
     assert torch.isfinite(x.grad.float()).all()
 
 

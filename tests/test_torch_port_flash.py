@@ -175,11 +175,12 @@ def test_recompute_backward_keeps_p_in_f32():
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("N", [12, 5])
 def test_mlp_nores_backward_matches_pallas(N, dtype):
-    """Row 6: FusedMLP (kernel 3 and mlp_bwd with s=None) against
+    """Row 6: FusedMLPItems (kernel 3 and mlp_bwd with s=None) against
     fused_mlp_sublayer_items, whose backward is _ln_item_bwd_call with
     residual=False."""
     a = _sublayer_inputs(N, ("x", "do") + MLP_W, seed=20 + N)
-    _grads_both(fused_mlp_sublayer_items, tmlp.fused_mlp, a, MLP_W, dtype)
+    _grads_both(fused_mlp_sublayer_items, tmlp.fused_mlp_sublayer_items, a,
+                MLP_W, dtype)
 
 
 # ---------------------------------------------------------- remat ----------

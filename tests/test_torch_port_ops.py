@@ -122,7 +122,7 @@ def test_mlp_residual_train_matches_pallas(N):
 
     x = _t(a["x"], True)
     wt = [_t(a[k], True) for k in MLP_W]
-    out_t = tmlp.fused_mlp_residual(x, _t(a["s"]), *wt)
+    out_t = tmlp.fused_mlp_residual_sublayer_items(x, _t(a["s"]), *wt)
     grads_t = torch.autograd.grad(out_t, [x] + wt, _t(a["do"]))
     _close(out_t.detach(), out_j, "out")
     for g_t, g_j, nm in zip(grads_t, grads_j, ("dx",) + MLP_W):
@@ -135,7 +135,8 @@ def test_mlp_eval_matches_pallas(N):
     a = _mlp_inputs(N, seed=1)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     ref = jax.vmap(fused_mlp_sublayer_items)(j["x"], *[j[k] for k in MLP_W])
-    out = tmlp.fused_mlp(_t(a["x"]), *[_t(a[k]) for k in MLP_W])
+    out = tmlp.fused_mlp_sublayer_items(_t(a["x"]),
+                                        *[_t(a[k]) for k in MLP_W])
     _close(out, ref, "out")
 
 
@@ -143,6 +144,6 @@ def test_cpu_wrappers_do_not_count_launches():
     """The launch counters move only where a kernel goes to the card."""
     kernels.reset_launches()
     a = _mlp_inputs(5)
-    tmlp.fused_mlp(_t(a["x"]), *[_t(a[k]) for k in MLP_W])
+    tmlp.fused_mlp_sublayer_items(_t(a["x"]), *[_t(a[k]) for k in MLP_W])
     assert all(v == 0 for v in kernels.LAUNCHES.values())
 

@@ -9,7 +9,9 @@ result line):
 1. card     name and power limit (nvidia-smi), torch and CUDA versions;
             TF32 off for matmuls and cuDNN.
 2. build    every CUDA source of fedcola_tpu_torch/csrc, compiled in
-            parallel into build/kernels/ (seconds printed).
+            parallel into build/kernels/ (seconds printed); the SASS of
+            mlp_bwd.o must hold wgmma (HGMMA) and TMA load (UTMALDG)
+            instructions, the bf16 MLP backward's Hopper mainloop.
 3. kernels  each kernel wrapper against its plain PyTorch version at every
             shape its paths give it, N in {197, 40}: the fused kernels at
             mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
@@ -20,7 +22,9 @@ result line):
             float32 (max|d| <= 1e-4 * max(1, max|ref|)) and bfloat16
             (max|d| / max|ref| <= 3e-2), forward outputs, P, cat and every
             gradient; the rows-mode MLP kernels at that batch flattened
-            (n=2, rows = 96*N, D=384, F=1536); median times of the kernel,
+            (n=2, rows = 96*N, D=384, F=1536); the four bf16 MLP backward
+            entry points called twice give the same bits; median times
+            and achieved TFLOP/s of the kernel,
             the plain version and a library call (torch.matmul +
             F.scaled_dot_product_attention / F.layer_norm / F.gelu, one
             call sequence per client, so host launches count in it; SDPA
@@ -125,6 +129,34 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def check_sass(kernels) -> None:
+    """The bf16 MLP backward runs on wgmma fed by TMA: count both in the
+    SASS of its object file, and print the registers, stack, static
+    shared and local (spill) memory of each Hopper GEMM instantiation."""
+    import re
+    from pathlib import Path
+    tool = str(Path(kernels._nvcc()).parent / "cuobjdump")
+    obj = str(kernels.BUILD_DIR / "mlp_bwd.o")
+    run = lambda flag: subprocess.run([tool, flag, obj], capture_output=True,
+                                      text=True, check=True).stdout
+    sass = run("-sass")
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"[build] mlp_bwd.o SASS: {counts['HGMMA']} HGMMA, "
+        f"{counts['UTMALDG']} UTMALDG")
+    if not all(counts.values()):
+        raise AssertionError(f"mlp_bwd.o lacks wgmma or TMA: {counts}")
+    kernel = None
+    for line in run("-res-usage").splitlines():
+        name = re.search(r"sm90_gemm_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                         line)
+        if "Function" in line:
+            kernel = name and ",".join(name.groups())
+        elif kernel and "REG:" in line:
+            log(f"[build] sm90_gemm_kernel<{kernel}> "
+                f"{' '.join(line.split()[:4])}")
+            kernel = None
+
+
 # ------------------------------------------------------------- kernels ----
 
 def _tensors(seed, shapes, dtype, dev):
@@ -167,6 +199,16 @@ def _compare(got, ref, dtype, what):
                 f"(scaled error {rel:.3e}) exceeds the tolerance")
         worst = max(worst, d)
     return worst
+
+
+def _same_bits(fn, args, first, name):
+    """A second call of a bf16 backward gives the first call's bits."""
+    import torch
+    if first[0].dtype != torch.bfloat16:
+        return
+    for a, b in zip(first, fn(*args)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: a second call differs")
 
 
 def _nbytes(*ts):
@@ -311,6 +353,7 @@ def check_mlp(N, dtype, dev, timing):
     ref4 = fm.mlp_bwd_plain(*args4)
     err4 = _compare(got4, ref4, dtype, ("dx", "dlns", "dlnb", "dw1", "db1",
                                         "dw2", "db2"))
+    _same_bits(fm.mlp_bwd, args4, got4, "mlp_bwd")
     res["mlp_fwd"] = {"max_abs_err": err3}
     res["mlp_bwd"] = {"max_abs_err": err4}
     if not timing:
@@ -375,6 +418,7 @@ def check_remat(N, dtype, dev, timing):
     res["mlp_bwd_nores"] = {"max_abs_err": _compare(
         got6, ref6, dtype, ("dx", "dlns", "dlnb", "dw1", "db1", "dw2",
                             "db2"))}
+    _same_bits(fm.mlp_bwd, args6, got6, "mlp_bwd_nores")
     del ref6
     if not timing:
         return res
@@ -431,6 +475,8 @@ def check_rows(N, dtype, dev, timing):
             got, ref = [got], [ref]
         res[name] = {"max_abs_err": _compare(got, ref, dtype, what)}
         del ref
+        if len(what) > 1:
+            _same_bits(kern, args, got, name)
         if timing:
             # fc1 and fc2 forward; the backward recomputes fc1, then dh,
             # dW1, dW2 and dx: five rows x D x F products
@@ -590,7 +636,9 @@ def phase_kernels():
                                  f"{r['library_ms']:.4f} bound_ms={bound:.4f}"
                                  f" ({by}) ms/bound={r['ms'] / bound:.1f}"
                                  f" ms/library="
-                                 f"{r['ms'] / r['library_ms']:.1f}")
+                                 f"{r['ms'] / r['library_ms']:.1f}"
+                                 f" TFLOP/s="
+                                 f"{r['flops'] / r['ms'] / 1e9:.1f}")
                         if N == 197 and shape != "eval":
                             measured[name] = r
                         elif N == 197:
@@ -923,6 +971,7 @@ def main() -> int:
     log(f"[build] {len(kernels.SOURCES)} sources -> {kernels.LIB_PATH} "
         f"in {secs:.1f}s")
     kernels.library()
+    check_sass(kernels)
 
     measured = phase_kernels()
     phase_model()

@@ -161,27 +161,100 @@ def _fwd_scratch(x, F, ln):
     return [torch.empty_like(x), mean, torch.empty_like(mean), hid]
 
 
+# The bf16 backward's Hopper GEMM (csrc/gemm_sm90.cuh): its row and K
+# tiles, and the SMs the split weight-gradient products should fill.
+SM90_BM, SM90_BK, H100_SMS = 128, 64, 132
+
+
+def uses_sm90(dtype, D: int, F: int) -> bool:
+    """The choice ``fc_mlp_bwd`` makes (``csrc/mlp_bwd.cu``): bf16 with D
+    and F multiples of 8 (TMA's 16-byte row strides) runs the Hopper
+    mainloop; float32, or D or F off that grid, runs ``gemm_kernel``."""
+    return dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
+
+
+def plan_row_splits(rows: int, D: int, F: int):
+    """``(S, rows_per_split)`` for the weight-gradient products dW1 =
+    hᵀ·dpre and dW2 = GELU(pre)ᵀ·do, which reduce over a client's rows.
+    Their 128 x 128 output tiles alone leave most SMs idle, so each
+    client's rows are cut into S ranges of ``rows_per_split`` rows (a
+    multiple of the 64-row K tile; the last range holds the rest), enough
+    that tiles x S reach two blocks per SM, at most 8 ranges and at least
+    4 K tiles each.  A function of (rows, D, F) only, so the result never
+    depends on the number of clients or on timing."""
+    k_tiles = -(-rows // SM90_BK)
+    tiles = -(-D // SM90_BM) * -(-F // SM90_BM)
+    want = -(-2 * H100_SMS // tiles)
+    per = -(-k_tiles // max(1, min(8, want, k_tiles // 4)))
+    return -(-k_tiles // per), per * SM90_BK
+
+
 def _bwd_buffers(x, F, ln):
-    """Backward outputs and scratch in entry-point order: dx, [dlns, dlnb,]
-    dw1, db1, dw2, db2, [h, mean, rstd,] dos, pre, dhid, hg, dprec,
-    [dhn,] partial (gradients of the parameters in f32)."""
+    """``(rows_per_split, buffers)``: the backward's outputs and scratch
+    in entry-point order, None where the path ``fc_mlp_bwd`` takes (see
+    :func:`uses_sm90`) needs none:
+
+        dx, [dlns, dlnb,] dw1, db1, dw2, db2, [h, mean, rstd,] dos,
+        pre, dhid, hg, dprec, [dhn,] partial, db1part, wpart
+
+    Parameter gradients are f32.  hg and dprec ([..., F], x's dtype) hold
+    T(GELU(pre)) and T(dpre).  The Hopper path keeps pre and dh on chip:
+    it takes db1part ``[ceil(M/128), n, F]`` (db1's per-row-tile column
+    sums), wpart ``[S, n, D, F]`` (the split weight-gradient partials, when
+    S > 1) and partial ``[n, 32, D]`` (the D-wide column sums).  The
+    ``gemm_kernel`` path takes pre and dhid ``[..., F]`` in f32 and partial
+    ``[n, 32, max(F, D)]``.  M is the rows per client."""
     n, D = x.shape[0], x.shape[-1]
+    M = x.numel() // (n * D)
+    S, rps = plan_row_splits(M, D, F)
     f32 = dict(dtype=torch.float32, device=x.device)
     hidden = x.shape[:-1] + (F,)
-    pre = torch.empty(hidden, **f32)
+    if uses_sm90(x.dtype, D, F):
+        pre = dhid = wpart = None
+        db1part = torch.empty((-(-M // SM90_BM), n, F), **f32)
+        if S > 1:
+            wpart = torch.empty((S, n, D, F), **f32)
+        partial = torch.empty((n, 32, D), **f32)
+    else:
+        pre, dhid = torch.empty(hidden, **f32), torch.empty(hidden, **f32)
+        db1part = wpart = None
+        partial = torch.empty((n, 32, max(F, D)), **f32)
     hg = torch.empty(hidden, dtype=x.dtype, device=x.device)
-    core = [torch.empty_like(x), pre, torch.empty_like(pre), hg,
-            torch.empty_like(hg)]
+    core = [torch.empty_like(x), pre, dhid, hg, torch.empty_like(hg)]
     grads = [torch.empty((n, D, F), **f32), torch.empty((n, F), **f32),
              torch.empty((n, F, D), **f32), torch.empty((n, D), **f32)]
-    partial = torch.empty((n, 32, max(F, D)), **f32)
+    tail = [partial, db1part, wpart]
     if not ln:
-        return [torch.empty_like(x)] + grads + core + [partial]
-    mean = torch.empty((x.numel() // D,), **f32)
-    return ([torch.empty_like(x), torch.empty((n, D), **f32),
-             torch.empty((n, D), **f32)] + grads
-            + [torch.empty_like(x), mean, torch.empty_like(mean)] + core
-            + [torch.empty(x.shape, **f32), partial])
+        return rps, [torch.empty_like(x)] + grads + core + tail
+    mean = torch.empty((n * M,), **f32)
+    return rps, ([torch.empty_like(x), torch.empty((n, D), **f32),
+                  torch.empty((n, D), **f32)] + grads
+                 + [torch.empty_like(x), mean, torch.empty_like(mean)] + core
+                 + [torch.empty(x.shape, **f32)] + tail)
+
+
+def bwd_launch(x, s, lns, lnb, w1, b1, w2, do):
+    """``(entry point, arguments, outputs)`` of one backward launch, the
+    stream aside: item mode for x ``[n, B, N, D]`` (``mlp_bwd``, or
+    ``mlp_bwd_nores`` when s is None), rows mode for x ``[n, rows, D]``
+    (``mlp_ln_bwd_rows``, or ``mlp_bwd_rows`` when lns is None).  The
+    outputs are (dx, [dlns, dlnb,] dw1, db1, dw2, db2).  Allocates on x's
+    device, so it also runs on CPU tensors."""
+    ln = lns is not None
+    n, D, F = x.shape[0], x.shape[-1], w1.shape[-1]
+    rps, bufs = _bwd_buffers(x, F, ln)
+    P_ = kernels.ptr
+    code = kernels.dtype_code(x.dtype)
+    if x.dim() == 3:
+        name = "mlp_ln_bwd_rows" if ln else "mlp_bwd_rows"
+        head = [code, n, x.shape[1], D, F, rps, P_(x)]
+    else:
+        name = "mlp_bwd" if s is not None else "mlp_bwd_nores"
+        head = [code, n, x.shape[1], x.shape[2], D, F, rps, P_(x)]
+        if s is not None:
+            head.append(P_(s))
+    ptrs = ([lns, lnb] if ln else []) + [w1, b1, w2, do] + bufs
+    return name, head + [P_(t) for t in ptrs], tuple(bufs[:7 if ln else 5])
 
 
 def mlp_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, w1, b1, w2,
@@ -204,16 +277,10 @@ def mlp_bwd(x, s, lns, lnb, w1, b1, w2, do):
     if not x.is_cuda:
         return mlp_bwd_plain(x, s, lns, lnb, w1, b1, w2, do)
     n, B, N, D, F = _check_args(x, s, lns, lnb, w1, b1, w2, None)
-    dt = x.dtype
-    kernels.check(do, "do", (n, B, N, D), dt, x.device)
-    bufs = _bwd_buffers(x, F, True)
-    P_ = kernels.ptr
-    head = (("mlp_bwd", kernels.dtype_code(dt), n, B, N, D, F, P_(x), P_(s))
-            if s is not None else
-            ("mlp_bwd_nores", kernels.dtype_code(dt), n, B, N, D, F, P_(x)))
-    kernels.launch(*head, P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
-                   P_(do), *map(P_, bufs))
-    return tuple(bufs[:7])
+    kernels.check(do, "do", (n, B, N, D), x.dtype, x.device)
+    name, args, outs = bwd_launch(x, s, lns, lnb, w1, b1, w2, do)
+    kernels.launch(name, *args)
+    return outs
 
 
 def mlp_fwd_rows(x: Tensor, w1, b1, w2, b2) -> Tensor:
@@ -236,11 +303,9 @@ def mlp_bwd_rows(x, w1, b1, w2, do):
     n, _, R, D, F = _check_args(x[:, None], None, None, None, w1, b1, w2,
                                 None)
     kernels.check(do, "do", (n, R, D), x.dtype, x.device)
-    bufs = _bwd_buffers(x, F, False)
-    P_ = kernels.ptr
-    kernels.launch("mlp_bwd_rows", kernels.dtype_code(x.dtype), n, R, D, F,
-                   P_(x), P_(w1), P_(b1), P_(w2), P_(do), *map(P_, bufs))
-    return tuple(bufs[:5])
+    name, args, outs = bwd_launch(x, None, None, None, w1, b1, w2, do)
+    kernels.launch(name, *args)
+    return outs
 
 
 def mlp_ln_fwd_rows(x: Tensor, lns, lnb, w1, b1, w2, b2) -> Tensor:
@@ -263,12 +328,9 @@ def mlp_ln_bwd_rows(x, lns, lnb, w1, b1, w2, do):
         return mlp_ln_bwd_rows_plain(x, lns, lnb, w1, b1, w2, do)
     n, _, R, D, F = _check_args(x[:, None], None, lns, lnb, w1, b1, w2, None)
     kernels.check(do, "do", (n, R, D), x.dtype, x.device)
-    bufs = _bwd_buffers(x, F, True)
-    P_ = kernels.ptr
-    kernels.launch("mlp_ln_bwd_rows", kernels.dtype_code(x.dtype), n, R, D,
-                   F, P_(x), P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
-                   P_(do), *map(P_, bufs))
-    return tuple(bufs[:7])
+    name, args, outs = bwd_launch(x, None, lns, lnb, w1, b1, w2, do)
+    kernels.launch(name, *args)
+    return outs
 
 
 # ---------------------------------------------------------- autograd -------

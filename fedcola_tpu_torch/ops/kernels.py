@@ -49,14 +49,16 @@ _SIGNATURES = {
     "fc_attn_bwd": [_I] * 6 + [_P] * 29,
     "fc_attn_bwd_recompute": [_I] * 6 + [_P] * 28,
     "fc_mlp_fwd": [_I] * 6 + [_P] * 14,
-    "fc_mlp_bwd": [_I] * 6 + [_P] * 26,
-    "fc_mlp_bwd_nores": [_I] * 6 + [_P] * 25,
+    "fc_mlp_bwd": [_I] * 7 + [_P] * 28,
+    "fc_mlp_bwd_nores": [_I] * 7 + [_P] * 27,
     "fc_flash_fwd": [_I] * 4 + [_F] + [_P] * 5,
     "fc_flash_bwd": [_I] * 4 + [_F] + [_P] * 9,
     "fc_mlp_fwd_rows": [_I] * 5 + [_P] * 8,
-    "fc_mlp_bwd_rows": [_I] * 5 + [_P] * 17,
+    "fc_mlp_bwd_rows": [_I] * 6 + [_P] * 19,
     "fc_mlp_ln_fwd_rows": [_I] * 5 + [_P] * 13,
-    "fc_mlp_ln_bwd_rows": [_I] * 5 + [_P] * 25,
+    "fc_mlp_ln_bwd_rows": [_I] * 6 + [_P] * 27,
+    # test only: the Hopper GEMM mainloop alone (tests/test_torch_port_cuda.py)
+    "fc_sm90_gemm_test": [_I] * 6 + [_P] * 4,
 }
 
 _lib: Optional[ctypes.CDLL] = None

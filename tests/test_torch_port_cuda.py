@@ -2,7 +2,11 @@
 small ragged shapes (N = 37 and 5, D = 128, H = 2; flash attention at
 hd = 64 and 48; the rows-mode MLP at 600 and 15 rows), float32 and
 bfloat16, forward outputs, P, cat and every gradient; plus the launch
-counters and the wrappers' refusals.
+counters and the wrappers' refusals.  The bf16 MLP backward's Hopper GEMM
+(``csrc/gemm_sm90.cuh``) is also held alone against ``torch.matmul`` in its
+four operand layouts, and its backward for the zero fill at a client's
+ragged last tile, run-to-run bitwise reproducibility, rows vs item entry
+points, and the ``gemm_kernel`` branch that D off the 8 grid takes.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -190,3 +194,110 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.zeros(2, 4, 16, 96, device=dev)
     with pytest.raises(NotImplementedError):
         fl.flash_fwd(q, q, q, 0.125)              # head_dim 96 > 64
+
+
+def _sm90_gemm(a, b, ta, tb, M, N, K):
+    """``fc_sm90_gemm_test``: c = A . B per client on the Hopper mainloop;
+    a is [n, M, K] (ta=0) or [n, K, M] (ta=1), b is [n, N, K] (tb=0) or
+    [n, K, N] (tb=1)."""
+    c = torch.full((a.shape[0], M, N), float("nan"), device=a.device)
+    err = kernels.library().fc_sm90_gemm_test(
+        ta, tb, a.shape[0], M, N, K, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    return c
+
+
+@pytest.mark.parametrize("M,N,K", [(200, 136, 72), (72, 264, 40),
+                                   (1000, 24, 600)])
+@pytest.mark.parametrize("ta,tb", [(0, 0), (0, 1), (1, 0), (1, 1)])
+def test_sm90_mainloop_matches_matmul_in_every_layout(dev, ta, tb, M, N, K):
+    """x.W^T (K-major B), x.W (MN-major B) and A^T.B (MN-major A) at M, N
+    and K off the 128 / 64 tiles; bf16 products summed in f32, so only the
+    summation order differs from torch.matmul in f32."""
+    r = np.random.RandomState(M + N + K)
+    A = torch.from_numpy(r.randn(NC, M, K).astype(np.float32)).to(dev)
+    Bm = torch.from_numpy(r.randn(NC, K, N).astype(np.float32)).to(dev)
+    A, Bm = A.bfloat16(), Bm.bfloat16()
+    a = A.transpose(1, 2).contiguous() if ta else A
+    b = Bm if tb else Bm.transpose(1, 2).contiguous()
+    ref = torch.matmul(A.float(), Bm.float())
+    got = _sm90_gemm(a, b, ta, tb, M, N, K)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item() * K
+
+
+def _rows_inputs(rows, Dm, seed, dev):
+    r = np.random.RandomState(seed)
+    Fm = 4 * Dm
+    a = {"x": r.randn(NC, rows, Dm), "do": r.randn(NC, rows, Dm),
+         "lns": r.rand(NC, Dm) + 0.5, "lnb": r.randn(NC, Dm) * 0.1,
+         "w1": r.randn(NC, Dm, Fm) * 0.1, "b1": r.randn(NC, Fm) * 0.1,
+         "w2": r.randn(NC, Fm, Dm) * 0.1}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev).to(
+        torch.float32 if k.startswith("ln") else torch.bfloat16)
+        for k, v in a.items()}
+
+
+def _four_backwards(t, s=None):
+    """(entry point, outputs) of the four backward entry points on the same
+    [n, rows, D] inputs (the item ones on the [n, 1, rows, D] view)."""
+    x, do = t["x"], t["do"]
+    ln = (t["lns"], t["lnb"])
+    w = (t["w1"], t["b1"], t["w2"])
+    s = torch.ones(NC, 1, device=x.device) if s is None else s
+    return {"mlp_bwd": fm.mlp_bwd(x[:, None], s, *ln, *w, do[:, None]),
+            "mlp_bwd_nores": fm.mlp_bwd(x[:, None], None, *ln, *w,
+                                        do[:, None]),
+            "mlp_bwd_rows": fm.mlp_bwd_rows(x, *w, do),
+            "mlp_ln_bwd_rows": fm.mlp_ln_bwd_rows(x, *ln, *w, do)}
+
+
+@pytest.mark.parametrize("rows", [15, 111, 600])
+def test_bf16_backward_reads_no_other_clients_rows(dev, rows):
+    """Client 1's inputs large, client 0's do all zero: client 0's weight
+    and bias gradients are exactly 0, so its ragged last row tile read
+    TMA's zero fill and not client 1's first rows."""
+    t = _rows_inputs(rows, D, rows, dev)
+    t["x"][1] *= 100
+    t["do"][1] *= 100
+    t["do"][0] = 0
+    for name, g in _four_backwards(t).items():
+        for grad in g[-4:]:
+            assert torch.count_nonzero(grad[0]) == 0, name
+            assert torch.count_nonzero(grad[1]) > 0, name
+
+
+@pytest.mark.parametrize("rows", [111, 600])
+def test_bf16_backward_is_bitwise_reproducible(dev, rows):
+    """Two calls of each backward entry point give the same bits (fixed
+    summation orders, no atomics; 600 rows take two split ranges)."""
+    t = _rows_inputs(rows, D, 7, dev)
+    first, second = _four_backwards(t), _four_backwards(t)
+    for name in first:
+        for a, b in zip(first[name], second[name]):
+            assert torch.equal(a, b), name
+
+
+def test_bf16_ln_rows_backward_is_the_item_backward_bitwise(dev):
+    """Row 10 on [n, rows, D] and row 6 on [n, 1, rows, D] run the same
+    launches (rows per client and the split plan agree)."""
+    t = _rows_inputs(600, D, 8, dev)
+    g = _four_backwards(t)
+    for a, b in zip(g["mlp_ln_bwd_rows"], g["mlp_bwd_nores"]):
+        assert torch.equal(a, b.reshape(a.shape))
+
+
+def test_bf16_backward_off_the_8_grid_takes_gemm_kernel(dev):
+    """D = 100 (F = 400): TMA's 16-byte row strides rule the Hopper path
+    out, so the entry point runs gemm_kernel, held to the plain version."""
+    Dm = 100
+    assert not fm.uses_sm90(torch.bfloat16, Dm, 4 * Dm)
+    t = _rows_inputs(111, Dm, 9, dev)
+    x, do = t["x"], t["do"]
+    ln = (t["lns"], t["lnb"])
+    w = (t["w1"], t["b1"], t["w2"])
+    _agree(fm.mlp_bwd_rows(x, *w, do), fm.mlp_bwd_rows_plain(x, *w, do),
+           torch.bfloat16)
+    _agree(fm.mlp_ln_bwd_rows(x, *ln, *w, do),
+           fm.mlp_ln_bwd_rows_plain(x, *ln, *w, do), torch.bfloat16)

@@ -10,8 +10,10 @@ result line):
             TF32 off for matmuls and cuDNN.
 2. build    every CUDA source of fedcola_tpu_torch/csrc, compiled in
             parallel into build/kernels/ (seconds printed); the SASS of
-            mlp_bwd.o must hold wgmma (HGMMA) and TMA load (UTMALDG)
-            instructions, the bf16 MLP backward's Hopper mainloop.
+            mlp_bwd.o and attn_bwd.o must hold wgmma (HGMMA) and TMA load
+            (UTMALDG) instructions, the bf16 backwards' Hopper mainloop,
+            attn_bwd.o also mma.sync (HMMA), its per-head kernel; none of
+            these kernels may spill.
 3. kernels  each kernel wrapper against its plain PyTorch version at every
             shape its paths give it, N in {197, 40}: the fused kernels at
             mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
@@ -130,31 +132,42 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def check_sass(kernels) -> None:
-    """The bf16 MLP backward runs on wgmma fed by TMA: count both in the
-    SASS of its object file, and print the registers, stack, static
-    shared and local (spill) memory of each Hopper GEMM instantiation."""
+    """The bf16 MLP and attention backwards run on wgmma fed by TMA, and
+    the attention backward's per-head kernel on mma.sync: count the
+    instructions in the SASS of their object files, print the registers,
+    stack, static shared and local memory of each Hopper GEMM and head
+    kernel instantiation, and fail if one of them spills (a stack frame
+    or local memory)."""
     import re
     from pathlib import Path
     tool = str(Path(kernels._nvcc()).parent / "cuobjdump")
-    obj = str(kernels.BUILD_DIR / "mlp_bwd.o")
-    run = lambda flag: subprocess.run([tool, flag, obj], capture_output=True,
-                                      text=True, check=True).stdout
-    sass = run("-sass")
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    log(f"[build] mlp_bwd.o SASS: {counts['HGMMA']} HGMMA, "
-        f"{counts['UTMALDG']} UTMALDG")
-    if not all(counts.values()):
-        raise AssertionError(f"mlp_bwd.o lacks wgmma or TMA: {counts}")
-    kernel = None
-    for line in run("-res-usage").splitlines():
-        name = re.search(r"sm90_gemm_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
-                         line)
-        if "Function" in line:
-            kernel = name and ",".join(name.groups())
-        elif kernel and "REG:" in line:
-            log(f"[build] sm90_gemm_kernel<{kernel}> "
-                f"{' '.join(line.split()[:4])}")
-            kernel = None
+    want = {"mlp_bwd.o": ("HGMMA", "UTMALDG"),
+            "attn_bwd.o": ("HGMMA", "UTMALDG", "HMMA")}
+    pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel)"
+                         r"ILi(\d+)E(?:Li(\d)ELi(\d)ELi(\d)E|Lb([01])E)")
+    for name, ops in want.items():
+        obj = str(kernels.BUILD_DIR / name)
+        run = lambda flag: subprocess.run(
+            [tool, flag, obj], capture_output=True, text=True,
+            check=True).stdout
+        sass = run("-sass")
+        counts = {op: sass.count(op) for op in ops}
+        log(f"[build] {name} SASS: " +
+            ", ".join(f"{n} {op}" for op, n in counts.items()))
+        if not all(counts.values()):
+            raise AssertionError(f"{name} lacks wgmma, TMA or mma: {counts}")
+        kernel = None
+        for line in run("-res-usage").splitlines():
+            if "Function" in line:
+                m = pattern.search(line)
+                kernel = m and f"{m.group(1)}<" + ",".join(
+                    g for g in m.groups()[1:] if g is not None) + ">"
+            elif kernel and "REG:" in line:
+                usage = dict(f.split(":") for f in line.split()[:4])
+                log(f"[build] {name} {kernel} {' '.join(line.split()[:4])}")
+                if int(usage["LOCAL"]) or int(usage["STACK"]):
+                    raise AssertionError(f"{kernel} spills: {line.strip()}")
+                kernel = None
 
 
 # ------------------------------------------------------------- kernels ----
@@ -304,6 +317,7 @@ def check_attention(N, dtype, dev, timing):
     ref2 = fa.attn_bwd_plain(*args2)
     err2 = _compare(got2, ref2, dtype, ("dx", "dlns", "dlnb", "dwqkv",
                                         "dbqkv", "dwproj", "dbproj"))
+    _same_bits(fa.attn_bwd, args2, got2, "attn_bwd")
     res["attn_fwd"] = {"max_abs_err": err1}
     res["attn_bwd"] = {"max_abs_err": err2}
     if not timing:
@@ -409,6 +423,7 @@ def check_remat(N, dtype, dev, timing):
     names = ("dx", "dlns", "dlnb", "dwqkv", "dbqkv", "dwproj", "dbproj")
     res = {"attn_bwd_recompute": {"max_abs_err": _compare(got5, ref5, dtype,
                                                           names)}}
+    _same_bits(fa.attn_bwd_recompute, args5, got5, "attn_bwd_recompute")
     del ref5
     tm = _mlp_inputs(n, B, N, dtype, dev)
     wm = [tm[k] for k in ("lns", "lnb", "w1", "b1", "w2")]

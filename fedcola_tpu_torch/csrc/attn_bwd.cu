@@ -11,20 +11,38 @@
 // _bwd_call, the backward of the remat policies 'save_attn' and 'full'):
 // no saves, no residual; it recomputes LN1, qkv, P and the head concat from
 // x, and like _bwd_one keeps the recomputed P in f32 for the softmax
-// gradient (delta and dS) and rounds it to T only for dV.
+// gradient (delta and dS) and rounds it to T only for dV and cat.
 //
-// What bounds it on the H100: ~2x the forward's FLOPs (four D-wide GEMMs,
+// What bounds it on the H100: ~2x the forward's FLOPs (five D-wide GEMMs,
 // two of them reductions over all B*N rows of a client, plus four N x N
 // products per head) against P read once; the FLOPs bound it.  On the TPU
 // the per-client dW sums ride the sequential grid in VMEM scratch; here
-// blocks run in no order, so every reduction over rows lives inside one
-// block's loop: the dW products are GEMMs whose K dimension is the row
-// axis, and the bias / LayerNorm-parameter sums go through the two-pass
-// column sums of common.cuh.  No atomics: results are deterministic.
-// The per-head backward runs on CUDA cores in two passes per (item, head):
-// a row pass (dP, the softmax-gradient row sums, dS and dQ) and a column
-// pass (dK and dV), with dS in T as the TPU kernel rounds it.
+// blocks run in no order, so every reduction over rows has one owner and a
+// fixed order.  No atomics: results are the same on every run.
+//
+// bf16 with hd in {16, 32, 64} (so D % 16 == 0; N <= 256 always) runs
+// attn_bwd_sm90:
+//   1. ln_fwd (LN1), then qkv = T(h.Wqkv + bqkv) on gemm_sm90.cuh's TMA +
+//      wgmma mainloop, the bias added in the epilogue before rounding;
+//   2. dbproj's column sums of the f32 s*da, the same pass writing dac =
+//      T(s*da); dO = T(dac.Wproj^T) on the mainloop;
+//   3. the per-head backward, one fused launch on tensor cores
+//      (attn_bwd_core.cuh): dq | dk | dv written straight as the bf16 dqkvc,
+//      dbqkv's f32 column sums per (item, head) into hpart, and (recompute)
+//      cat; P and dS never reach device memory;
+//   4. dWproj = cat^T.dac and dWqkv = h^T.dqkvc: each client's rows cut into
+//      split ranges (planned by the caller from the rows and the output
+//      shape alone, multiples of the 64-row K tile) whose f32 partials
+//      sum_parts adds in order; dbqkv = the items of hpart in order;
+//   5. dh = dqkvc.Wqkv^T (f32), ln_bwd and the dLN1 column sums.
+// f32, and bf16 off that grid, run attn_bwd_impl: the same function on
+// common.cuh's gemm_kernel with the per-head backward on CUDA cores in two
+// passes per (item, head), a row pass (dP, delta, dS and dQ) and a column
+// pass (dK and dV), dS and the f32 dqkv going through device memory.  The
+// choice is made here, by dtype and shape alone.
+#include "attn_bwd_core.cuh"
 #include "attn_core.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -296,57 +314,216 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
                           nullptr, partial, dlnb, st);
 }
 
+// The bf16 backward on the Hopper mainloop and the tensor-core head kernel
+// (steps 1-5 of the note above).  rps_proj / rps_qkv: rows per split range
+// of dWproj / dWqkv (multiples of 64); their partials go to wpart
+// [S, n, D, D] / [S, n, D, 3D] (unused by a product with S == 1, which
+// writes its gradient directly).  hpart [n*B, 3D] f32.  P is read unless
+// recompute; cat is read, or written when recompute.
+int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
+                  int rps_qkv, const bf16* x, const float* s,
+                  const float* lns, const float* lnb, const bf16* wqkv,
+                  const bf16* bqkv, const bf16* wproj, const bf16* P,
+                  bf16* cat, const bf16* da, bf16* dx, float* dlns,
+                  float* dlnb, float* dwqkv, float* dbqkv, float* dwproj,
+                  float* dbproj, bf16* h, float* mean, float* rstd, bf16* qkv,
+                  bf16* dac, bf16* dO, bf16* dqkvc, float* dh, float* partial,
+                  float* hpart, float* wpart, bool recompute,
+                  cudaStream_t st) {
+  const int M = B * N;
+  const long long rows = (long long)n * M;
+  const long long MD = (long long)M * D;
+  const int hd = D / H;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const int mt = ceil_div(M, SM90_BM);
+  const int kd = ceil_div(D, SM90_BK);
+  int err;
+  if (rps_proj <= 0 || rps_proj % SM90_BK || rps_qkv <= 0 ||
+      rps_qkv % SM90_BK || !hpart)
+    return (int)cudaErrorInvalidValue;
+
+  // LN1, and qkv = T(h . Wqkv + bqkv)
+  if ((err = ln_fwd<bf16>(x, lns, lnb, h, mean, rstd, rows, M, D, 1e-5f, st)))
+    return err;
+  Sm90Args g = {};
+  if ((err = make_map(&g.a0, h, n, M, D)) ||
+      (err = make_map(&g.b0, wqkv, n, D, 3 * D)))
+    return err;
+  g.M = M; g.N = 3 * D;
+  g.k_tiles = g.tiles_per_split = kd;
+  g.splits = 1;
+  g.out = qkv; g.out_client = 3 * MD;
+  g.bias = bqkv;
+  if ((err = sm90_gemm<0, 1, 0, SM90_EPI_BF16>(
+           g, mt, ceil_div(3 * D, SM90_BN), n, st))) return err;
+
+  // branch gradient s*da: dbproj sums it in f32 and the same pass rounds
+  // it into dac for the products.  partial [n, 32, 3D] gives the D-wide
+  // column sums three times the row chunks.
+  const int wide = 3 * CS_CHUNKS;
+  if ((err = colsum<bf16, bf16>(da, n, M, D, s, N, nullptr, nullptr, nullptr,
+                                dac, partial, dbproj, st, wide))) return err;
+
+  // dO = T(dac . Wproj^T): Wproj [D, D] is the K-major B
+  Sm90Args o = {};
+  if ((err = make_map(&o.a0, dac, n, M, D)) ||
+      (err = make_map(&o.b0, wproj, n, D, D)))
+    return err;
+  o.M = M; o.N = D;
+  o.k_tiles = o.tiles_per_split = kd;
+  o.splits = 1;
+  o.out = dO; o.out_client = MD;
+  if ((err = sm90_gemm<0, 0, 0, SM90_EPI_BF16>(
+           o, mt, ceil_div(D, SM90_BN), n, st))) return err;
+
+  // per-head backward: dqkvc, hpart, (cat)
+  const HeadLayout L = {(long long)N * 3 * D, 3 * D, (long long)N * D, D,
+                        (long long)N * 3 * D, 3 * D};
+  if ((err = attn_bwd_head(qkv, qkv + D, qkv + 2 * D, dO, P, dqkvc, dqkvc + D,
+                           dqkvc + 2 * D, cat, hpart, L, n * B, H, N, hd,
+                           scale, recompute, st))) return err;
+  if ((err = colsum<float, bf16>(hpart, n, B, 3 * D, nullptr, 1, nullptr,
+                                 nullptr, nullptr, nullptr, partial, dbqkv,
+                                 st))) return err;
+
+  // dWproj = cat^T . dac [D, D] and dWqkv = h^T . dqkvc [D, 3D], K = the rows
+  const bf16* lhs[2] = {cat, h};
+  const bf16* rhs[2] = {dac, dqkvc};
+  float* dw[2] = {dwproj, dwqkv};
+  const int inner[2] = {D, 3 * D}, rps[2] = {rps_proj, rps_qkv};
+  for (int p = 0; p < 2; ++p) {
+    Sm90Args w = {};
+    if ((err = make_map(&w.a0, lhs[p], n, M, D)) ||
+        (err = make_map(&w.b0, rhs[p], n, M, inner[p])))
+      return err;
+    const long long DW = (long long)D * inner[p];
+    w.M = D; w.N = inner[p];
+    w.k_tiles = ceil_div(M, SM90_BK);
+    w.tiles_per_split = rps[p] / SM90_BK;
+    w.splits = ceil_div(M, rps[p]);
+    if (w.splits > 1 && !wpart) return (int)cudaErrorInvalidValue;
+    w.out_client = DW;
+    w.out_split = n * DW;
+    w.out = w.splits > 1 ? wpart : dw[p];
+    if ((err = sm90_gemm<1, 1, 0, SM90_EPI_F32>(
+             w, ceil_div(D, SM90_BM), ceil_div(inner[p], SM90_BN),
+             n * w.splits, st))) return err;
+    if (w.splits > 1 &&
+        (err = sum_parts(wpart, w.splits, n * DW, dw[p], st))) return err;
+  }
+
+  // dh = dqkvc . Wqkv^T (f32): Wqkv [D, 3D] is the K-major B
+  Sm90Args q = {};
+  if ((err = make_map(&q.a0, dqkvc, n, M, 3 * D)) ||
+      (err = make_map(&q.b0, wqkv, n, D, 3 * D)))
+    return err;
+  q.M = M; q.N = D;
+  q.k_tiles = q.tiles_per_split = ceil_div(3 * D, SM90_BK);
+  q.splits = 1;
+  q.out = dh; q.out_client = MD;
+  if ((err = sm90_gemm<0, 0, 0, SM90_EPI_F32>(
+           q, mt, ceil_div(D, SM90_BN), n, st))) return err;
+
+  // LayerNorm backward: dx (+ the identity branch da), dLN1 scale and bias
+  if ((err = ln_bwd<bf16>(dh, x, mean, rstd, lns, s ? da : nullptr, dx, rows,
+                          M, D, st))) return err;
+  if ((err = colsum<float, bf16>(dh, n, M, D, nullptr, 1, x, mean, rstd,
+                                 nullptr, partial, dlns, st, wide)))
+    return err;
+  return colsum<float, bf16>(dh, n, M, D, nullptr, 1, nullptr, nullptr,
+                             nullptr, nullptr, partial, dlnb, st, wide);
+}
+
+// The choice of path: bf16 on the head kernel's grid (which puts D on
+// TMA's 8-element grid too).
+inline bool attn_bwd_on_sm90(int dtype, int N, int D, int H) {
+  const int hd = D / H;
+  return dtype == 1 && D % 8 == 0 && N <= 256 &&
+         (hd == 16 || hd == 32 || hd == 64);
+}
+
+int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
+                      int rps_proj, int rps_qkv, const void* x,
+                      const float* s, const float* lns, const float* lnb,
+                      const void* wqkv, const void* bqkv, const void* wproj,
+                      void* P, void* cat, const void* da, void* dx,
+                      float* dlns, float* dlnb, float* dwqkv, float* dbqkv,
+                      float* dwproj, float* dbproj, void* h, float* mean,
+                      float* rstd, void* qkv, void* dac, void* dO, void* dS,
+                      float* dqkv, void* dqkvc, float* dh, float* partial,
+                      float* hpart, float* wpart, bool recompute,
+                      cudaStream_t st) {
+  if (attn_bwd_on_sm90(dtype, N, D, H))
+    return attn_bwd_sm90(
+        n, B, N, D, H, rps_proj, rps_qkv, static_cast<const bf16*>(x), s, lns,
+        lnb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
+        static_cast<const bf16*>(wproj), static_cast<const bf16*>(P),
+        static_cast<bf16*>(cat), static_cast<const bf16*>(da),
+        static_cast<bf16*>(dx), dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj,
+        static_cast<bf16*>(h), mean, rstd, static_cast<bf16*>(qkv),
+        static_cast<bf16*>(dac), static_cast<bf16*>(dO),
+        static_cast<bf16*>(dqkvc), dh, partial, hpart, wpart, recompute, st);
+  if (!dS || !dqkv || !P) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return attn_bwd_impl<bf16>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
+                               wproj, P, cat, da, dx, dlns, dlnb, dwqkv,
+                               dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
+                               dO, dS, dqkv, dqkvc, dh, partial, recompute,
+                               st);
+  return attn_bwd_impl<float>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
+                              wproj, P, cat, da, dx, dlns, dlnb, dwqkv, dbqkv,
+                              dwproj, dbproj, h, mean, rstd, qkv, dac, dO, dS,
+                              dqkv, dqkvc, dh, partial, recompute, st);
+}
+
 }  // namespace
 
-// Inputs as fc_attn_fwd, plus P [n,B,H,N,N], cat [n,B,N,D], da [n,B,N,D] (T).
+// Inputs as fc_attn_fwd, plus P [n,B,H,N,N], cat [n,B,N,D], da [n,B,N,D] (T);
+// rps_proj, rps_qkv: rows per split range of the dWproj and dWqkv sums
+// (Hopper path; multiples of 64).
 // Outputs: dx [n,B,N,D] (T); dlns, dlnb [n,D]; dwqkv [n,D,3D]; dbqkv [n,3D];
 // dwproj [n,D,D]; dbproj [n,D] (all f32).
 // Scratch: h, dac, dO [n,B,N,D] (T); mean, rstd [n*B*N] f32;
-// qkv, dqkvc [n,B,N,3D] (T); dS [n,B,H,N,N] (T); dqkv [n,B,N,3D] f32;
-// dh [n,B,N,D] f32; partial [n,32,3D] f32.
+// qkv, dqkvc [n,B,N,3D] (T); dh [n,B,N,D] f32; partial [n,32,3D] f32.
+// gemm_kernel path only: dS [n,B,H,N,N] (T); dqkv [n,B,N,3D] f32.
+// Hopper path only: hpart [n*B,3D] f32; wpart [S,n,D,3D] f32 for the larger
+// S*columns of the two products, when an S = ceil(B*N/rps) > 1.  Unused
+// buffers may be NULL.
 extern "C" int fc_attn_bwd(int dtype, int n, int B, int N, int D, int H,
-                           const void* x, const float* s, const float* lns,
-                           const float* lnb, const void* wqkv,
-                           const void* bqkv, const void* wproj, const void* P,
-                           const void* cat, const void* da, void* dx,
-                           float* dlns, float* dlnb, float* dwqkv,
-                           float* dbqkv, float* dwproj, float* dbproj,
-                           void* h, float* mean, float* rstd, void* qkv,
-                           void* dac, void* dO, void* dS, float* dqkv,
-                           void* dqkvc, float* dh, float* partial,
-                           cudaStream_t st) {
+                           int rps_proj, int rps_qkv, const void* x,
+                           const float* s, const float* lns, const float* lnb,
+                           const void* wqkv, const void* bqkv,
+                           const void* wproj, const void* P, const void* cat,
+                           const void* da, void* dx, float* dlns, float* dlnb,
+                           float* dwqkv, float* dbqkv, float* dwproj,
+                           float* dbproj, void* h, float* mean, float* rstd,
+                           void* qkv, void* dac, void* dO, void* dS,
+                           float* dqkv, void* dqkvc, float* dh, float* partial,
+                           float* hpart, float* wpart, cudaStream_t st) {
   // the saves are only read on this path
-  void* Pm = const_cast<void*>(P);
-  void* catm = const_cast<void*>(cat);
-  if (dtype == 1)
-    return attn_bwd_impl<bf16>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
-                               wproj, Pm, catm, da, dx, dlns, dlnb, dwqkv,
-                               dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
-                               dO, dS, dqkv, dqkvc, dh, partial, false, st);
-  return attn_bwd_impl<float>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
-                              wproj, Pm, catm, da, dx, dlns, dlnb, dwqkv,
-                              dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
-                              dO, dS, dqkv, dqkvc, dh, partial, false, st);
+  return attn_bwd_dispatch(dtype, n, B, N, D, H, rps_proj, rps_qkv, x, s, lns,
+                           lnb, wqkv, bqkv, wproj, const_cast<void*>(P),
+                           const_cast<void*>(cat), da, dx, dlns, dlnb, dwqkv,
+                           dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac, dO,
+                           dS, dqkv, dqkvc, dh, partial, hpart, wpart, false,
+                           st);
 }
 
 // The recompute backward (no residual, no saves): inputs x, lns, lnb, wqkv,
-// bqkv, wproj, da as fc_attn_bwd; outputs as fc_attn_bwd; P [n,B,H,N,N] and
-// cat [n,B,N,D] (T) become scratch, with the rest of fc_attn_bwd's.
+// bqkv, wproj, da as fc_attn_bwd; outputs as fc_attn_bwd; cat [n,B,N,D] (T)
+// becomes scratch, with the rest of fc_attn_bwd's, and on the gemm_kernel
+// path so does P [n,B,H,N,N] (the Hopper path keeps P on chip: NULL).
 extern "C" int fc_attn_bwd_recompute(
-    int dtype, int n, int B, int N, int D, int H, const void* x,
-    const float* lns, const float* lnb, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* da, void* dx, float* dlns, float* dlnb,
-    float* dwqkv, float* dbqkv, float* dwproj, float* dbproj, void* h,
-    float* mean, float* rstd, void* qkv, void* P, void* cat, void* dac,
-    void* dO, void* dS, float* dqkv, void* dqkvc, float* dh, float* partial,
-    cudaStream_t st) {
-  if (dtype == 1)
-    return attn_bwd_impl<bf16>(n, B, N, D, H, x, nullptr, lns, lnb, wqkv,
-                               bqkv, wproj, P, cat, da, dx, dlns, dlnb, dwqkv,
-                               dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
-                               dO, dS, dqkv, dqkvc, dh, partial, true, st);
-  return attn_bwd_impl<float>(n, B, N, D, H, x, nullptr, lns, lnb, wqkv,
-                              bqkv, wproj, P, cat, da, dx, dlns, dlnb, dwqkv,
-                              dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac,
-                              dO, dS, dqkv, dqkvc, dh, partial, true, st);
+    int dtype, int n, int B, int N, int D, int H, int rps_proj, int rps_qkv,
+    const void* x, const float* lns, const float* lnb, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* da, void* dx,
+    float* dlns, float* dlnb, float* dwqkv, float* dbqkv, float* dwproj,
+    float* dbproj, void* h, float* mean, float* rstd, void* qkv, void* P,
+    void* cat, void* dac, void* dO, void* dS, float* dqkv, void* dqkvc,
+    float* dh, float* partial, float* hpart, float* wpart, cudaStream_t st) {
+  return attn_bwd_dispatch(dtype, n, B, N, D, H, rps_proj, rps_qkv, x,
+                           nullptr, lns, lnb, wqkv, bqkv, wproj, P, cat, da,
+                           dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj, h,
+                           mean, rstd, qkv, dac, dO, dS, dqkv, dqkvc, dh,
+                           partial, hpart, wpart, true, st);
 }

@@ -1,6 +1,6 @@
 // Attention core forward, softmax(q.k^T).v per (item, head), shared by the
-// fused attention sublayer (attn_fwd.cu, and the recompute backward in
-// attn_bwd.cu) and flash attention (flash_fwd.cu).
+// fused attention sublayer (attn_fwd.cu, and the recompute backward of
+// attn_bwd.cu off its tensor-core path) and flash attention (flash_fwd.cu).
 //
 // One block per (head, item), one warp per query row.  The block holds the
 // head's K and V (N <= 256 rows, hd <= 64) in shared memory as f32; scores

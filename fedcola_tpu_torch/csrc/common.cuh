@@ -17,13 +17,14 @@
 //                        a dW tile's block walks every row of a client
 //                        alone (about 10 TFLOP/s in bf16 on the H100).  The
 //                        float32 paths keep it as the card's exactness
-//                        check; the bf16 MLP backward has moved to
-//                        gemm_sm90.cuh (TMA + wgmma, split-row dW sums),
-//                        and the other bf16 entry points move there next.
+//                        check; the bf16 MLP and attention backwards have
+//                        moved to gemm_sm90.cuh (TMA + wgmma, split-row dW
+//                        sums), and the bf16 forwards move there next.
 //   * ln_fwd_kernel      LayerNorm forward: normalised rows + mean/rstd.
 //   * ln_bwd_kernel      LayerNorm backward for dx (+ the identity branch).
 //   * colsum_*           deterministic per-client column sums (dbias, dLN
-//                        params) in two passes: fixed row chunks, then the
+//                        params) in two passes: fixed row chunks (32, or
+//                        as many as the caller's scratch holds), then the
 //                        chunks summed in order.  No atomics anywhere, so
 //                        every result is bit-reproducible run to run.
 //   * elementwise        DropPath row scaling, GELU backward.
@@ -312,7 +313,7 @@ ln_bwd_kernel(const float* dh, const T* x, const float* mean,
   const int c = (int)(r / rows_per_client);
   const float mu = mean[r], inv = rstd[r];
   const float* gr = gamma + (long long)c * D;
-  float dg[LN_MAXV], xh[LN_MAXV];
+  float dg[LN_MAXV], xh[LN_MAXV], rv[LN_MAXV];
   float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
@@ -320,9 +321,12 @@ ln_bwd_kernel(const float* dh, const T* x, const float* mean,
     if (d < D) {
       xh[i] = (to_f(x[r * D + d]) - mu) * inv;
       dg[i] = dh[r * D + d] * gr[d];
+      // read with the row's other loads, not after the two reductions
+      rv[i] = res ? to_f(res[r * D + d]) : 0.0f;
     } else {
       xh[i] = 0.0f;
       dg[i] = 0.0f;
+      rv[i] = 0.0f;
     }
     s1 += dg[i];
     s2 += dg[i] * xh[i];
@@ -333,7 +337,7 @@ ln_bwd_kernel(const float* dh, const T* x, const float* mean,
     const int d = lane + 32 * i;
     if (d < D) {
       float v = inv * (dg[i] - m1 - xh[i] * m2);
-      if (res) v += to_f(res[r * D + d]);
+      if (res) v += rv[i];
       dx[r * D + d] = from_f<T>(v);
     }
   }
@@ -368,50 +372,56 @@ constexpr int CS_THREADS = 256;
 
 // out[c, col] = sum_m f(src[c, m, col]) with, optionally,
 //   f *= s[(c*M + m)/seq]                       (DropPath row scale)
+//   cast[c, m, col] = T(f)                      (the scaled value in T)
 //   f *= (x[c, m, col] - mean[c, m]) * rstd[c, m]  (LayerNorm xhat)
-// and, optionally, cast[c, m, col] = T(src[c, m, col]).
+// gridDim.y row chunks per client.
 template <typename SrcT, typename T>
 __global__ void __launch_bounds__(CS_THREADS)
 colsum_partial_kernel(const SrcT* src, int M, int C, const float* s, int seq,
                       const T* x, const float* mean, const float* rstd,
                       T* cast, float* partial) {
   const int col = blockIdx.x * CS_THREADS + threadIdx.x;
-  const int chunk = blockIdx.y, c = blockIdx.z;
+  const int chunk = blockIdx.y, chunks = gridDim.y, c = blockIdx.z;
   if (col >= C) return;
-  const int per = (M + CS_CHUNKS - 1) / CS_CHUNKS;
+  const int per = (M + chunks - 1) / chunks;
   const int r0 = chunk * per, r1 = min(M, r0 + per);
   float acc = 0.0f;
   for (int m = r0; m < r1; ++m) {
-    const long long row = (long long)c * M + m;
+    const int irow = c * M + m;
+    const long long row = irow;
     const long long off = row * C + col;
     float v = to_f(src[off]);
+    if (s) v *= s[irow / seq];
     if (cast) cast[off] = from_f<T>(v);
-    if (s) v *= s[row / seq];
     if (x) v *= (to_f(x[off]) - mean[row]) * rstd[row];
     acc += v;
   }
-  partial[((long long)c * CS_CHUNKS + chunk) * C + col] = acc;
+  partial[((long long)c * chunks + chunk) * C + col] = acc;
 }
 
-__global__ void colsum_final_kernel(const float* partial, int C, float* out) {
+__global__ void colsum_final_kernel(const float* partial, int chunks, int C,
+                                    float* out) {
   const int col = blockIdx.x * CS_THREADS + threadIdx.x;
   const int c = blockIdx.y;
   if (col >= C) return;
   float acc = 0.0f;
-  for (int k = 0; k < CS_CHUNKS; ++k)
-    acc += partial[((long long)c * CS_CHUNKS + k) * C + col];
+  for (int k = 0; k < chunks; ++k)
+    acc += partial[((long long)c * chunks + k) * C + col];
   out[(long long)c * C + col] = acc;
 }
 
+// partial holds n * chunks * C floats.
 template <typename SrcT, typename T>
 int colsum(const SrcT* src, int n, int M, int C, const float* s, int seq,
            const T* x, const float* mean, const float* rstd, T* cast,
-           float* partial, float* out, cudaStream_t st) {
+           float* partial, float* out, cudaStream_t st,
+           int chunks = CS_CHUNKS) {
   const int cb = (C + CS_THREADS - 1) / CS_THREADS;
-  colsum_partial_kernel<SrcT, T><<<dim3(cb, CS_CHUNKS, n), CS_THREADS, 0, st>>>(
+  colsum_partial_kernel<SrcT, T><<<dim3(cb, chunks, n), CS_THREADS, 0, st>>>(
       src, M, C, s, seq, x, mean, rstd, cast, partial);
   FC_CHECK();
-  colsum_final_kernel<<<dim3(cb, n), CS_THREADS, 0, st>>>(partial, C, out);
+  colsum_final_kernel<<<dim3(cb, n), CS_THREADS, 0, st>>>(partial, chunks, C,
+                                                          out);
   FC_CHECK();
   return 0;
 }

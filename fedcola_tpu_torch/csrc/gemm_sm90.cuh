@@ -1,7 +1,8 @@
 // A bf16 GEMM mainloop for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages, wgmma on two consumer warpgroups, one producer
-// warp.  Used by the bf16 backward of the fused MLP (mlp_bwd.cu); every
-// other entry point still runs common.cuh's gemm_kernel.
+// warp.  Used by the bf16 backwards of the fused MLP (mlp_bwd.cu) and of
+// the fused attention sublayer (attn_bwd.cu); the forward entry points
+// still run common.cuh's gemm_kernel.
 //
 // Block shape.  One persistent block per SM walks 128 x 128 output tiles
 // (of one client, and of one split range of K where the caller splits the
@@ -76,7 +77,8 @@ struct Sm90Args {
   int splits;          // a tile's z index = client * splits + split
   void* out;           // EPI_F32 / EPI_BF16: out[split][client][M][N]
   long long out_client, out_split;  // element strides (row stride is N)
-  const bf16* bias;    // EPI_GELU_BWD: b1 [clients, N]
+  const bf16* bias;    // [clients, N]: EPI_GELU_BWD's b1; EPI_BF16 adds it
+                       // before rounding when not null
   bf16* hg;            // T(GELU(pre))        [clients, M, N]
   bf16* dprec;         // T(dh * GELU'(pre))  [clients, M, N]
   float* colsum;       // f32 column sums of dpre per row tile
@@ -375,7 +377,12 @@ sm90_gemm_kernel(const __grid_constant__ Sm90Args g) {
           for (int h = 0; h < 2; ++h) {
             const int r = row0 + 8 * h, col = col0 + 8 * j;
             if (r >= g.M || col >= g.N) continue;
-            const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (EPI == SM90_EPI_BF16 && g.bias) {
+              const bf16* bias = g.bias + (long long)u.c * g.N;
+              v0 += to_f(bias[col]);
+              if (col + 1 < g.N) v1 += to_f(bias[col + 1]);
+            }
             const long long off = base + (long long)r * g.N + col;
             if (EPI == SM90_EPI_F32) {
               float* o = static_cast<float*>(g.out) + off;
@@ -454,6 +461,8 @@ sm90_gemm_kernel(const __grid_constant__ Sm90Args g) {
     }
   }
 }
+
+inline int ceil_div(long long a, int b) { return (int)((a + b - 1) / b); }
 
 inline int sm_count() {
   static int sms = 0;

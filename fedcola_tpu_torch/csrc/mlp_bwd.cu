@@ -176,8 +176,6 @@ int mlp_bwd_impl(int n, int B, int N, int D, int F, const void* x_,
                     static_cast<T*>(dx), dlns, dlnb, partial, n, M, D, st);
 }
 
-inline int ceil_div(long long a, int b) { return (int)((a + b - 1) / b); }
-
 // The bf16 backward on the Hopper mainloop (steps 1-4 of the note above).
 // rps: rows per split range of the weight-gradient products (a multiple of
 // 64); S = ceil(M / rps) ranges, whose partials go to wpart [S, n, D*F]

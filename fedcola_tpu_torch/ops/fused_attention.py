@@ -18,6 +18,11 @@ Shapes (leading client axis ``n``): x ``[n, B, N, D]``; s ``[n, B]`` f32
 wqkv ``[n, D, 3D]``, bqkv ``[n, 3D]``, wproj ``[n, D, D]``, bproj
 ``[n, D]`` in x's dtype (float32 or bfloat16).
 
+Both backward wrappers assemble their launch in :func:`bwd_launch`; in
+bfloat16 with head_dim 16, 32 or 64 (:func:`uses_sm90`) the entry points
+run their five D-wide products on the TMA + wgmma mainloop and the
+per-head backward in one tensor-core kernel (``csrc/attn_bwd_core.cuh``).
+
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  The plain versions round to x's dtype
 at the same points as the kernels (LN output, qkv, P, the head concat, the
@@ -222,6 +227,85 @@ def attn_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, wqkv, bqkv, wproj,
     return out, P, cat
 
 
+def uses_sm90(dtype, D: int, num_heads: int, N: int) -> bool:
+    """The choice ``fc_attn_bwd`` and ``fc_attn_bwd_recompute`` make
+    (``csrc/attn_bwd.cu``): bf16 with head_dim 16, 32 or 64 (the tensor-core
+    head kernel's sizes; D is then on TMA's 8-element grid) and N <= 256
+    runs the Hopper path; float32, or any other head_dim, runs
+    ``gemm_kernel`` and the CUDA-core row and column passes."""
+    return (dtype == torch.bfloat16 and D % 8 == 0 and N <= 256
+            and D // num_heads in (16, 32, 64))
+
+
+def _bwd_buffers(x, num_heads: int, recompute: bool):
+    """``((rps_proj, rps_qkv), outputs, scratch)`` of one backward launch.
+    Outputs, f32 but dx: dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj.
+    Scratch in entry-point order, None where the path taken (see
+    :func:`uses_sm90`) needs none:
+
+        h, mean, rstd, qkv, [P, cat,] dac, dO, dS, dqkv, dqkvc, dh,
+        partial, hpart, wpart
+
+    (P and cat only when ``recompute``: the other entry point reads them.)
+    The Hopper path keeps P and dS on chip and writes dq | dk | dv straight
+    as the bf16 dqkvc: it takes hpart ``[n*B, 3D]`` (dbqkv's column sums per
+    item) and wpart (the split weight-gradient partials of the larger of
+    dWproj ``[S, n, D, D]`` and dWqkv ``[S, n, D, 3D]``, when an S > 1).
+    The ``gemm_kernel`` path takes dS (and, recomputing, P) ``[n, B, H, N,
+    N]`` in x's dtype and dqkv ``[n, B, N, 3D]`` in f32."""
+    n, B, N, D = x.shape
+    H = num_heads
+    dt, dev = x.dtype, x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    plans = (kernels.plan_row_splits(B * N, D, D),
+             kernels.plan_row_splits(B * N, D, 3 * D))
+    outs = [torch.empty_like(x), torch.empty((n, D), **f32),
+            torch.empty((n, D), **f32), torch.empty((n, D, 3 * D), **f32),
+            torch.empty((n, 3 * D), **f32), torch.empty((n, D, D), **f32),
+            torch.empty((n, D), **f32)]
+    mean = torch.empty((n * B * N,), **f32)
+    qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)
+    if uses_sm90(dt, D, H, N):
+        P = dS = dqkv = wpart = None
+        hpart = torch.empty((n * B, 3 * D), **f32)
+        part = max(S * cols if S > 1 else 0
+                   for (S, _), cols in zip(plans, (D, 3 * D)))
+        if part:
+            wpart = torch.empty((part * n * D,), **f32)
+    else:
+        P = torch.empty((n, B, H, N, N), dtype=dt, device=dev)
+        dS = torch.empty_like(P)
+        dqkv = torch.empty((n, B, N, 3 * D), **f32)
+        hpart = wpart = None
+    saves = [P, torch.empty_like(x)] if recompute else []
+    scratch = ([torch.empty_like(x), mean, torch.empty_like(mean), qkv]
+               + saves + [torch.empty_like(x), torch.empty_like(x), dS, dqkv,
+                          torch.empty_like(qkv), torch.empty(x.shape, **f32),
+                          torch.empty((n, 32, 3 * D), **f32), hpart, wpart])
+    return (plans[0][1], plans[1][1]), outs, scratch
+
+
+def bwd_launch(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da,
+               num_heads: int):
+    """``(entry point, arguments, outputs)`` of one backward launch, the
+    stream aside: ``attn_bwd`` from the saved P and cat, or
+    ``attn_bwd_recompute`` when P is None (s and cat are then not passed).
+    The outputs are (dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj).
+    Allocates on x's device, so it also runs on CPU tensors."""
+    recompute = P is None
+    n, B, N, D = x.shape
+    rps, outs, scratch = _bwd_buffers(x, num_heads, recompute)
+    head = [kernels.dtype_code(x.dtype), n, B, N, D, num_heads, *rps]
+    if recompute:
+        name = "attn_bwd_recompute"
+        ptrs = [x, lns, lnb, wqkv, bqkv, wproj, da]
+    else:
+        name = "attn_bwd"
+        ptrs = [x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da]
+    args = head + [kernels.ptr(t) for t in ptrs + outs + scratch]
+    return name, args, tuple(outs)
+
+
 def attn_bwd(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da, num_heads: int):
     """Kernel 2: gradients of ``[x + s*] attn(x)`` from the saved P and
     cat; returns (dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj)."""
@@ -230,38 +314,13 @@ def attn_bwd(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat, da, num_heads: int):
                               num_heads)
     _check_fwd_args(x, s, lns, lnb, wqkv, bqkv, wproj, None, num_heads)
     n, B, N, D = x.shape
-    H = num_heads
-    dt, dev = x.dtype, x.device
-    kernels.check(P, "P", (n, B, H, N, N), dt, dev)
-    kernels.check(cat, "cat", (n, B, N, D), dt, dev)
-    kernels.check(da, "da", (n, B, N, D), dt, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
-    dlns = torch.empty((n, D), **f32)
-    dlnb = torch.empty((n, D), **f32)
-    dwqkv = torch.empty((n, D, 3 * D), **f32)
-    dbqkv = torch.empty((n, 3 * D), **f32)
-    dwproj = torch.empty((n, D, D), **f32)
-    dbproj = torch.empty((n, D), **f32)
-    h = torch.empty_like(x)
-    mean = torch.empty((n * B * N,), **f32)
-    rstd = torch.empty_like(mean)
-    qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)
-    dac = torch.empty_like(x)
-    dO = torch.empty_like(x)
-    dS = torch.empty_like(P)
-    dqkv = torch.empty((n, B, N, 3 * D), **f32)
-    dqkvc = torch.empty_like(qkv)
-    dh = torch.empty((n, B, N, D), **f32)
-    partial = torch.empty((n, 32, 3 * D), **f32)
-    P_ = kernels.ptr
-    kernels.launch("attn_bwd", kernels.dtype_code(dt), n, B, N, D, H,
-                   P_(x), P_(s), P_(lns), P_(lnb), P_(wqkv), P_(bqkv),
-                   P_(wproj), P_(P), P_(cat), P_(da), P_(dx), P_(dlns),
-                   P_(dlnb), P_(dwqkv), P_(dbqkv), P_(dwproj), P_(dbproj),
-                   P_(h), P_(mean), P_(rstd), P_(qkv), P_(dac), P_(dO),
-                   P_(dS), P_(dqkv), P_(dqkvc), P_(dh), P_(partial))
-    return dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj
+    kernels.check(P, "P", (n, B, num_heads, N, N), x.dtype, x.device)
+    kernels.check(cat, "cat", (n, B, N, D), x.dtype, x.device)
+    kernels.check(da, "da", (n, B, N, D), x.dtype, x.device)
+    name, args, outs = bwd_launch(x, s, lns, lnb, wqkv, bqkv, wproj, P, cat,
+                                  da, num_heads)
+    kernels.launch(name, *args)
+    return outs
 
 
 def attn_bwd_recompute(x, lns, lnb, wqkv, bqkv, wproj, da, num_heads: int):
@@ -272,39 +331,11 @@ def attn_bwd_recompute(x, lns, lnb, wqkv, bqkv, wproj, da, num_heads: int):
         return attn_bwd_recompute_plain(x, lns, lnb, wqkv, bqkv, wproj, da,
                                         num_heads)
     _check_fwd_args(x, None, lns, lnb, wqkv, bqkv, wproj, None, num_heads)
-    n, B, N, D = x.shape
-    H = num_heads
-    dt, dev = x.dtype, x.device
-    kernels.check(da, "da", (n, B, N, D), dt, dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
-    dlns = torch.empty((n, D), **f32)
-    dlnb = torch.empty((n, D), **f32)
-    dwqkv = torch.empty((n, D, 3 * D), **f32)
-    dbqkv = torch.empty((n, 3 * D), **f32)
-    dwproj = torch.empty((n, D, D), **f32)
-    dbproj = torch.empty((n, D), **f32)
-    h = torch.empty_like(x)
-    mean = torch.empty((n * B * N,), **f32)
-    rstd = torch.empty_like(mean)
-    qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)
-    P = torch.empty((n, B, H, N, N), dtype=dt, device=dev)
-    cat = torch.empty_like(x)
-    dac = torch.empty_like(x)
-    dO = torch.empty_like(x)
-    dS = torch.empty_like(P)
-    dqkv = torch.empty((n, B, N, 3 * D), **f32)
-    dqkvc = torch.empty_like(qkv)
-    dh = torch.empty((n, B, N, D), **f32)
-    partial = torch.empty((n, 32, 3 * D), **f32)
-    P_ = kernels.ptr
-    kernels.launch("attn_bwd_recompute", kernels.dtype_code(dt), n, B, N, D,
-                   H, P_(x), P_(lns), P_(lnb), P_(wqkv), P_(bqkv), P_(wproj),
-                   P_(da), P_(dx), P_(dlns), P_(dlnb), P_(dwqkv), P_(dbqkv),
-                   P_(dwproj), P_(dbproj), P_(h), P_(mean), P_(rstd), P_(qkv),
-                   P_(P), P_(cat), P_(dac), P_(dO), P_(dS), P_(dqkv),
-                   P_(dqkvc), P_(dh), P_(partial))
-    return dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj
+    kernels.check(da, "da", x.shape, x.dtype, x.device)
+    name, args, outs = bwd_launch(x, None, lns, lnb, wqkv, bqkv, wproj, None,
+                                  None, da, num_heads)
+    kernels.launch(name, *args)
+    return outs
 
 
 # ---------------------------------------------------------- autograd -------

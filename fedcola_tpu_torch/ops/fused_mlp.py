@@ -44,6 +44,10 @@ import torch
 
 from fedcola_tpu_torch.ops import kernels
 from fedcola_tpu_torch.ops.fused_attention import _ln, _ln_bwd, _mm, _rows_t_mm
+# the split planner of the weight-gradient products, shared with the
+# attention backward; its names stay importable from here
+from fedcola_tpu_torch.ops.kernels import (H100_SMS, SM90_BM,  # noqa: F401
+                                           plan_row_splits)
 
 Tensor = torch.Tensor
 
@@ -161,32 +165,11 @@ def _fwd_scratch(x, F, ln):
     return [torch.empty_like(x), mean, torch.empty_like(mean), hid]
 
 
-# The bf16 backward's Hopper GEMM (csrc/gemm_sm90.cuh): its row and K
-# tiles, and the SMs the split weight-gradient products should fill.
-SM90_BM, SM90_BK, H100_SMS = 128, 64, 132
-
-
 def uses_sm90(dtype, D: int, F: int) -> bool:
     """The choice ``fc_mlp_bwd`` makes (``csrc/mlp_bwd.cu``): bf16 with D
     and F multiples of 8 (TMA's 16-byte row strides) runs the Hopper
     mainloop; float32, or D or F off that grid, runs ``gemm_kernel``."""
     return dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
-
-
-def plan_row_splits(rows: int, D: int, F: int):
-    """``(S, rows_per_split)`` for the weight-gradient products dW1 =
-    hᵀ·dpre and dW2 = GELU(pre)ᵀ·do, which reduce over a client's rows.
-    Their 128 x 128 output tiles alone leave most SMs idle, so each
-    client's rows are cut into S ranges of ``rows_per_split`` rows (a
-    multiple of the 64-row K tile; the last range holds the rest), enough
-    that tiles x S reach two blocks per SM, at most 8 ranges and at least
-    4 K tiles each.  A function of (rows, D, F) only, so the result never
-    depends on the number of clients or on timing."""
-    k_tiles = -(-rows // SM90_BK)
-    tiles = -(-D // SM90_BM) * -(-F // SM90_BM)
-    want = -(-2 * H100_SMS // tiles)
-    per = -(-k_tiles // max(1, min(8, want, k_tiles // 4)))
-    return -(-k_tiles // per), per * SM90_BK
 
 
 def _bwd_buffers(x, F, ln):

@@ -46,8 +46,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fc_attn_fwd": [_I] * 6 + [_P] * 15 + [_I, _P],
-    "fc_attn_bwd": [_I] * 6 + [_P] * 29,
-    "fc_attn_bwd_recompute": [_I] * 6 + [_P] * 28,
+    "fc_attn_bwd": [_I] * 8 + [_P] * 31,
+    "fc_attn_bwd_recompute": [_I] * 8 + [_P] * 30,
     "fc_mlp_fwd": [_I] * 6 + [_P] * 14,
     "fc_mlp_bwd": [_I] * 7 + [_P] * 28,
     "fc_mlp_bwd_nores": [_I] * 7 + [_P] * 27,
@@ -60,6 +60,28 @@ _SIGNATURES = {
     # test only: the Hopper GEMM mainloop alone (tests/test_torch_port_cuda.py)
     "fc_sm90_gemm_test": [_I] * 6 + [_P] * 4,
 }
+
+# The bf16 backwards' Hopper GEMM (csrc/gemm_sm90.cuh): its row and K
+# tiles, and the SMs the split weight-gradient products should fill.
+SM90_BM, SM90_BK, H100_SMS = 128, 64, 132
+
+
+def plan_row_splits(rows: int, out_rows: int, out_cols: int):
+    """``(S, rows_per_split)`` for a weight-gradient product Aᵀ·B with an
+    ``[out_rows, out_cols]`` result that reduces over a client's ``rows``
+    (the MLP's dW1 = hᵀ·dpre and dW2, the attention sublayer's dWproj and
+    dWqkv).  Its 128 x 128 output tiles alone leave most SMs idle, so each
+    client's rows are cut into S ranges of ``rows_per_split`` rows (a
+    multiple of the 64-row K tile; the last range holds the rest), enough
+    that tiles x S reach two blocks per SM, at most 8 ranges and at least
+    4 K tiles each.  A function of (rows, output shape) only, so the result
+    never depends on the number of clients or on timing."""
+    k_tiles = -(-rows // SM90_BK)
+    tiles = -(-out_rows // SM90_BM) * -(-out_cols // SM90_BM)
+    want = -(-2 * H100_SMS // tiles)
+    per = -(-k_tiles // max(1, min(8, want, k_tiles // 4)))
+    return -(-k_tiles // per), per * SM90_BK
+
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()

@@ -6,7 +6,11 @@ counters and the wrappers' refusals.  The bf16 MLP backward's Hopper GEMM
 (``csrc/gemm_sm90.cuh``) is also held alone against ``torch.matmul`` in its
 four operand layouts, and its backward for the zero fill at a client's
 ragged last tile, run-to-run bitwise reproducibility, rows vs item entry
-points, and the ``gemm_kernel`` branch that D off the 8 grid takes.
+points, and the ``gemm_kernel`` branch that D off the 8 grid takes.  The
+bf16 attention backward's Hopper path (the same GEMM plus the tensor-core
+head kernel of ``csrc/attn_bwd_core.cuh``) is held to the plain versions at
+N = 256, 197, 40 and 13 and head_dim 64, 32 and 16, for item and client
+isolation, for bitwise repeats, and for the old path at head_dim 48.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -301,3 +305,93 @@ def test_bf16_backward_off_the_8_grid_takes_gemm_kernel(dev):
            torch.bfloat16)
     _agree(fm.mlp_ln_bwd_rows(x, *ln, *w, do),
            fm.mlp_ln_bwd_rows_plain(x, *ln, *w, do), torch.bfloat16)
+
+
+def _attn_case(N, Dm, Hm, dev, seed=0, Bm=B):
+    """bf16 inputs of both attention backward entry points at width Dm."""
+    r = np.random.RandomState(seed)
+    f = lambda *sh, sc=1.0: torch.from_numpy(
+        (r.randn(*sh) * sc).astype(np.float32)).to(dev)
+    t = {"x": f(NC, Bm, N, Dm).bfloat16(), "da": f(NC, Bm, N, Dm).bfloat16(),
+         "s": torch.from_numpy(r.choice([0.0, 1.0 / 0.9], size=(NC, Bm))
+                               .astype(np.float32)).to(dev),
+         "lns": f(NC, Dm, sc=0.2) + 1.0, "lnb": f(NC, Dm, sc=0.1),
+         "wqkv": f(NC, Dm, 3 * Dm, sc=Dm ** -0.5).bfloat16(),
+         "bqkv": f(NC, 3 * Dm, sc=0.1).bfloat16(),
+         "wproj": f(NC, Dm, Dm, sc=Dm ** -0.5).bfloat16(),
+         "bproj": f(NC, Dm, sc=0.1).bfloat16()}
+    t["w"] = [t[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj")]
+    return t
+
+
+def _both_attn_backwards(t, Hm, s="s"):
+    """Outputs of ``attn_bwd`` (from the plain forward's saves) and
+    ``attn_bwd_recompute``, with their plain versions."""
+    sv = t[s] if s else None
+    _, P, cat = fa.attn_fwd_plain(t["x"], sv, *t["w"], t["bproj"], Hm)
+    a2 = (t["x"], sv, *t["w"], P, cat, t["da"], Hm)
+    a5 = (t["x"], *t["w"], t["da"], Hm)
+    return {"attn_bwd": (fa.attn_bwd(*a2), fa.attn_bwd_plain(*a2)),
+            "attn_bwd_recompute": (fa.attn_bwd_recompute(*a5),
+                                   fa.attn_bwd_recompute_plain(*a5))}
+
+
+@pytest.mark.parametrize("Dm,Hm", [(128, 2), (64, 2), (64, 4)])
+@pytest.mark.parametrize("N", [256, 197, 40, 13])
+def test_bf16_attention_backward_hopper_path_matches_plain(dev, N, Dm, Hm):
+    """head_dim 64, 32 and 16 at N = 256 (the kernels' limit: 16 blocks),
+    197 (13 blocks, 5 ragged keys), 40 and 13 (one ragged block): every
+    gradient of both entry points, with and without the residual scale."""
+    assert fa.uses_sm90(torch.bfloat16, Dm, Hm, N)
+    t = _attn_case(N, Dm, Hm, dev, seed=N + Dm + Hm)
+    for s in ("s", None):
+        for got, ref in _both_attn_backwards(t, Hm, s).values():
+            _agree(got, ref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("N", [197, 13])
+def test_bf16_attention_backward_keeps_items_and_clients_apart(dev, N):
+    """One item's da zero beside a large neighbour: its dx is exactly 0
+    (no key, query or dO row of another item reaches it).  Then client 0's
+    da all zero beside a large client 1: every gradient of client 0 is
+    exactly 0 (the 3-D tensor maps' zero fill at the ragged last tile)."""
+    t = _attn_case(N, D, H, dev, seed=3)
+    t["x"][0, 2] *= 50
+    t["da"][0, 2] *= 50
+    t["da"][0, 1] = 0
+    t["s"][:] = 1.0
+    for name, (got, ref) in _both_attn_backwards(t, H).items():
+        assert torch.count_nonzero(got[0][0, 1]) == 0, name
+        assert torch.count_nonzero(got[0][0, 2]) > 0, name
+        _agree(got, ref, torch.bfloat16)
+    t["x"][1] *= 50
+    t["da"][1] *= 50
+    t["da"][0] = 0
+    for name, (got, _) in _both_attn_backwards(t, H).items():
+        for grad in got:
+            assert torch.count_nonzero(grad[0]) == 0, name
+            assert torch.count_nonzero(grad[1]) > 0, name
+
+
+@pytest.mark.parametrize("N", [197, 13])
+def test_bf16_attention_backward_is_bitwise_reproducible(dev, N):
+    """Two calls of each entry point give the same bits (no atomics; 591
+    rows a client take two split ranges in dWproj and dWqkv)."""
+    t = _attn_case(N, D, H, dev, seed=5)
+    if N == 197:
+        assert kernels.plan_row_splits(B * N, D, 3 * D)[0] > 1
+    first, second = _both_attn_backwards(t, H), _both_attn_backwards(t, H)
+    for name in first:
+        for a, b in zip(first[name][0], second[name][0]):
+            assert torch.equal(a, b), name
+
+
+def test_bf16_attention_backward_off_the_head_grid_takes_the_old_path(dev):
+    """head_dim 48 (D = 96, 2 heads): not a size of the tensor-core head
+    kernel, so both entry points run gemm_kernel and the CUDA-core passes,
+    held to the plain versions; float32 always does."""
+    assert not fa.uses_sm90(torch.bfloat16, 96, 2, 37)
+    assert not fa.uses_sm90(torch.float32, D, H, 37)
+    t = _attn_case(37, 96, 2, dev, seed=6)
+    for got, ref in _both_attn_backwards(t, 2).values():
+        _agree(got, ref, torch.bfloat16)

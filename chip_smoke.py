@@ -12,8 +12,9 @@ result line):
             parallel into build/kernels/ (seconds printed); the SASS of
             mlp_bwd.o and attn_bwd.o must hold wgmma (HGMMA) and TMA load
             (UTMALDG) instructions, the bf16 backwards' Hopper mainloop,
-            attn_bwd.o also mma.sync (HMMA), its per-head kernel; none of
-            these kernels may spill.
+            attn_bwd.o also mma.sync (HMMA), its per-head kernel, and so
+            must flash_fwd.o and flash_bwd.o (the per-head forward and
+            backward cores); none of these kernels may spill.
 3. kernels  each kernel wrapper against its plain PyTorch version at every
             shape its paths give it, N in {197, 40}: the fused kernels at
             mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
@@ -25,7 +26,8 @@ result line):
             (max|d| / max|ref| <= 3e-2), forward outputs, P, cat and every
             gradient; the rows-mode MLP kernels at that batch flattened
             (n=2, rows = 96*N, D=384, F=1536); the four bf16 MLP backward
-            entry points called twice give the same bits; median times
+            entry points, the two attention backwards and the two bf16
+            flash kernels called twice give the same bits; median times
             and achieved TFLOP/s of the kernel,
             the plain version and a library call (torch.matmul +
             F.scaled_dot_product_attention / F.layer_norm / F.gelu, one
@@ -41,6 +43,11 @@ result line):
             depth 12, B=96), synthetic data, two clients per group.
 6. tiny     the same line at mome_tiny width (D=192, 3 heads, depth 12):
             attention through the flash kernels, no fused kernel.
+   bound    for the mome_small and the mome_tiny line each: the same two
+            rounds of training from the same seed on the card (kernels)
+            and on the CPU (plain versions), at full width and depth with
+            --B 4 and --dropout 0 (see ``loss_bound``); a round's training
+            loss may differ by at most 1e-3 relative.
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
@@ -133,18 +140,21 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def check_sass(kernels) -> None:
     """The bf16 MLP and attention backwards run on wgmma fed by TMA, and
-    the attention backward's per-head kernel on mma.sync: count the
-    instructions in the SASS of their object files, print the registers,
-    stack, static shared and local memory of each Hopper GEMM and head
-    kernel instantiation, and fail if one of them spills (a stack frame
-    or local memory)."""
+    the per-head attention kernels (the fused backward's, flash
+    attention's forward and backward) on mma.sync: count those opcodes in
+    the SASS of their object files, print the registers, stack, static
+    shared and local memory of each Hopper GEMM and head kernel
+    instantiation, and fail if one of them spills (a stack frame or local
+    memory)."""
     import re
     from pathlib import Path
     tool = str(Path(kernels._nvcc()).parent / "cuobjdump")
     want = {"mlp_bwd.o": ("HGMMA", "UTMALDG"),
-            "attn_bwd.o": ("HGMMA", "UTMALDG", "HMMA")}
-    pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel)"
-                         r"ILi(\d+)E(?:Li(\d)ELi(\d)ELi(\d)E|Lb([01])E)")
+            "attn_bwd.o": ("HGMMA", "UTMALDG", "HMMA"),
+            "flash_fwd.o": ("HMMA",), "flash_bwd.o": ("HMMA",)}
+    # the mangled template arguments: ILi64ELi2EE is <64, 2>
+    pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel|"
+                         r"attn_fwd_head_kernel)I((?:L[ib]\d+E)+)E")
     for name, ops in want.items():
         obj = str(kernels.BUILD_DIR / name)
         run = lambda flag: subprocess.run(
@@ -161,7 +171,7 @@ def check_sass(kernels) -> None:
             if "Function" in line:
                 m = pattern.search(line)
                 kernel = m and f"{m.group(1)}<" + ",".join(
-                    g for g in m.groups()[1:] if g is not None) + ">"
+                    re.findall(r"\d+", m.group(2))) + ">"
             elif kernel and "REG:" in line:
                 usage = dict(f.split(":") for f in line.split()[:4])
                 log(f"[build] {name} {kernel} {' '.join(line.split()[:4])}")
@@ -215,11 +225,12 @@ def _compare(got, ref, dtype, what):
 
 
 def _same_bits(fn, args, first, name):
-    """A second call of a bf16 backward gives the first call's bits."""
+    """A second call of a bf16 kernel gives the first call's bits."""
     import torch
     if first[0].dtype != torch.bfloat16:
         return
-    for a, b in zip(first, fn(*args)):
+    again = fn(*args)
+    for a, b in zip(first, [again] if torch.is_tensor(again) else again):
         if not torch.equal(a, b):
             raise AssertionError(f"{name}: a second call differs")
 
@@ -540,10 +551,12 @@ def check_flash(N, dtype, dev, timing):
     got = fl.flash_fwd(q, k, v, scale)
     res = {"flash_fwd": {"max_abs_err": _compare(
         [got], [fl.flash_fwd_plain(q, k, v, scale)], dtype, ("o",))}}
+    _same_bits(fl.flash_fwd, (q, k, v, scale), [got], "flash_fwd")
     gotb = fl.flash_bwd(q, k, v, do, scale)
     res["flash_bwd"] = {"max_abs_err": _compare(
         gotb, fl.flash_bwd_plain(q, k, v, do, scale), dtype,
         ("dq", "dk", "dv"))}
+    _same_bits(fl.flash_bwd, (q, k, v, do, scale), gotb, "flash_bwd")
     if not timing:
         return res
     pairs = q.numel() // (N * 64)
@@ -595,6 +608,7 @@ def check_eval(N, dtype, dev, timing):
     got_f = fl.flash_fwd(fq, fk, fv, 0.125)
     res["flash_fwd"] = {"max_abs_err": _compare(
         [got_f], [fl.flash_fwd_plain(fq, fk, fv, 0.125)], dtype, ("o",))}
+    _same_bits(fl.flash_fwd, (fq, fk, fv, 0.125), [got_f], "flash_fwd")
     if not timing:
         return res
     M = B * N
@@ -792,6 +806,7 @@ def _run_line(tag, flags, out):
 def phase_main():
     """The mome_small line: the four fused kernels of the first slice."""
     from fedcola_tpu_torch import main as port_main
+    loss_bound("main", port_main.MAIN_PATH_FLAGS)
     launches = run_line("main", port_main.MAIN_PATH_FLAGS)
     missing = [k for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
                if launches[k] == 0]
@@ -803,6 +818,7 @@ def phase_main():
 def phase_tiny():
     """The mome_tiny line: attention through the flash kernels only."""
     from fedcola_tpu_torch import main as port_main
+    loss_bound("tiny", port_main.MOME_TINY_FLAGS)
     launches = run_line("tiny", port_main.MOME_TINY_FLAGS)
     if not (launches["flash_fwd"] and launches["flash_bwd"]):
         raise AssertionError(f"mome_tiny never launched flash: {launches}")
@@ -811,6 +827,71 @@ def phase_tiny():
     if fused:
         raise AssertionError(f"mome_tiny launched fused kernels: {fused}")
     return launches
+
+
+# ---------------------------------------------------------- loss bound ----
+
+LOSS_BOUND = 1e-3   # relative, per round
+LOSS_BOUND_B = 4    # batch size of the comparison, on both devices
+
+
+def _training_losses(flags, device: str, out: str):
+    """The two rounds' average training losses of a coco.sh line on
+    ``device`` at ``LOSS_BOUND_B`` without DropPath, and the seconds they
+    took; training only, no central evaluation."""
+    import numpy as np
+    import torch
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.data.loaders import load_federated_data
+    from fedcola_tpu_torch.federation.server import create_server
+    from fedcola_tpu_torch.utils.seeding import set_seed
+    cfg = parse_args(list(flags) + [
+        "--device", device, "--B", str(LOSS_BOUND_B), "--dropout", "0",
+        "--result_path", os.path.join(out, "result"),
+        "--log_path", os.path.join(out, "log")])
+    set_seed(cfg.seed)
+    server = create_server(cfg, load_federated_data(
+        cfg, np.random.RandomState(cfg.seed)))
+    t0 = time.time()
+    losses = []
+    for r in (1, 2):
+        server.round = r
+        server.update()
+        losses.append(
+            server.results[r]["clients_updated_summary"]["loss"]["avg"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return losses, time.time() - t0
+
+
+def loss_bound(tag: str, flags) -> None:
+    """How far the kernels may move the training loss: the same two rounds
+    of a coco.sh line from the same seed (weights, splits, client
+    sampling, shuffles) on the card, through the kernels, and on the CPU,
+    through their plain versions, at the line's full width and depth in
+    bfloat16.  A round's average training loss may differ by at most
+    ``LOSS_BOUND`` = 1e-3 relative.
+
+    The shape is the line's own but for two flags, the same on both
+    devices: ``--B 4``, because the CPU side of the full batch of 96 takes
+    minutes (the card side under a second), and ``--dropout 0``, because
+    the card's and the CPU's generators draw different DropPath masks from
+    one seed.  Both losses are printed."""
+    import math
+    with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
+        card, t_card = _training_losses(flags, "cuda", out)
+        cpu, t_cpu = _training_losses(flags, "cpu", out)
+    for r, (a, b) in enumerate(zip(card, cpu), 1):
+        rel = abs(a - b) / abs(b)
+        log(f"[{tag}] bound: round {r} training loss on the card {a:.6f}, "
+            f"on the CPU {b:.6f}, relative difference {rel:.2e} "
+            f"(bound {LOSS_BOUND:.0e}; B={LOSS_BOUND_B}, no DropPath)")
+        if not (math.isfinite(a) and rel <= LOSS_BOUND):
+            raise AssertionError(
+                f"{tag}: round {r} training loss {a} on the card against "
+                f"{b} on the CPU: relative difference {rel:.3e} exceeds "
+                f"{LOSS_BOUND}")
+    log(f"[{tag}] bound: {t_card:.1f}s on the card, {t_cpu:.1f}s on the CPU")
 
 
 # --------------------------------------------------------------- remat ----

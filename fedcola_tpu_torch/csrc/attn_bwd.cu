@@ -381,7 +381,8 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
                         (long long)N * 3 * D, 3 * D};
   if ((err = attn_bwd_head(qkv, qkv + D, qkv + 2 * D, dO, P, dqkvc, dqkvc + D,
                            dqkvc + 2 * D, cat, hpart, L, n * B, H, N, hd,
-                           scale, recompute, st))) return err;
+                           scale, 0.0f, recompute ? AH_RECOMP : AH_SAVED,
+                           st))) return err;
   if ((err = colsum<float, bf16>(hpart, n, B, 3 * D, nullptr, 1, nullptr,
                                  nullptr, nullptr, nullptr, partial, dbqkv,
                                  st))) return err;

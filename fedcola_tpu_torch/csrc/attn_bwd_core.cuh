@@ -7,14 +7,19 @@
 // kernels _make_bwd_save_kernel and _bwd_one of
 // fedcola_tpu/ops/fused_attention.py run it between their D-wide products).
 // It takes a HeadLayout description of where the q/k/v, dO and output rows
-// lie, so a caller with unpacked [pairs, N, hd] tensors can use it too.
+// lie, and flash attention's backward (flash_bwd.cu, the TPU kernel
+// _bwd_kernel of fedcola_tpu/ops/flash_attention.py) runs it on its
+// unpacked [pairs, N, hd] tensors in a third mode, AH_FLASH: P recomputed
+// from the pre-scaled q, qm = T(q * qscale), rounded in shared memory
+// before the first product; no cat and no column sums; dq rounded twice,
+// T(T(dS . K) * qscale); dK = dS^T . qm unscaled.
 //
 // One block per (head, item), one fused launch: Q, K, V and dO of the head
 // ([N, hd], N <= 256, hd in {16, 32, 64}) are copied once into shared
 // memory as bf16 (cp.async, 16 bytes a thread; rows N..NP-1 zeroed, NP = N
-// rounded up to 16), and P and dS never leave the SM: they are built in
-// registers in the accumulator layout of one product and handed on as the
-// A operand of the next.
+// rounded up to 16; padded tiles, attn_mma.cuh), and P and dS never leave
+// the SM: they are built in registers in the accumulator layout of one
+// product and handed on as the A operand of the next.
 //
 // Tensor-core route: mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by
 // ldmatrix, not wgmma.  N = 197 pads to 208 rows here against 256 for
@@ -39,8 +44,11 @@
 //            row statistics, and accumulates dK and dV for its keys.
 // The S and dP products are therefore done up to three times; that is the
 // price of dQ, dK and dV each having one writer.  Padded keys get P = 0
-// (score -inf) and padded queries have dO = 0 and a zero 1/sum, so they add
-// nothing to any sum.
+// (score -inf; in the row passes only the last chunk holds any) and padded
+// queries have dO = 0 and a zero 1/sum, so they add nothing to any sum.
+// The recomputed P is exp2(c2 * s - c2 * max) / sum with c2 = scale *
+// log2(e), one fma and one ex2 an element; the row maximum is kept in that
+// form.
 //
 // Column sums (the bias gradient): the f32 dQ, dK, dV values before
 // rounding are summed over each block's 16 rows by shuffles, over the
@@ -48,150 +56,35 @@
 // H*hd]; the caller adds the items of a client in a fixed order.
 #pragma once
 
-#include "common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
+// What the head kernel computes besides dQ, dK, dV.
+constexpr int AH_SAVED = 0;   // P read from memory (fused attention, row 2)
+constexpr int AH_RECOMP = 1;  // P recomputed, cat written (row 5)
+constexpr int AH_FLASH = 2;   // P recomputed from the pre-scaled q (row 12)
+
 // Warps a block: one per 16-row block up to this many (N = 197 is 13
-// blocks), bounded by the registers a thread needs.
-template <bool RECOMP> constexpr int ah_maxw() { return RECOMP ? 13 : 16; }
-constexpr int AH_PAD = 8;    // bf16 elements of padding a shared-memory row
-
-// Element offsets of one (item, head): row r of q/k/v is at
-// item * in_item + head * hd + r * in_row from its base pointer; dO and cat
-// rows likewise through do_*, the dq/dk/dv rows through dq_*.
-struct HeadLayout {
-  long long in_item;
-  int in_row;
-  long long do_item;
-  int do_row;
-  long long dq_item;
-  int dq_row;
-};
-
-__device__ __forceinline__ uint32_t ah_smem(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// blocks), bounded by the registers a thread needs: the modes that
+// recompute P hold more state than 128 registers take without a spill.
+template <int MODE> constexpr int ah_maxw() {
+  return MODE == AH_SAVED ? 16 : 13;
 }
 
-__device__ __forceinline__ void ah_cp16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src) : "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l%8 of matrix
-// l/8 and receives, of matrix m, elements (row l/4, cols 2(l%4), +1) in
-// r[m]; the .trans form receives (rows 2(l%4), +1, col l/4) instead.
-__device__ __forceinline__ void ah_ldsm(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-__device__ __forceinline__ void ah_ldsm_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
-__device__ __forceinline__ uint32_t ah_pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two 16 x 8 accumulator tiles side by side (16 x 16), rounded to bf16, are
-// the A fragment of the next product.
-__device__ __forceinline__ void ah_as_a(const float (&c)[2][4],
-                                        uint32_t (&a)[4]) {
-  a[0] = ah_pack(c[0][0], c[0][1]);
-  a[1] = ah_pack(c[0][2], c[0][3]);
-  a[2] = ah_pack(c[1][0], c[1][1]);
-  a[3] = ah_pack(c[1][2], c[1][3]);
-}
-
-// s = A1 . X^T and dp = A2 . Y^T for one 16 x 16 chunk.  A2 is a 16 x hd A
-// fragment in registers; A1 is read from shared memory at a1addr (the
-// lane's A-operand offset folded in) k16 step by k16 step, which keeps the
-// recompute kernel within 128 registers.  xaddr / yaddr address 16 rows of
-// the row-major shared tiles X and Y (hd contiguous) with the lane's
-// B-operand offset folded in.  S selects whether s is computed at all.
-template <int KS, bool S>
-__device__ __forceinline__ void ah_chunk(uint32_t a1addr,
-                                         const uint32_t (&a2)[KS][4],
-                                         uint32_t xaddr, uint32_t yaddr,
-                                         float (&s)[2][4], float (&dp)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) { s[i][c] = 0.0f; dp[i][c] = 0.0f; }
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t b[4];
-    if (S) {
-      uint32_t a1[4];
-      ah_ldsm(a1, a1addr + ks * 32);
-      ah_ldsm(b, xaddr + ks * 32);
-      mma_bf16(s[0], a1, &b[0]);
-      mma_bf16(s[1], a1, &b[2]);
-    }
-    ah_ldsm(b, yaddr + ks * 32);
-    mma_bf16(dp[0], a2[ks], &b[0]);
-    mma_bf16(dp[1], a2[ks], &b[2]);
-  }
-}
-
-// acc[16 x HD] += A(16 x 16) . Z(16 rows x HD), Z row-major in shared
-// memory at zaddr (the lane's transposed-operand offset folded in).
-template <int HD>
-__device__ __forceinline__ void ah_accumulate(float (&acc)[HD / 8][4],
-                                              const uint32_t (&a)[4],
-                                              uint32_t zaddr) {
-#pragma unroll
-  for (int d2 = 0; d2 < HD / 16; ++d2) {
-    uint32_t b[4];
-    ah_ldsm_t(b, zaddr + d2 * 32);
-    mma_bf16(acc[2 * d2], a, &b[0]);
-    mma_bf16(acc[2 * d2 + 1], a, &b[2]);
-  }
-}
-
-// Store the thread's part of a 16 x HD accumulator, times `scale`, as bf16
-// at rows r0 and r0 + 8 (when < N) of `out`, and add the f32 values to
-// red[0..HD) (column sums over the 16 rows, one writer per column).
-template <int HD>
-__device__ __forceinline__ void ah_store(const float (&acc)[HD / 8][4],
-                                         float scale, bf16* out, int row_stride,
-                                         int r0, int N, int lane, float* red) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    const float v0 = acc[nt][0] * scale, v1 = acc[nt][1] * scale;
-    const float v2 = acc[nt][2] * scale, v3 = acc[nt][3] * scale;
-    const int col = nt * 8 + 2 * t;
-    if (r0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)r0 * row_stride +
-                                         col) = __floats2bfloat162_rn(v0, v1);
-    if (r0 + 8 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(r0 + 8) * row_stride +
-                                         col) = __floats2bfloat162_rn(v2, v3);
-    if (red) {
-      float c0 = v0 + v2, c1 = v1 + v3;
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        c0 += __shfl_xor_sync(0xffffffffu, c0, o);
-        c1 += __shfl_xor_sync(0xffffffffu, c1, o);
-      }
-      if (lane < 4) { red[col] = c0; red[col + 1] = c1; }
-    }
-  }
-}
-
-// grid (H, items), 32 * min(ah_maxw(), ceil(N / 16)) threads.  P [items, H,
-// N, N] is read when !RECOMP; cat is written when RECOMP.  part may be null.
-template <int HD, bool RECOMP>
-__global__ void __launch_bounds__(ah_maxw<RECOMP>() * 32, 1)
+// grid (H, items), 32 * min(max warps, ceil(N / 16)) threads.  P [items, H,
+// N, N] is read in mode AH_SAVED; cat is written in mode AH_RECOMP.  part
+// may be null.  qscale is read in mode AH_FLASH only (scale is then 1).  c2
+// = scale * log2(e), computed by the launcher so that it costs no register:
+// exp(scale * x) = exp2(c2 * x).
+template <int HD, int MODE>
+__global__ void __launch_bounds__(ah_maxw<MODE>() * 32, 1)
 attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
                      const bf16* dog, const bf16* P, bf16* dqg, bf16* dkg,
                      bf16* dvg, bf16* catg, float* part, HeadLayout L, int N,
-                     float scale) {
+                     float scale, float qscale, float c2) {
+  constexpr bool RECOMP = MODE != AH_SAVED;  // P from q and k
+  constexpr bool CAT = MODE == AH_RECOMP;
   constexpr int LD = HD + AH_PAD;  // elements a shared row
   constexpr int KS = HD / 16;      // k16 steps over the head dim
   constexpr int DT = HD / 8;       // n8 tiles over the head dim
@@ -201,7 +94,7 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
   bf16* Ks = Qs + NP * LD;
   bf16* Vs = Ks + NP * LD;
   bf16* Os = Vs + NP * LD;
-  float* st_m = reinterpret_cast<float*>(Os + NP * LD);  // row max
+  float* st_m = reinterpret_cast<float*>(Os + NP * LD);  // row max * c2
   float* st_il = st_m + NP;                              // 1 / row sum
   float* st_dl = st_il + NP;                             // delta
   float* red = st_dl + NP;                               // [3][nblk][HD]
@@ -216,35 +109,15 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
   const long long pbase = (item * H + h) * (long long)N * N;
 
   // ---- Q, K, V, dO into shared memory ----
-  constexpr int CPR = HD / 8;  // 16-byte pieces a row
-  for (int e = tid; e < NP * CPR; e += nthr) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const int so = r * LD + c;
-    if (r < N) {
-      const long long gi = ib + (long long)r * L.in_row + c;
-      ah_cp16(ah_smem(Qs + so), qg + gi);
-      ah_cp16(ah_smem(Ks + so), kg + gi);
-      ah_cp16(ah_smem(Vs + so), vg + gi);
-      ah_cp16(ah_smem(Os + so), dog + ob + (long long)r * L.do_row + c);
-    } else {
-      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(Qs + so) = z;
-      *reinterpret_cast<uint4*>(Ks + so) = z;
-      *reinterpret_cast<uint4*>(Vs + so) = z;
-      *reinterpret_cast<uint4*>(Os + so) = z;
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  ah_load_tile<HD>(Qs, qg + ib, L.in_row, N, NP, tid, nthr);
+  ah_load_tile<HD>(Ks, kg + ib, L.in_row, N, NP, tid, nthr);
+  ah_load_tile<HD>(Vs, vg + ib, L.in_row, N, NP, tid, nthr);
+  ah_load_tile<HD>(Os, dog + ob, L.do_row, N, NP, tid, nthr);
+  ah_cp_wait();
+  if (MODE == AH_FLASH) ah_prescale_tile<HD>(Qs, qscale, N, tid, nthr);
   __syncthreads();
 
-  // byte offsets of this lane's ldmatrix row: the A operand (and the
-  // transposed B operand) take rows l%8 + 8*((l/8)%2) at columns 8*(l/16);
-  // the plain B operand takes rows l%8 + 8*(l/16) at columns 8*((l/8)%2)
-  const uint32_t a_off =
-      2u * (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8);
-  const uint32_t b_off =
-      2u * (((lane & 7) + (lane >> 4) * 8) * LD + ((lane >> 3) & 1) * 8);
+  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
   const uint32_t q_sm = ah_smem(Qs), k_sm = ah_smem(Ks), v_sm = ah_smem(Vs),
                  o_sm = ah_smem(Os);
   constexpr uint32_t BLK = 16 * LD * 2;  // bytes of 16 shared rows
@@ -266,30 +139,26 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
       ah_chunk<KS, RECOMP>(qa, oa, k_sm + jb * BLK + b_off,
                            v_sm + jb * BLK + b_off, s, dp);
       if (RECOMP) {
-        float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int j = jb * 16 + nt * 8 + 2 * t + (c & 1);
-            s[nt][c] = j < N ? s[nt][c] * scale : -INFINITY;
-            cm[c >> 1] = fmaxf(cm[c >> 1], s[nt][c]);
-          }
+        if (jb == nblk - 1) ah_mask_keys(s, jb * 16 + 2 * t, N);
+        float cm[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
+          cm[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                        fmaxf(s[1][2 * r], s[1][2 * r + 1]));
           cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
           cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
           const float mn = fmaxf(m[r], cm[r]);
-          const float corr = expf(m[r] - mn);
+          const float corr = exp2f((m[r] - mn) * c2);
           l[r] *= corr;
           dl[r] *= corr;
           m[r] = mn;
         }
+        const float mc[2] = {m[0] * c2, m[1] * c2};
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            const float e = expf(s[nt][c] - m[c >> 1]);
+            const float e = exp2f(fmaf(s[nt][c], c2, -mc[c >> 1]));
             l[c >> 1] += e;
             dl[c >> 1] += e * dp[nt][c];
           }
@@ -306,6 +175,8 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
       }
     }
     float il[2], delta[2];
+    // the row max of the raw products (scale > 0), in the exp2 domain
+    const float mc[2] = {m[0] * c2, m[1] * c2};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
@@ -324,22 +195,26 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = r0 + 8 * r;
-        st_m[i] = m[r];
+        st_m[i] = mc[r];
         st_il[i] = i < N ? il[r] : 0.0f;
         st_dl[i] = delta[r];
       }
     }
 
     // pass 2
-    float dq[DT][4], cat[DT][4];
+    float dq[DT][4], cat[CAT ? DT : 1][4];
 #pragma unroll
     for (int nt = 0; nt < DT; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) { dq[nt][c] = 0.0f; cat[nt][c] = 0.0f; }
+      for (int c = 0; c < 4; ++c) {
+        dq[nt][c] = 0.0f;
+        if constexpr (CAT) cat[nt][c] = 0.0f;
+      }
     for (int jb = 0; jb < nblk; ++jb) {
       float s[2][4], dp[2][4];
       ah_chunk<KS, RECOMP>(qa, oa, k_sm + jb * BLK + b_off,
                            v_sm + jb * BLK + b_off, s, dp);
+      if (RECOMP && jb == nblk - 1) ah_mask_keys(s, jb * 16 + 2 * t, N);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -348,7 +223,7 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
           const int j = jb * 16 + nt * 8 + 2 * t + (c & 1);
           float p;
           if (RECOMP)
-            p = j < N ? expf(s[nt][c] * scale - m[c >> 1]) * il[c >> 1] : 0.0f;
+            p = exp2f(fmaf(s[nt][c], c2, -mc[c >> 1])) * il[c >> 1];
           else
             p = (i < N && j < N) ? to_f(P[pbase + (long long)i * N + j]) : 0.0f;
           s[nt][c] = p;
@@ -357,14 +232,18 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
       uint32_t a[4];
       ah_as_a(dp, a);
       ah_accumulate<HD>(dq, a, k_sm + jb * BLK + a_off);
-      if (RECOMP) {
+      if constexpr (CAT) {
         ah_as_a(s, a);
         ah_accumulate<HD>(cat, a, v_sm + jb * BLK + a_off);
       }
     }
-    ah_store<HD>(dq, scale, dqg + item * L.dq_item + (long long)h * HD,
-                 L.dq_row, r0, N, lane, part ? red + rb * HD : nullptr);
-    if (RECOMP)
+    bf16* dq_out = dqg + item * L.dq_item + (long long)h * HD;
+    if constexpr (MODE == AH_FLASH)
+      ah_store<HD, true>(dq, qscale, dq_out, L.dq_row, r0, N, lane, nullptr);
+    else
+      ah_store<HD>(dq, scale, dq_out, L.dq_row, r0, N, lane,
+                   part ? red + rb * HD : nullptr);
+    if constexpr (CAT)
       ah_store<HD>(cat, 1.0f, catg + ob, L.do_row, r0, N, lane, nullptr);
   }
   __syncthreads();
@@ -394,7 +273,7 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
           const int i = ib2 * 16 + nt * 8 + 2 * t + (c & 1);
           float p;
           if (RECOMP)
-            p = j < N ? expf(sT[nt][c] * scale - st_m[i]) * st_il[i] : 0.0f;
+            p = j < N ? exp2f(fmaf(sT[nt][c], c2, -st_m[i])) * st_il[i] : 0.0f;
           else
             p = (i < N && j < N) ? to_f(P[pbase + (long long)i * N + j]) : 0.0f;
           sT[nt][c] = p;
@@ -407,8 +286,9 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
       ah_accumulate<HD>(dv, a, o_sm + ib2 * BLK + a_off);
     }
     const long long ob2 = item * L.dq_item + (long long)h * HD;
-    ah_store<HD>(dk, scale, dkg + ob2, L.dq_row, j0, N, lane,
-                 part ? red + (nblk + cb) * HD : nullptr);
+    // flash: dK = dS^T . qm, the pre-scaled q (Qs holds it), unscaled
+    ah_store<HD>(dk, MODE == AH_FLASH ? 1.0f : scale, dkg + ob2, L.dq_row,
+                 j0, N, lane, part ? red + (nblk + cb) * HD : nullptr);
     ah_store<HD>(dv, 1.0f, dvg + ob2, L.dq_row, j0, N, lane,
                  part ? red + (2 * nblk + cb) * HD : nullptr);
   }
@@ -424,51 +304,52 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
   }
 }
 
-inline size_t attn_bwd_head_smem(int N, int hd) {
+// Four tiles, the row statistics and, with column sums, their staging.
+inline size_t attn_bwd_head_smem(int N, int hd, bool colsums) {
   const int nblk = (N + 15) / 16, NP = nblk * 16;
   return (size_t)4 * NP * (hd + AH_PAD) * sizeof(bf16) +
-         (size_t)(3 * NP + 3 * nblk * hd) * sizeof(float);
+         (size_t)(3 * NP + (colsums ? 3 * nblk * hd : 0)) * sizeof(float);
 }
 
-template <int HD, bool RECOMP>
+template <int HD, int MODE>
 int attn_bwd_head_launch(const bf16* q, const bf16* k, const bf16* v,
                          const bf16* dO, const bf16* P, bf16* dq, bf16* dk,
                          bf16* dv, bf16* cat, float* part, const HeadLayout& L,
-                         int items, int H, int N, float scale,
+                         int items, int H, int N, float scale, float qscale,
                          cudaStream_t st) {
-  auto kern = attn_bwd_head_kernel<HD, RECOMP>;
-  const size_t smem = attn_bwd_head_smem(N, HD);
+  auto kern = attn_bwd_head_kernel<HD, MODE>;
+  const size_t smem = attn_bwd_head_smem(N, HD, part != nullptr);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   FC_CHECK();
   const int nblk = (N + 15) / 16;
-  const int warps = nblk < ah_maxw<RECOMP>() ? nblk : ah_maxw<RECOMP>();
+  const int warps = nblk < ah_maxw<MODE>() ? nblk : ah_maxw<MODE>();
   kern<<<dim3(H, items), warps * 32, smem, st>>>(q, k, v, dO, P, dq, dk, dv,
-                                                 cat, part, L, N, scale);
+                                                 cat, part, L, N, scale,
+                                                 qscale, scale * AH_LOG2E);
   FC_CHECK();
   return 0;
 }
 
-// hd in {16, 32, 64} and N <= 256, or cudaErrorInvalidValue.  recompute:
-// P is not read and cat [as dO] is written.
+// hd in {16, 32, 64} and N <= 256, or cudaErrorInvalidValue.  mode
+// AH_SAVED reads P; AH_RECOMP writes cat [as dO]; AH_FLASH takes qscale
+// (and scale = 1), a null part and no cat.
 inline int attn_bwd_head(const bf16* q, const bf16* k, const bf16* v,
                          const bf16* dO, const bf16* P, bf16* dq, bf16* dk,
                          bf16* dv, bf16* cat, float* part, const HeadLayout& L,
                          int items, int H, int N, int hd, float scale,
-                         bool recompute, cudaStream_t st) {
+                         float qscale, int mode, cudaStream_t st) {
   if (N < 1 || N > 256) return (int)cudaErrorInvalidValue;
-#define FC_HEAD(HD_)                                                         \
-  if (hd == HD_)                                                             \
-    return recompute                                                         \
-               ? attn_bwd_head_launch<HD_, true>(q, k, v, dO, P, dq, dk, dv, \
-                                                 cat, part, L, items, H, N,  \
-                                                 scale, st)                  \
-               : attn_bwd_head_launch<HD_, false>(q, k, v, dO, P, dq, dk,    \
-                                                  dv, cat, part, L, items,   \
-                                                  H, N, scale, st);
-  FC_HEAD(16)
-  FC_HEAD(32)
-  FC_HEAD(64)
+#define FC_HEAD(HD_, MODE_)                                                 \
+  if (hd == HD_ && mode == MODE_)                                           \
+    return attn_bwd_head_launch<HD_, MODE_>(q, k, v, dO, P, dq, dk, dv,     \
+                                            cat, part, L, items, H, N,      \
+                                            scale, qscale, st);
+#define FC_HEADS(MODE_) FC_HEAD(16, MODE_) FC_HEAD(32, MODE_) FC_HEAD(64, MODE_)
+  FC_HEADS(AH_SAVED)
+  FC_HEADS(AH_RECOMP)
+  FC_HEADS(AH_FLASH)
+#undef FC_HEADS
 #undef FC_HEAD
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,207 @@
+// Attention core forward per (item, head) on tensor cores, bf16:
+//     S = scale * Q . K^T (Q optionally pre-scaled and rounded first),
+//     P = T(softmax_f32(S)),  O = T(P . V),  P optionally written.
+// The sibling of attn_bwd_core.cuh and in its idiom (attn_mma.cuh).  It
+// replaces the CUDA-core attn_core_fwd (attn_core.cuh) for bf16 at head_dim
+// 16, 32 or 64 and N <= 256; flash_fwd.cu runs it on unpacked [pairs, N,
+// hd] tensors (the TPU kernel _fwd_kernel of
+// fedcola_tpu/ops/flash_attention.py), and attn_fwd_head_packed gives the
+// fused sublayer's packed qkv / cat layout with P saved (the per-head part
+// of _fwd_save_call and _fwd_call of fedcola_tpu/ops/fused_attention.py).
+//
+// One block per (head, item): Q, K and V of the head go once into shared
+// memory as padded bf16 tiles (cp.async; rows N..NP-1 zeroed, NP = N
+// rounded up to 16; 88 KB at N = 197, hd = 64),
+// flash attention's pre-scaled q is rounded there, and each warp owns
+// 16-query blocks with its Q fragments in registers.  Products are
+// mma.sync.m16n8k16 fed by ldmatrix (ldmatrix.trans for V in P . V).
+//
+// Two passes over the keys in 16-wide chunks, not an online softmax: the
+// TPU kernels round P = exp(s - max) / sum after normalisation and before
+// P . V, and an online softmax would round exp(s - running max) and divide
+// at the end.  Pass 1 forms S chunk by chunk for the row max and the sum
+// (the sum carried under the running max); pass 2 forms S again, P =
+// T(exp(s - max) * (1 / sum)), whose rounded accumulator fragment is the A
+// fragment of P . V, accumulated in f32.  exp(scale * x) is taken as
+// exp2(scale * log2(e) * x), one fma and one ex2 an element: against the
+// TPU kernel's exp and division a difference in the last bits of the f32 P,
+// before its rounding to bf16.  The second S product costs
+// 2 N^2 hd a head, far below what the bytes allow.  Padded keys score -inf
+// (P = 0); padded query rows are computed and not stored.  Every sum has
+// one owner and a fixed order: the same bits on every call.
+#pragma once
+
+#include "attn_core.cuh"
+#include "attn_mma.cuh"
+
+namespace {
+
+constexpr int AF_MAXW = 16;  // warps a block: one per 16-query block
+
+// grid (H, items), 32 * min(AF_MAXW, ceil(N / 16)) threads.  score = scale
+// * (q . k), given as c2 = scale * log2(e): exp(scale * x) = exp2(c2 * x),
+// one fma and one ex2 an element.  qscale != 0 first rounds q to T(q *
+// qscale).  P [items, H, N, N] is written when not null.
+template <int HD>
+__global__ void __launch_bounds__(AF_MAXW * 32, 1)
+attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
+                     bf16* P, CoreLayout L, int N, float c2, float qscale) {
+  constexpr int LD = HD + AH_PAD;  // elements a shared row
+  constexpr int KS = HD / 16;  // k16 steps over the head dim
+  constexpr int DT = HD / 8;   // n8 tiles over the head dim
+  extern __shared__ __align__(16) uint8_t af_raw[];
+  const int nblk = (N + 15) / 16, NP = nblk * 16;
+  bf16* Qs = reinterpret_cast<bf16*>(af_raw);
+  bf16* Ks = Qs + NP * LD;
+  bf16* Vs = Ks + NP * LD;
+
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long item = blockIdx.y;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = nthr >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const long long ib = item * L.in_item + (long long)h * HD;
+  const long long ob = item * L.out_item + (long long)h * HD;
+
+  ah_load_tile<HD>(Qs, qg + ib, L.in_row, N, NP, tid, nthr);
+  ah_load_tile<HD>(Ks, kg + ib, L.in_row, N, NP, tid, nthr);
+  ah_load_tile<HD>(Vs, vg + ib, L.in_row, N, NP, tid, nthr);
+  ah_cp_wait();
+  if (qscale != 0.0f) ah_prescale_tile<HD>(Qs, qscale, N, tid, nthr);
+  __syncthreads();
+
+  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
+  const uint32_t q_sm = ah_smem(Qs), k_sm = ah_smem(Ks), v_sm = ah_smem(Vs);
+  constexpr uint32_t BLK = 16 * LD * 2;  // bytes of 16 shared rows
+
+  for (int rb = warp; rb < nblk; rb += nwarps) {
+    uint32_t qa[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ah_ldsm(qa[ks], q_sm + rb * BLK + a_off + ks * 32);
+    const int r0 = rb * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+    // pass 1: row max (of the raw products; scale > 0) and sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    for (int jb = 0; jb < nblk; ++jb) {
+      float s[2][4];
+      ah_scores<KS>(qa, k_sm + jb * BLK + b_off, s);
+      if (jb == nblk - 1) ah_mask_keys(s, jb * 16 + 2 * t, N);
+      float cm[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cm[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                      fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
+        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
+        const float mn = fmaxf(m[r], cm[r]);
+        l[r] *= exp2f((m[r] - mn) * c2);
+        m[r] = mn;
+      }
+      const float mc[2] = {m[0] * c2, m[1] * c2};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          l[c >> 1] += exp2f(fmaf(s[nt][c], c2, -mc[c >> 1]));
+    }
+    float il[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      il[r] = 1.0f / l[r];
+    }
+    const float mc[2] = {m[0] * c2, m[1] * c2};
+
+    // pass 2: P and O
+    float o[DT][4];
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[nt][c] = 0.0f;
+    bf16* prow = P ? P + (item * H + h) * (long long)N * N : nullptr;
+    for (int jb = 0; jb < nblk; ++jb) {
+      float s[2][4];
+      ah_scores<KS>(qa, k_sm + jb * BLK + b_off, s);
+      if (jb == nblk - 1) ah_mask_keys(s, jb * 16 + 2 * t, N);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s[nt][c] = exp2f(fmaf(s[nt][c], c2, -mc[c >> 1])) * il[c >> 1];
+      uint32_t a[4];
+      ah_as_a(s, a);
+      if (prow) {
+        // N may be odd, so rows of P are only 2-byte aligned
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = r0 + 8 * (c >> 1);
+            const int j = jb * 16 + nt * 8 + 2 * t + (c & 1);
+            if (i < N && j < N)
+              prow[(long long)i * N + j] = from_f<bf16>(s[nt][c]);
+          }
+      }
+      ah_accumulate<HD>(o, a, v_sm + jb * BLK + a_off);
+    }
+    ah_store<HD>(o, 1.0f, og + ob, L.out_row, r0, N, lane, nullptr);
+  }
+}
+
+inline size_t attn_fwd_head_smem(int N, int hd) {
+  const int NP = (N + 15) / 16 * 16;
+  return (size_t)3 * NP * (hd + AH_PAD) * sizeof(bf16);
+}
+
+template <int HD>
+int attn_fwd_head_launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                         bf16* P, const CoreLayout& L, int items, int H, int N,
+                         float scale, float qscale, cudaStream_t st) {
+  auto kern = attn_fwd_head_kernel<HD>;
+  const size_t smem = attn_fwd_head_smem(N, HD);
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  FC_CHECK();
+  const int nblk = (N + 15) / 16;
+  const int warps = nblk < AF_MAXW ? nblk : AF_MAXW;
+  kern<<<dim3(H, items), warps * 32, smem, st>>>(q, k, v, o, P, L, N,
+                                                 scale * AH_LOG2E, qscale);
+  FC_CHECK();
+  return 0;
+}
+
+// Whether attn_fwd_head takes the shape (bf16 only).
+inline bool attn_fwd_head_takes(int N, int hd) {
+  return (hd == 16 || hd == 32 || hd == 64) && N >= 1 && N <= 256;
+}
+
+// The arguments of attn_core_fwd<bf16>; cudaErrorInvalidValue where
+// attn_fwd_head_takes is false.
+inline int attn_fwd_head(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                         bf16* P, const CoreLayout& L, int items, int H, int N,
+                         int hd, float scale, float qscale, cudaStream_t st) {
+  if (!attn_fwd_head_takes(N, hd)) return (int)cudaErrorInvalidValue;
+  if (hd == 16)
+    return attn_fwd_head_launch<16>(q, k, v, o, P, L, items, H, N, scale,
+                                    qscale, st);
+  if (hd == 32)
+    return attn_fwd_head_launch<32>(q, k, v, o, P, L, items, H, N, scale,
+                                    qscale, st);
+  return attn_fwd_head_launch<64>(q, k, v, o, P, L, items, H, N, scale,
+                                  qscale, st);
+}
+
+// The fused sublayer's packed layout, as attn_core_fwd_packed: qkv [items,
+// N, 3D] (q | k | v), the head concat cat [items, N, D], P [items, H, N, N]
+// or null.
+inline int attn_fwd_head_packed(const bf16* qkv, bf16* P, bf16* cat, int items,
+                                int N, int D, int H, cudaStream_t st) {
+  const int hd = D / H;
+  const CoreLayout L = {(long long)N * 3 * D, 3 * D, (long long)N * D, D};
+  return attn_fwd_head(qkv, qkv + D, qkv + 2 * D, cat, P, L, items, H, N, hd,
+                       1.0f / sqrtf((float)hd), 0.0f, st);
+}
+
+}  // namespace

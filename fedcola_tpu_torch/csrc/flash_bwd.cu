@@ -2,26 +2,41 @@
 // qm = T(q * scale), for every (batch, head) pair.
 //
 // Replaces the TPU kernel fedcola_tpu/ops/flash_attention.py: _bwd_kernel
-// (via _fa_bwd).  Its numerics, which this kernel keeps: P is recomputed in
-// f32 and never rounded; dv = P^T . do, dp = do . v^T, o = P . v recomputed
-// in f32 (no saved output), delta = rowsum(do * o), ds = P * (dp - delta),
-// dq = ds . k, dk = ds^T . qm, all in f32; each result is cast to its
-// input's dtype, and dq is then multiplied by scale in q's dtype (a second
-// rounding, as _fa_bwd applies it after the pallas_call).
+// (via _fa_bwd): P recomputed in f32; dv = P^T . do, dp = do . v^T,
+// delta = rowsum(do * (P . v)), ds = P * (dp - delta), dq = ds . k,
+// dk = ds^T . qm; each result is cast to its input's dtype, and dq is then
+// multiplied by scale in q's dtype (a second rounding, as _fa_bwd applies
+// it after the pallas_call).
 //
 // What bounds it on the H100: at mome_tiny's training shape (576 pairs,
-// N=197, hd=64) ~14 GFLOP against ~116 MB in bf16: the bytes.  On the TPU
-// one program holds a pair's q, k, v and do in f32 VMEM; four [197, 64]
-// f32 operands (~200 KB) leave too little of a block's 227 KB, so the
-// backward is split as attention backward kernels usually are on a GPU:
+// N=197, hd=64) ~14 GFLOP against ~116 MB in bf16: the bytes, once the
+// products run on tensor cores.  Two paths, chosen here by dtype and shape
+// (ops/flash_attention.py uses_tensor_cores mirrors the choice):
+//
+//   bf16, hd in {16, 32, 64}, N <= 256: the per-head tensor-core backward
+//     of attn_bwd_core.cuh in its flash mode, one fused launch, one block
+//     per pair: q, k, v, do as padded bf16 tiles in shared memory
+//     (117 KB at N=197), q pre-scaled and rounded there, every product an
+//     mma.sync, no statistics through memory.
+//     Rounding, where it departs from the TPU kernel: _bwd_kernel keeps P
+//     and dS in f32 through every product; here they are handed on as bf16
+//     A fragments (dv = T(P)^T . do, dq = T(dS) . k, dk = T(dS)^T . qm), and
+//     delta is rowsum(dp * P) rather than rowsum(do * (P . v)), equal in
+//     real arithmetic.  Scores, softmax, delta and every accumulator stay
+//     f32.  The results stay within the bf16 tolerance (3e-2 of max|ref|)
+//     of the plain version, which keeps the TPU kernel's arithmetic.
+//   float32, and bf16 at any other head_dim: the CUDA-core kernels below,
+//     which keep the TPU kernel's f32 P and dS.  Four [197, 64] f32
+//     operands (~200 KB) leave too little of a block's 227 KB, so the
+//     backward is split:
 //   * a row pass (one warp per query row, the pair's K and V in shared
 //     memory) computes P, o, delta and dS for its row and dq, and writes the
 //     row's softmax max, sum and delta (12 bytes a row);
 //   * a column pass (one warp per key row, the pair's qm and do in shared
 //     memory) recomputes P and dS from those statistics in the same order
 //     of operations and reduces dk and dv over the query rows.
-// No atomics; every result is reproducible run to run.
-#include "common.cuh"
+// No atomics on either path; every result is reproducible run to run.
+#include "attn_bwd_core.cuh"
 
 namespace {
 
@@ -235,11 +250,21 @@ int flash_bwd_impl(int pairs, int N, int hd, float qscale, const void* q_,
 }  // namespace
 
 // q, k, v, do, dq, dk, dv [pairs, N, hd] (T), contiguous; qscale as
-// fc_flash_fwd.  Scratch: stats [pairs, N, 3] f32.  N <= 256, hd <= 64.
+// fc_flash_fwd.  N <= 256, hd <= 64.  Scratch: stats [pairs, N, 3] f32 on
+// the CUDA-core path only (the tensor-core path does not read the pointer).
 extern "C" int fc_flash_bwd(int dtype, int pairs, int N, int hd, float qscale,
                             const void* q, const void* k, const void* v,
                             const void* dout, void* dq, void* dk, void* dv,
                             float* stats, cudaStream_t st) {
+  if (dtype == 1 && (hd == 16 || hd == 32 || hd == 64) && N <= 256) {
+    const long long item = (long long)N * hd;
+    const HeadLayout L = {item, hd, item, hd, item, hd};
+    return attn_bwd_head(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), nullptr,
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        nullptr, nullptr, L, pairs, 1, N, hd, 1.0f, qscale, AH_FLASH, st);
+  }
   if (dtype == 1)
     return flash_bwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, dout, dq, dk,
                                 dv, stats, st);

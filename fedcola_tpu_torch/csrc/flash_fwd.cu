@@ -11,11 +11,17 @@
 //
 // What bounds it on the H100: at mome_tiny's training shape (576 pairs,
 // N=197, hd=64) the 4*N^2*hd products per pair are ~5.7 GFLOP against
-// ~58 MB of q, k, v and o in bf16, so the bytes bound it.  This first
-// version is the attention core of attn_core.cuh (one block per pair, K and
-// V of the pair in shared memory, one warp per query row, CUDA cores);
-// moving the products to tensor cores is later work.
-#include "attn_core.cuh"
+// ~58 MB of q, k, v and o in bf16, so the bytes bound it once the products
+// run on tensor cores.  Two paths, chosen here by dtype and shape
+// (ops/flash_attention.py uses_tensor_cores mirrors the choice):
+//   bf16, hd in {16, 32, 64}, N <= 256: the per-head tensor-core forward of
+//     attn_fwd_core.cuh (one block per pair, padded bf16 tiles, mma.sync,
+//     two passes over the keys so that P is rounded after normalisation as
+//     the TPU kernel rounds it);
+//   float32, and bf16 at any other head_dim: the CUDA-core attention core
+//     of attn_core.cuh (one warp per query row, K and V in shared memory as
+//     f32).
+#include "attn_fwd_core.cuh"
 
 namespace {
 
@@ -36,7 +42,25 @@ int flash_fwd_impl(int pairs, int N, int hd, float qscale, const void* q,
 extern "C" int fc_flash_fwd(int dtype, int pairs, int N, int hd, float qscale,
                             const void* q, const void* k, const void* v,
                             void* o, cudaStream_t st) {
+  if (dtype == 1 && attn_fwd_head_takes(N, hd)) {
+    const CoreLayout L = {(long long)N * hd, hd, (long long)N * hd, hd};
+    return attn_fwd_head(static_cast<const bf16*>(q),
+                         static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                         nullptr, L, pairs, 1, N, hd, 1.0f, qscale, st);
+  }
   if (dtype == 1)
     return flash_fwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, o, st);
   return flash_fwd_impl<float>(pairs, N, hd, qscale, q, k, v, o, st);
+}
+
+// Test only: the tensor-core forward core in the fused sublayer's packed
+// layout, bf16: qkv [items, N, 3D] -> P [items, H, N, N] and cat [items, N,
+// D], as attn_core_fwd_packed (tests/test_torch_port_cuda.py).
+extern "C" int fc_attn_fwd_core_test(int items, int N, int D, int H,
+                                     const void* qkv, void* P, void* cat,
+                                     cudaStream_t st) {
+  return attn_fwd_head_packed(static_cast<const bf16*>(qkv),
+                              static_cast<bf16*>(P), static_cast<bf16*>(cat),
+                              items, N, D, H, st);
 }

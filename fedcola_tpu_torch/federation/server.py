@@ -13,8 +13,9 @@ Per round (compare ``update()``, fedavgserver.py:784-856):
 5. FedCola aux exchange (fedavgserver.py:821-845);
 6. lr decay (``curr_lr *= lr_decay`` every ``lr_decay_step`` rounds).
 
-Only ``fedavg`` is ported; per-client local evaluation, checkpoints and
-the mesh are later slices of the port.
+``fedavg`` and ``fedsgd`` are ported, with ``--fedavg_eval`` and ``.npz``
+checkpoints; per-client local evaluation, FedProx / FedIoT, the ``.pt``
+export and the mesh are later slices of the port.
 """
 
 from __future__ import annotations
@@ -276,23 +277,38 @@ class FedAvgServer:
         t_train = time.time() - t0
 
         client_cfgs = {ds: self.model_cfgs[ds] for ds in groups}
-        new = {}
-        for i, ds in enumerate(self.global_params.keys()):
-            jobs, weights = agg.plan_aggregation(
-                ds, self.model_cfgs[ds], client_cfgs, self.clients,
-                sampled, updated_sizes, self.param_scope,
-                cfg.modalities or [DATASET_2_MODALITY[d]
-                                   for d in cfg.client_datasets],
-                dict(groups),
-                out_modality_scale=cfg.out_modality_scales[i]
-                if i < len(cfg.out_modality_scales) else 1.0,
-                compensation=cfg.compensation,
-                share_scope=cfg.share_scope, fedavg=False,
-                model_modality=DATASET_2_MODALITY[ds],
-                model_task=DATASET_2_TASK[ds])
-            new[ds] = agg.apply_aggregation(
-                jobs, weights, self.global_params[ds], uploads)
-        self.global_params = new
+
+        def aggregate_all(fedavg: bool):
+            new = {}
+            for i, ds in enumerate(self.global_params.keys()):
+                jobs, weights = agg.plan_aggregation(
+                    ds, self.model_cfgs[ds], client_cfgs, self.clients,
+                    sampled, updated_sizes, self.param_scope,
+                    cfg.modalities or [DATASET_2_MODALITY[d]
+                                       for d in cfg.client_datasets],
+                    dict(groups),
+                    out_modality_scale=cfg.out_modality_scales[i]
+                    if i < len(cfg.out_modality_scales) else 1.0,
+                    compensation=cfg.compensation,
+                    share_scope=cfg.share_scope, fedavg=fedavg,
+                    model_modality=DATASET_2_MODALITY[ds],
+                    model_task=DATASET_2_TASK[ds])
+                new[ds] = agg.apply_aggregation(
+                    jobs, weights, self.global_params[ds], uploads)
+            return new
+
+        t_fedavg_eval = 0.0
+        if cfg.fedavg_eval:
+            # evaluate a plain-fedavg aggregate, then restore
+            # (fedavgserver.py:794-806)
+            t1 = time.time()
+            old = self.global_params
+            self.global_params = aggregate_all(fedavg=True)
+            self._central_evaluate(fedavg=True)
+            self.global_params = old
+            t_fedavg_eval = time.time() - t1
+
+        self.global_params = aggregate_all(fedavg=False)
         if cfg.with_aux:
             self.global_params = exchange_aux_weights(
                 self.global_params, self.model_cfgs,
@@ -305,8 +321,11 @@ class FedAvgServer:
             torch.cuda.synchronize()
         dt = time.time() - t0
         self.results[self.round]["round_seconds"] = dt
-        self.results[self.round]["round_sections"] = {
-            "train": t_train, "aggregate": dt - t_train}
+        sections = {"train": t_train,
+                    "aggregate": dt - t_train - t_fedavg_eval}
+        if cfg.fedavg_eval:
+            sections["fedavg_eval"] = t_fedavg_eval
+        self.results[self.round]["round_sections"] = sections
         logger.info("[%s] [Round %04d] %d clients in %d groups, %.2fs",
                     cfg.algorithm.upper(), self.round, len(sampled),
                     len(groups), dt)
@@ -315,7 +334,9 @@ class FedAvgServer:
     # ---------------------------------------------------------------- eval ---
 
     @torch.no_grad()
-    def _central_evaluate(self):
+    def _central_evaluate(self, fedavg: bool = False):
+        """Evaluate the global models on the server's test sets; with
+        ``fedavg`` the results go under ``server_evaluated_{ds}_fedavg``."""
         cfg = self.cfg
         t0 = time.time()
         for ds, test in self.data.server_eval.items():
@@ -338,7 +359,8 @@ class FedAvgServer:
                     payload[f"{ds} {prefix}_r@1sum"] = r1
                     r1sum += r1
                 payload[f"{ds} r@1sum"] = r1sum
-                self.results[self.round][f"server_evaluated_{ds}"] = payload
+                tag = f"{ds}_fedavg" if fedavg else ds
+                self.results[self.round][f"server_evaluated_{tag}"] = payload
                 logger.info("[EVAL] [%s] r@1sum=%.4f 5k_i2t_r@1=%.4f "
                             "5k_t2i_r@1=%.4f", ds, r1sum,
                             res["i2t"]["recall_1"], res["t2i"]["recall_1"])
@@ -357,7 +379,8 @@ class FedAvgServer:
                 mm.track(loss, logits.numpy(), y.numpy())
             mm.aggregate(test.n)
             result = mm.results
-            self.results[self.round][f"server_evaluated_{ds}"] = result
+            tag = f"{ds}_fedavg" if fedavg else ds
+            self.results[self.round][f"server_evaluated_{tag}"] = result
             logger.info("[EVAL] [%s] loss=%.4f %s", ds, result["loss"],
                         " ".join(f"{k}={v:.4f}"
                                  for k, v in result["metrics"].items()))
@@ -367,7 +390,8 @@ class FedAvgServer:
                      **{f"Test/Server {ds} {k.title()}": v
                         for k, v in result["metrics"].items()}},
                     self.round)
-        self.results[self.round]["eval_seconds"] = time.time() - t0
+        if not fedavg:
+            self.results[self.round]["eval_seconds"] = time.time() - t0
 
     @staticmethod
     def summarize_losses(losses, num_samples):
@@ -397,6 +421,56 @@ class FedAvgServer:
 
     # ------------------------------------------------------------- finalize --
 
+    def save_checkpoint(self, path: str):
+        """Per-dataset ``.npz`` of the global weights under the reference
+        parameter names, with the round and the learning rate, and
+        ``__rng__.npz``: the feeder's shuffle stream and the state of the
+        torch generator that draws DropPath."""
+        os.makedirs(path, exist_ok=True)
+        for ds, params in self.global_params.items():
+            flat = {}
+            for p, name in naming.param_names(self.model_cfgs[ds]):
+                flat[name] = naming.get_by_path(params, p).detach() \
+                    .float().cpu().numpy()
+            np.savez(os.path.join(path, f"{ds}.npz"),
+                     __round__=self.round, __lr__=self.curr_lr, **flat)
+        # client sampling is stateless (keyed by seed + round); the shuffle
+        # stream and the generator are consumed per round, so a resumed run
+        # needs them to reproduce an uninterrupted one exactly
+        st = self.shuffle_rng.get_state()
+        np.savez(os.path.join(path, "__rng__.npz"),
+                 mt_keys=st[1], mt_pos=st[2], mt_has_gauss=st[3],
+                 mt_cached=st[4], torch_gen=self.gen.get_state().numpy(),
+                 torch_gen_device=self.device.type)
+
+    def load_checkpoint(self, path: str):
+        for ds in self.global_params:
+            f = os.path.join(path, f"{ds}.npz")
+            if not os.path.exists(f):
+                continue
+            params = self.global_params[ds]
+            with np.load(f) as z:
+                for p, name in naming.param_names(self.model_cfgs[ds]):
+                    if name in z:
+                        old = naming.get_by_path(params, p)
+                        naming.set_by_path(params, p, torch.from_numpy(
+                            z[name]).to(device=old.device, dtype=old.dtype))
+                self.round = int(z["__round__"])
+                self.curr_lr = float(z["__lr__"])
+        rngf = os.path.join(path, "__rng__.npz")
+        if not os.path.exists(rngf):
+            return
+        with np.load(rngf) as z:
+            self.shuffle_rng.set_state(
+                ("MT19937", z["mt_keys"], int(z["mt_pos"]),
+                 int(z["mt_has_gauss"]), float(z["mt_cached"])))
+            if str(z["torch_gen_device"]) != self.device.type:
+                raise ValueError(
+                    f"checkpoint {path} was written by a run on "
+                    f"{z['torch_gen_device']}; its generator state cannot "
+                    f"continue on {self.device.type}")
+            self.gen.set_state(torch.from_numpy(z["torch_gen"]))
+
     def finalize(self):
         cfg = self.cfg
         os.makedirs(cfg.result_path, exist_ok=True)
@@ -406,15 +480,25 @@ class FedAvgServer:
             json.dump(json_sanitize({str(k): v
                                      for k, v in self.results.items()}), f,
                       indent=4, default=float)
+        self.save_checkpoint(os.path.join(cfg.result_path, cfg.exp_name))
+        logger.info("reference-format .pt state dicts are not written: "
+                    "models/torch_io.py is not ported yet")
         if self.writer:
             self.writer.finish()
         logger.info("[%s] finished federated learning (%d rounds)",
                     cfg.algorithm.upper(), self.round)
 
 
+# fedsgd is fedavg with one local epoch (config.check_args sets E = 1)
+SERVER_REGISTRY = {
+    "fedavg": FedAvgServer,
+    "fedsgd": FedAvgServer,
+}
+
+
 def create_server(cfg: ExperimentConfig, data: FederatedData, writer=None):
-    if cfg.algorithm == "fedavg":
-        return FedAvgServer(cfg, data, writer)
+    if cfg.algorithm in SERVER_REGISTRY:
+        return SERVER_REGISTRY[cfg.algorithm](cfg, data, writer)
     raise NotImplementedError(
-        f"--algorithm {cfg.algorithm}: only fedavg is ported; FedProx, "
-        "FedIoT, FedOpt and CreamFL are later slices of the port")
+        f"--algorithm {cfg.algorithm}: only fedavg and fedsgd are ported; "
+        "FedProx, FedIoT, FedOpt and CreamFL are later slices of the port")

@@ -4,8 +4,11 @@
     python -m fedcola_tpu_torch.main <reference flags> [--device cuda|cpu]
 
 R rounds of ``server.update()``, ``server.evaluate`` every ``eval_every``
-rounds and after the last, then the results JSON.  Runs on the card unless
-``--device cpu`` is given.
+rounds and after the last, then the results JSON and the final ``.npz``
+checkpoint under ``<result_path>/<exp_name>/``.  ``--checkpoint_every N``
+also saves every N rounds to ``<result_path>/<exp_name>/ckpt``; a run that
+finds that directory resumes from it.  Runs on the card unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -87,11 +90,17 @@ def main(argv=None):
 
     data = load_federated_data(cfg, np.random.RandomState(cfg.seed))
     server = create_server(cfg, data, JsonlWriter(cfg))
+    ckpt_dir = os.path.join(cfg.result_path, cfg.exp_name, "ckpt")
+    if os.path.isdir(ckpt_dir):
+        server.load_checkpoint(ckpt_dir)
+        logger.info("resumed from checkpoint at round %d", server.round)
     for r in range(server.round + 1, cfg.R + 1):
         server.round = r
         server.update()
         if (cfg.eval_every > 0 and r % cfg.eval_every == 0) or r == cfg.R:
             server.evaluate([])
+        if cfg.checkpoint_every and r % cfg.checkpoint_every == 0:
+            server.save_checkpoint(ckpt_dir)
     server.finalize()
     return server
 

@@ -22,6 +22,16 @@ A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  The kernels take N <= 256 and
 hd <= 64; the JAX package falls back to XLA above N = 1024 (and where one
 pair exceeds its VMEM budget), the port raises instead.
+
+Each entry point chooses in C between two paths
+(:func:`uses_tensor_cores` mirrors the choice): bfloat16 at head_dim 16, 32
+or 64 runs per-head ``mma.sync`` kernels (``csrc/attn_fwd_core.cuh``,
+``csrc/attn_bwd_core.cuh``); float32 and any other head_dim run the
+CUDA-core kernels.  The tensor-core forward keeps every rounding point
+above; the tensor-core backward hands P and dS on as bfloat16 operands of
+the dv, dq and dk products (scores, softmax, delta and the accumulators
+stay f32) and needs no scratch.  The plain versions keep the JAX
+arithmetic on both paths.
 """
 
 from __future__ import annotations
@@ -36,6 +46,15 @@ Tensor = torch.Tensor
 
 MAX_SEQ = 256
 MAX_HEAD_DIM = 64
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64)
+
+
+def uses_tensor_cores(dtype: torch.dtype, N: int, hd: int) -> bool:
+    """Whether ``fc_flash_fwd`` / ``fc_flash_bwd`` take their tensor-core
+    path for this dtype and shape (the choice is made in C,
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``)."""
+    return (dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS
+            and 1 <= N <= MAX_SEQ)
 
 
 def scale_as(dtype: torch.dtype, value: float) -> float:
@@ -85,15 +104,37 @@ def _check(q: Tensor, *others: Tuple[str, Tensor]) -> Tuple[int, int, int]:
     return q.numel() // (N * hd), N, hd
 
 
+def fwd_launch(q: Tensor, k: Tensor, v: Tensor, scale: float):
+    """``(entry point, arguments, o)`` of the forward launch; works on CPU
+    tensors too, so the argument list can be tested without a card."""
+    pairs, N, hd = _check(q, ("k", k), ("v", v))
+    o = torch.empty_like(q)
+    P_ = kernels.ptr
+    return "flash_fwd", [kernels.dtype_code(q.dtype), pairs, N, hd,
+                         scale_as(q.dtype, scale), P_(q), P_(k), P_(v),
+                         P_(o)], o
+
+
+def bwd_launch(q: Tensor, k: Tensor, v: Tensor, do: Tensor, scale: float):
+    """``(entry point, arguments, (dq, dk, dv), scratch)`` of the backward
+    launch.  The scratch, the per-row softmax max, sum and delta ``[pairs,
+    N, 3]`` in f32, exists on the CUDA-core path only."""
+    pairs, N, hd = _check(q, ("k", k), ("v", v), ("do", do))
+    outs = tuple(torch.empty_like(q) for _ in range(3))
+    stats = None if uses_tensor_cores(q.dtype, N, hd) else torch.empty(
+        (pairs, N, 3), dtype=torch.float32, device=q.device)
+    P_ = kernels.ptr
+    return "flash_bwd", [kernels.dtype_code(q.dtype), pairs, N, hd,
+                         scale_as(q.dtype, scale), P_(q), P_(k), P_(v),
+                         P_(do), *map(P_, outs), P_(stats)], outs, stats
+
+
 def flash_fwd(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     """Kernel 11: the attention output ``[..., N, hd]`` in q's dtype."""
     if not q.is_cuda:
         return flash_fwd_plain(q, k, v, scale)
-    pairs, N, hd = _check(q, ("k", k), ("v", v))
-    o = torch.empty_like(q)
-    P_ = kernels.ptr
-    kernels.launch("flash_fwd", kernels.dtype_code(q.dtype), pairs, N, hd,
-                   scale_as(q.dtype, scale), P_(q), P_(k), P_(v), P_(o))
+    name, args, o = fwd_launch(q, k, v, scale)
+    kernels.launch(name, *args)
     return o
 
 
@@ -102,14 +143,9 @@ def flash_bwd(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     """Kernel 12: (dq, dk, dv), each in its input's dtype."""
     if not q.is_cuda:
         return flash_bwd_plain(q, k, v, do, scale)
-    pairs, N, hd = _check(q, ("k", k), ("v", v), ("do", do))
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty((pairs, N, 3), dtype=torch.float32, device=q.device)
-    P_ = kernels.ptr
-    kernels.launch("flash_bwd", kernels.dtype_code(q.dtype), pairs, N, hd,
-                   scale_as(q.dtype, scale), P_(q), P_(k), P_(v), P_(do),
-                   P_(dq), P_(dk), P_(dv), P_(stats))
-    return dq, dk, dv
+    name, args, outs, _scratch = bwd_launch(q, k, v, do, scale)
+    kernels.launch(name, *args)
+    return outs
 
 
 # ---------------------------------------------------------- autograd -------

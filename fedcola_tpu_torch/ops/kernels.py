@@ -59,6 +59,8 @@ _SIGNATURES = {
     "fc_mlp_ln_bwd_rows": [_I] * 6 + [_P] * 27,
     # test only: the Hopper GEMM mainloop alone (tests/test_torch_port_cuda.py)
     "fc_sm90_gemm_test": [_I] * 6 + [_P] * 4,
+    # test only: the tensor-core attention forward core, packed layout
+    "fc_attn_fwd_core_test": [_I] * 4 + [_P] * 4,
 }
 
 # The bf16 backwards' Hopper GEMM (csrc/gemm_sm90.cuh): its row and K

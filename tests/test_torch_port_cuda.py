@@ -10,7 +10,14 @@ points, and the ``gemm_kernel`` branch that D off the 8 grid takes.  The
 bf16 attention backward's Hopper path (the same GEMM plus the tensor-core
 head kernel of ``csrc/attn_bwd_core.cuh``) is held to the plain versions at
 N = 256, 197, 40 and 13 and head_dim 64, 32 and 16, for item and client
-isolation, for bitwise repeats, and for the old path at head_dim 48.
+isolation, for bitwise repeats, and for the old path at head_dim 48.  The
+bf16 flash kernels' tensor-core path (``csrc/attn_fwd_core.cuh`` and the
+flash mode of ``csrc/attn_bwd_core.cuh``) is held to the plain versions at
+N = 256, 197, 40, 13 and 5 and head_dim 64, 32 and 16, for pair isolation
+and bitwise repeats; the kernels a call launches are read from a profile,
+which is how the tests know that head_dim 48 and float32 stay on the
+CUDA-core kernels; the new forward core is also run in the fused
+sublayer's packed layout with P written.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -395,3 +402,119 @@ def test_bf16_attention_backward_off_the_head_grid_takes_the_old_path(dev):
     t = _attn_case(37, 96, 2, dev, seed=6)
     for got, ref in _both_attn_backwards(t, 2).values():
         _agree(got, ref, torch.bfloat16)
+
+
+# ------------------------------------- flash attention on tensor cores ----
+
+def _flash_inputs(N, hd, dtype, dev, lead=(2, 3, 2)):
+    r = np.random.RandomState(N + hd)
+    return [torch.from_numpy(r.randn(*lead, N, hd).astype(np.float32))
+            .to(dev).to(dtype) for _ in range(4)]
+
+
+def _kernels_of(fn):
+    """Names of the CUDA kernels that ``fn`` launches, from a profile."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("hd", [64, 32, 16])
+@pytest.mark.parametrize("N", [256, 197, 40, 13, 5])
+def test_flash_tensor_core_path_matches_plain(dev, N, hd):
+    dt = torch.bfloat16
+    assert fl.uses_tensor_cores(dt, N, hd)
+    q, k, v, do = _flash_inputs(N, hd, dt, dev)
+    scale = hd ** -0.5
+    _agree([fl.flash_fwd(q, k, v, scale)],
+           [fl.flash_fwd_plain(q, k, v, scale)], dt)
+    _agree(fl.flash_bwd(q, k, v, do, scale),
+           fl.flash_bwd_plain(q, k, v, do, scale), dt)
+
+
+@pytest.mark.parametrize("dtype,hd,new", [(torch.bfloat16, 64, True),
+                                          (torch.bfloat16, 16, True),
+                                          (torch.bfloat16, 48, False),
+                                          (torch.float32, 64, False)])
+def test_flash_path_choice_by_dtype_and_head_dim(dev, dtype, hd, new):
+    """The choice is made in C; the kernel names of a profiled call show
+    which path ran: the per-head mma.sync kernels, or the CUDA-core
+    attention core and the row / column passes."""
+    q, k, v, do = _flash_inputs(37, hd, dtype, dev)
+    scale = hd ** -0.5
+    assert fl.uses_tensor_cores(dtype, 37, hd) is new
+    fwd = _kernels_of(lambda: fl.flash_fwd(q, k, v, scale))
+    bwd = _kernels_of(lambda: fl.flash_bwd(q, k, v, do, scale))
+    if "kernel" not in fwd:
+        pytest.skip("the profiler recorded no kernel on this machine")
+    assert ("attn_fwd_head_kernel" in fwd) is new
+    assert ("attn_core_fwd_kernel" in fwd) is not new
+    assert ("attn_bwd_head_kernel" in bwd) is new
+    assert ("flash_bwd_rows_kernel" in bwd) is not new
+    assert ("flash_bwd_cols_kernel" in bwd) is not new
+    _agree([fl.flash_fwd(q, k, v, scale)],
+           [fl.flash_fwd_plain(q, k, v, scale)], dtype)
+    _agree(fl.flash_bwd(q, k, v, do, scale),
+           fl.flash_bwd_plain(q, k, v, do, scale), dtype)
+
+
+@pytest.mark.parametrize("N,hd", [(197, 64), (13, 32)])
+def test_flash_pairs_are_isolated_and_calls_repeat_bitwise(dev, N, hd):
+    """Scaling one pair's q, k, v and do 50x leaves its neighbours' outputs
+    and gradients exactly as they were (no read or sum crosses a pair), and
+    a second call gives the first call's bits."""
+    dt = torch.bfloat16
+    q, k, v, do = _flash_inputs(N, hd, dt, dev, lead=(5,))
+    scale = hd ** -0.5
+    first = (fl.flash_fwd(q, k, v, scale),) + fl.flash_bwd(q, k, v, do, scale)
+    again = (fl.flash_fwd(q, k, v, scale),) + fl.flash_bwd(q, k, v, do, scale)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    big = [t.clone() for t in (q, k, v, do)]
+    for t in big:
+        t[2] *= 50
+    q2, k2, v2, do2 = big
+    other = (fl.flash_fwd(q2, k2, v2, scale),) + \
+        fl.flash_bwd(q2, k2, v2, do2, scale)
+    keep = [0, 1, 3, 4]
+    for a, b in zip(first, other):
+        assert torch.equal(a[keep], b[keep])
+        assert not torch.equal(a[2], b[2])
+
+
+@pytest.mark.parametrize("N,Dm,heads", [(197, 128, 2), (40, 128, 4),
+                                        (13, 96, 6), (5, 64, 1)])
+def test_forward_core_packed_layout_with_saved_P(dev, N, Dm, heads):
+    """``csrc/attn_fwd_core.cuh`` in the fused sublayer's layout (qkv
+    [items, N, 3D] in, P [items, H, N, N] and cat [items, N, D] out)
+    against the P and cat of ``attn_fwd_plain`` (its ``_probs`` and
+    ``_cat`` on the same qkv)."""
+    dt = torch.bfloat16
+    items = 5
+    r = np.random.RandomState(N)
+    qkv = torch.from_numpy(r.randn(items, N, 3 * Dm).astype(np.float32)) \
+        .to(dev).to(dt)
+    P = torch.full((items, heads, N, N), float("nan"), device=dev, dtype=dt)
+    cat = torch.full((items, N, Dm), float("nan"), device=dev, dtype=dt)
+    err = kernels.library().fc_attn_fwd_core_test(
+        items, N, Dm, heads, qkv.data_ptr(), P.data_ptr(), cat.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    qkv5 = qkv.reshape(1, items, N, 3 * Dm)
+    P_ref = fa._probs(qkv5, heads).to(dt)
+    cat_ref = fa._cat(P_ref, qkv5)[0]
+    P_ref = P_ref[0]
+    _agree([P, cat], [P_ref, cat_ref], dt)
+    # no save: the same cat bits, nothing else written
+    cat2 = torch.full_like(cat, float("nan"))
+    err = kernels.library().fc_attn_fwd_core_test(
+        items, N, Dm, heads, qkv.data_ptr(), None, cat2.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(cat, cat2)

@@ -10,11 +10,12 @@ result line):
             TF32 off for matmuls and cuDNN.
 2. build    every CUDA source of fedcola_tpu_torch/csrc, compiled in
             parallel into build/kernels/ (seconds printed); the SASS of
-            mlp_bwd.o and attn_bwd.o must hold wgmma (HGMMA) and TMA load
-            (UTMALDG) instructions, the bf16 backwards' Hopper mainloop,
-            attn_bwd.o also mma.sync (HMMA), its per-head kernel, and so
-            must flash_fwd.o and flash_bwd.o (the per-head forward and
-            backward cores); none of these kernels may spill.
+            mlp_fwd.o, mlp_bwd.o, attn_fwd.o and attn_bwd.o must hold wgmma
+            (HGMMA) and TMA load (UTMALDG) instructions, the bf16 fused
+            route's Hopper mainloop, attn_fwd.o and attn_bwd.o also
+            mma.sync (HMMA), their per-head kernels, and so must
+            flash_fwd.o and flash_bwd.o (the per-head forward and backward
+            cores); none of these kernels may spill.
 3. kernels  each kernel wrapper against its plain PyTorch version at every
             shape its paths give it, N in {197, 40}: the fused kernels at
             mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
@@ -25,9 +26,10 @@ result line):
             float32 (max|d| <= 1e-4 * max(1, max|ref|)) and bfloat16
             (max|d| / max|ref| <= 3e-2), forward outputs, P, cat and every
             gradient; the rows-mode MLP kernels at that batch flattened
-            (n=2, rows = 96*N, D=384, F=1536); the four bf16 MLP backward
-            entry points, the two attention backwards and the two bf16
-            flash kernels called twice give the same bits; median times
+            (n=2, rows = 96*N, D=384, F=1536); every bf16 entry point (the
+            four MLP forwards and four backwards, the attention forward in
+            its training and eval variants and its two backwards, the two
+            flash kernels) called twice gives the same bits; median times
             and achieved TFLOP/s of the kernel,
             the plain version and a library call (torch.matmul +
             F.scaled_dot_product_attention / F.layer_norm / F.gelu, one
@@ -139,9 +141,10 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def check_sass(kernels) -> None:
-    """The bf16 MLP and attention backwards run on wgmma fed by TMA, and
-    the per-head attention kernels (the fused backward's, flash
-    attention's forward and backward) on mma.sync: count those opcodes in
+    """The bf16 MLP and attention forwards and backwards run on wgmma fed
+    by TMA, and the per-head attention kernels (the fused forward's and
+    backward's, flash attention's forward and backward) on mma.sync: count
+    those opcodes in
     the SASS of their object files, print the registers, stack, static
     shared and local memory of each Hopper GEMM and head kernel
     instantiation, and fail if one of them spills (a stack frame or local
@@ -149,7 +152,9 @@ def check_sass(kernels) -> None:
     import re
     from pathlib import Path
     tool = str(Path(kernels._nvcc()).parent / "cuobjdump")
-    want = {"mlp_bwd.o": ("HGMMA", "UTMALDG"),
+    want = {"mlp_fwd.o": ("HGMMA", "UTMALDG"),
+            "mlp_bwd.o": ("HGMMA", "UTMALDG"),
+            "attn_fwd.o": ("HGMMA", "UTMALDG", "HMMA"),
             "attn_bwd.o": ("HGMMA", "UTMALDG", "HMMA"),
             "flash_fwd.o": ("HMMA",), "flash_bwd.o": ("HMMA",)}
     # the mangled template arguments: ILi64ELi2EE is <64, 2>
@@ -319,9 +324,12 @@ def check_attention(N, dtype, dev, timing):
     got = fa.attn_fwd(t["x"], t["s"], *w, H, save=True)
     ref = fa.attn_fwd_plain(t["x"], t["s"], *w, H, save=True)
     err1 = _compare(got, ref, dtype, ("out", "P", "cat"))
+    _same_bits(fa.attn_fwd, (t["x"], t["s"], *w, H, True), got, "attn_fwd")
     got_e = fa.attn_fwd(t["x"], None, *w, H, save=False)[0]
     ref_e = fa.attn_fwd_plain(t["x"], None, *w, H, save=False)[0]
     err1 = max(err1, _compare([got_e], [ref_e], dtype, ("out_eval",)))
+    _same_bits(lambda *a: fa.attn_fwd(*a)[0], (t["x"], None, *w, H, False),
+               [got_e], "attn_fwd (eval)")
     P, cat = ref[1], ref[2]
     args2 = (t["x"], t["s"], *w[:5], P, cat, t["da"], H)
     got2 = fa.attn_bwd(*args2)
@@ -370,9 +378,11 @@ def check_mlp(N, dtype, dev, timing):
     got = fm.mlp_fwd(t["x"], t["s"], *w)
     ref = fm.mlp_fwd_plain(t["x"], t["s"], *w)
     err3 = _compare([got], [ref], dtype, ("out",))
+    _same_bits(fm.mlp_fwd, (t["x"], t["s"], *w), [got], "mlp_fwd")
     got_e = fm.mlp_fwd(t["x"], None, *w)
     ref_e = fm.mlp_fwd_plain(t["x"], None, *w)
     err3 = max(err3, _compare([got_e], [ref_e], dtype, ("out_eval",)))
+    _same_bits(fm.mlp_fwd, (t["x"], None, *w), [got_e], "mlp_fwd (eval)")
     args4 = (t["x"], t["s"], *w[:5], t["do"])
     got4 = fm.mlp_bwd(*args4)
     ref4 = fm.mlp_bwd_plain(*args4)
@@ -501,8 +511,7 @@ def check_rows(N, dtype, dev, timing):
             got, ref = [got], [ref]
         res[name] = {"max_abs_err": _compare(got, ref, dtype, what)}
         del ref
-        if len(what) > 1:
-            _same_bits(kern, args, got, name)
+        _same_bits(kern, args, got, name)
         if timing:
             # fc1 and fc2 forward; the backward recomputes fc1, then dh,
             # dW1, dW2 and dx: five rows x D x F products
@@ -596,6 +605,8 @@ def check_eval(N, dtype, dev, timing):
     res = {"attn_fwd": {"max_abs_err": _compare(
         [got], [ref], dtype, ("out_eval",))}}
     del ref
+    _same_bits(lambda *a: fa.attn_fwd(*a)[0], (ta["x"], None, *wa, H, False),
+               [got], "attn_fwd (eval)")
     tm = _mlp_inputs(n, B, N, dtype, dev)
     wm = [tm[k] for k in ("lns", "lnb", "w1", "b1", "w2", "b2")]
     got_m = fm.mlp_fwd(tm["x"], None, *wm)
@@ -603,6 +614,7 @@ def check_eval(N, dtype, dev, timing):
     res["mlp_fwd"] = {"max_abs_err": _compare(
         [got_m], [ref_m], dtype, ("out_eval",))}
     del ref_m
+    _same_bits(fm.mlp_fwd, (tm["x"], None, *wm), [got_m], "mlp_fwd (eval)")
     tf = _flash_inputs(n, B, N, dtype, dev)
     fq, fk, fv = (tf[x] for x in ("q", "k", "v"))
     got_f = fl.flash_fwd(fq, fk, fv, 0.125)

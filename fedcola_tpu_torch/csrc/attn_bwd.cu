@@ -42,7 +42,7 @@
 // choice is made here, by dtype and shape alone.
 #include "attn_bwd_core.cuh"
 #include "attn_core.cuh"
-#include "gemm_sm90.cuh"
+#include "attn_sm90.cuh"
 
 namespace {
 
@@ -342,20 +342,9 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
       rps_qkv % SM90_BK || !hpart)
     return (int)cudaErrorInvalidValue;
 
-  // LN1, and qkv = T(h . Wqkv + bqkv)
-  if ((err = ln_fwd<bf16>(x, lns, lnb, h, mean, rstd, rows, M, D, 1e-5f, st)))
-    return err;
-  Sm90Args g = {};
-  if ((err = make_map(&g.a0, h, n, M, D)) ||
-      (err = make_map(&g.b0, wqkv, n, D, 3 * D)))
-    return err;
-  g.M = M; g.N = 3 * D;
-  g.k_tiles = g.tiles_per_split = kd;
-  g.splits = 1;
-  g.out = qkv; g.out_client = 3 * MD;
-  g.bias = bqkv;
-  if ((err = sm90_gemm<0, 1, 0, SM90_EPI_BF16>(
-           g, mt, ceil_div(3 * D, SM90_BN), n, st))) return err;
+  // LN1, and qkv = T(h . Wqkv + bqkv), as the forward computes them
+  if ((err = attn_ln_qkv_sm90(x, lns, lnb, wqkv, bqkv, h, mean, rstd, qkv, n,
+                              M, D, st))) return err;
 
   // branch gradient s*da: dbproj sums it in f32 and the same pass rounds
   // it into dac for the products.  partial [n, 32, 3D] gives the D-wide
@@ -435,14 +424,6 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
                              nullptr, nullptr, partial, dlnb, st, wide);
 }
 
-// The choice of path: bf16 on the head kernel's grid (which puts D on
-// TMA's 8-element grid too).
-inline bool attn_bwd_on_sm90(int dtype, int N, int D, int H) {
-  const int hd = D / H;
-  return dtype == 1 && D % 8 == 0 && N <= 256 &&
-         (hd == 16 || hd == 32 || hd == 64);
-}
-
 int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
                       int rps_proj, int rps_qkv, const void* x,
                       const float* s, const float* lns, const float* lnb,
@@ -454,7 +435,7 @@ int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
                       float* dqkv, void* dqkvc, float* dh, float* partial,
                       float* hpart, float* wpart, bool recompute,
                       cudaStream_t st) {
-  if (attn_bwd_on_sm90(dtype, N, D, H))
+  if (attn_on_sm90(dtype, N, D, H))
     return attn_bwd_sm90(
         n, B, N, D, H, rps_proj, rps_qkv, static_cast<const bf16*>(x), s, lns,
         lnb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),

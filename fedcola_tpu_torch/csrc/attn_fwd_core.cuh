@@ -29,6 +29,17 @@
 // 2 N^2 hd a head, far below what the bytes allow.  Padded keys score -inf
 // (P = 0); padded query rows are computed and not stored.  Every sum has
 // one owner and a fixed order: the same bits on every call.
+//
+// The P store.  A row of P has N elements and N = 197 is odd, so from the
+// accumulator fragment a lane could only write single bf16 values (2 bytes
+// to each of 8 rows a warp-wide store): with 89 MB of P a training call those
+// stores were half the kernel's time.  A warp's 16 query rows are one
+// contiguous span of 16 N elements of P, so the warp collects its rounded
+// P in shared memory behind the tiles, at the span's own offset within a
+// 16-byte line, and writes the span out in whole aligned lines after pass
+// 2 (one writer per element, the same values).  Where the tiles leave no
+// room (head_dim 64, N > 232) the fragment is stored directly, value by
+// value.
 #pragma once
 
 #include "attn_core.cuh"
@@ -37,15 +48,25 @@
 namespace {
 
 constexpr int AF_MAXW = 16;  // warps a block: one per 16-query block
+constexpr size_t AF_MAX_SMEM = 232448;  // dynamic shared memory a block
+
+// bf16 elements of the P staging buffer of one warp: 16 rows of N keys and
+// up to 7 elements of offset, in whole 16-byte lines.
+__host__ __device__ inline int af_stage_elems(int N) {
+  return (16 * N + 7 + 7) / 8 * 8;
+}
 
 // grid (H, items), 32 * min(AF_MAXW, ceil(N / 16)) threads.  score = scale
 // * (q . k), given as c2 = scale * log2(e): exp(scale * x) = exp2(c2 * x),
 // one fma and one ex2 an element.  qscale != 0 first rounds q to T(q *
-// qscale).  P [items, H, N, N] is written when not null.
-template <int HD>
+// qscale).  SAVE: P [items, H, N, N] is written; `stage`: through
+// af_stage_elems(N) more bf16 of shared memory a warp, behind the tiles.
+// Without SAVE the kernel holds no code for P (flash attention's forward).
+template <int HD, bool SAVE>
 __global__ void __launch_bounds__(AF_MAXW * 32, 1)
 attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
-                     bf16* P, CoreLayout L, int N, float c2, float qscale) {
+                     bf16* P, CoreLayout L, int N, float c2, float qscale,
+                     int stage) {
   constexpr int LD = HD + AH_PAD;  // elements a shared row
   constexpr int KS = HD / 16;  // k16 steps over the head dim
   constexpr int DT = HD / 8;   // n8 tiles over the head dim
@@ -120,7 +141,17 @@ attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
     for (int nt = 0; nt < DT; ++nt)
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[nt][c] = 0.0f;
-    bf16* prow = P ? P + (item * H + h) * (long long)N * N : nullptr;
+    bf16* prow = SAVE ? P + (item * H + h) * (long long)N * N : nullptr;
+    // staged P: the block's 16 rows are one contiguous span of P, kept in
+    // shared memory at the span's own offset within a 16-byte line
+    uint16_t* pw = nullptr;
+    int sh = 0;
+    if (SAVE && stage) {
+      pw = reinterpret_cast<uint16_t*>(Vs + NP * LD) +
+           warp * af_stage_elems(N);
+      sh = (int)((reinterpret_cast<uintptr_t>(prow + (long long)rb * 16 * N) >>
+                  1) & 7);
+    }
     for (int jb = 0; jb < nblk; ++jb) {
       float s[2][4];
       ah_scores<KS>(qa, k_sm + jb * BLK + b_off, s);
@@ -132,21 +163,49 @@ attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
           s[nt][c] = exp2f(fmaf(s[nt][c], c2, -mc[c >> 1])) * il[c >> 1];
       uint32_t a[4];
       ah_as_a(s, a);
-      if (prow) {
-        // N may be odd, so rows of P are only 2-byte aligned
+      if constexpr (SAVE) {
+        if (pw) {
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int i = r0 + 8 * (c >> 1);
-            const int j = jb * 16 + nt * 8 + 2 * t + (c & 1);
-            if (i < N && j < N)
-              prow[(long long)i * N + j] = from_f<bf16>(s[nt][c]);
+          for (int q = 0; q < 4; ++q) {
+            const int j = jb * 16 + (q >> 1) * 8 + 2 * t;
+            const int e = sh + (g + 8 * (q & 1)) * N + j;
+            if (j < N) pw[e] = (uint16_t)(a[q] & 0xffffu);
+            if (j + 1 < N) pw[e + 1] = (uint16_t)(a[q] >> 16);
           }
+        } else {
+          // N may be odd, so rows of P are only 2-byte aligned
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int i = r0 + 8 * (c >> 1);
+              const int j = jb * 16 + nt * 8 + 2 * t + (c & 1);
+              if (i < N && j < N)
+                prow[(long long)i * N + j] = from_f<bf16>(s[nt][c]);
+            }
+        }
       }
       ah_accumulate<HD>(o, a, v_sm + jb * BLK + a_off);
     }
     ah_store<HD>(o, 1.0f, og + ob, L.out_row, r0, N, lane, nullptr);
+    if (SAVE && pw) {
+      // the span [sh, sh + len) of the staging buffer goes out in whole
+      // 16-byte lines, its ragged head and tail element by element
+      __syncwarp();
+      const int len = min(16, N - rb * 16) * N;
+      uint16_t* gp =
+          reinterpret_cast<uint16_t*>(prow + (long long)rb * 16 * N) - sh;
+      for (int e0 = lane * 8; e0 < sh + len; e0 += 32 * 8) {
+        if (e0 >= sh && e0 + 8 <= sh + len) {
+          *reinterpret_cast<uint4*>(gp + e0) =
+              *reinterpret_cast<const uint4*>(pw + e0);
+        } else {
+          for (int e = max(e0, sh); e < min(e0 + 8, sh + len); ++e)
+            gp[e] = pw[e];
+        }
+      }
+      __syncwarp();
+    }
   }
 }
 
@@ -155,19 +214,24 @@ inline size_t attn_fwd_head_smem(int N, int hd) {
   return (size_t)3 * NP * (hd + AH_PAD) * sizeof(bf16);
 }
 
-template <int HD>
+template <int HD, bool SAVE>
 int attn_fwd_head_launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                          bf16* P, const CoreLayout& L, int items, int H, int N,
                          float scale, float qscale, cudaStream_t st) {
-  auto kern = attn_fwd_head_kernel<HD>;
-  const size_t smem = attn_fwd_head_smem(N, HD);
+  auto kern = attn_fwd_head_kernel<HD, SAVE>;
+  const int nblk = (N + 15) / 16;
+  const int warps = nblk < AF_MAXW ? nblk : AF_MAXW;
+  // P goes through shared memory where the tiles leave room for it (all
+  // but head_dim 64 at N > 232)
+  size_t smem = attn_fwd_head_smem(N, HD);
+  const size_t staged = smem + (size_t)warps * af_stage_elems(N) * sizeof(bf16);
+  const int stage = SAVE && staged <= AF_MAX_SMEM;
+  if (stage) smem = staged;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   FC_CHECK();
-  const int nblk = (N + 15) / 16;
-  const int warps = nblk < AF_MAXW ? nblk : AF_MAXW;
-  kern<<<dim3(H, items), warps * 32, smem, st>>>(q, k, v, o, P, L, N,
-                                                 scale * AH_LOG2E, qscale);
+  kern<<<dim3(H, items), warps * 32, smem, st>>>(
+      q, k, v, o, P, L, N, scale * AH_LOG2E, qscale, stage);
   FC_CHECK();
   return 0;
 }
@@ -183,14 +247,15 @@ inline int attn_fwd_head(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                          bf16* P, const CoreLayout& L, int items, int H, int N,
                          int hd, float scale, float qscale, cudaStream_t st) {
   if (!attn_fwd_head_takes(N, hd)) return (int)cudaErrorInvalidValue;
-  if (hd == 16)
-    return attn_fwd_head_launch<16>(q, k, v, o, P, L, items, H, N, scale,
-                                    qscale, st);
-  if (hd == 32)
-    return attn_fwd_head_launch<32>(q, k, v, o, P, L, items, H, N, scale,
-                                    qscale, st);
-  return attn_fwd_head_launch<64>(q, k, v, o, P, L, items, H, N, scale,
-                                  qscale, st);
+#define FC_AF_LAUNCH(HD)                                                      \
+  return P ? attn_fwd_head_launch<HD, true>(q, k, v, o, P, L, items, H, N,   \
+                                            scale, qscale, st)               \
+           : attn_fwd_head_launch<HD, false>(q, k, v, o, P, L, items, H, N,  \
+                                             scale, qscale, st)
+  if (hd == 16) FC_AF_LAUNCH(16);
+  if (hd == 32) FC_AF_LAUNCH(32);
+  FC_AF_LAUNCH(64);
+#undef FC_AF_LAUNCH
 }
 
 // The fused sublayer's packed layout, as attn_core_fwd_packed: qkv [items,

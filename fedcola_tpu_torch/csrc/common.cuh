@@ -17,9 +17,10 @@
 //                        a dW tile's block walks every row of a client
 //                        alone (about 10 TFLOP/s in bf16 on the H100).  The
 //                        float32 paths keep it as the card's exactness
-//                        check; the bf16 MLP and attention backwards have
-//                        moved to gemm_sm90.cuh (TMA + wgmma, split-row dW
-//                        sums), and the bf16 forwards move there next.
+//                        check, and bf16 shapes off TMA's grid; the bf16
+//                        forwards and backwards of the fused route run on
+//                        gemm_sm90.cuh (TMA + wgmma, fused epilogues,
+//                        split-row dW sums).
 //   * ln_fwd_kernel      LayerNorm forward: normalised rows + mean/rstd.
 //   * ln_bwd_kernel      LayerNorm backward for dx (+ the identity branch).
 //   * colsum_*           deterministic per-client column sums (dbias, dLN
@@ -264,41 +265,56 @@ inline void set_c(GemmArgs& g, void* c, long long ld, long long sc) {
 constexpr int LN_WARPS = 8;
 constexpr int LN_MAXV = 32;  // D <= 1024
 
-// One warp per row: h = (x - mean) * rstd * gamma[c] + beta[c].
-template <typename T>
+// One warp per row, a few rows a warp: h = (x - mean) * rstd * gamma[c] +
+// beta[c].  Lane l holds elements l, l + 32, ... of the row, NV of them (D
+// <= 32 NV; the launcher picks the smallest NV that holds D, and the sums
+// run over the same elements in the same order whatever NV is); gamma and
+// beta stay in registers from one row of a client to the next.
+template <typename T, int NV>
 __global__ void __launch_bounds__(LN_WARPS * 32)
 ln_fwd_kernel(const T* x, const float* gamma, const float* beta, T* h,
               float* mean, float* rstd, long long rows, int rows_per_client,
               int D, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int c = (int)(r / rows_per_client);
-  const T* xr = x + r * D;
-  float v[LN_MAXV];
-  float s = 0.0f;
+  const long long stride = (long long)gridDim.x * LN_WARPS;
+  float gr[NV], br[NV];
+  int have = -1;  // the client whose gamma and beta are in registers
+  for (long long r = (long long)blockIdx.x * LN_WARPS + (threadIdx.x >> 5);
+       r < rows; r += stride) {
+    const int c = (int)(r / rows_per_client);
+    if (c != have) {
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int d = lane + 32 * i;
-    v[i] = d < D ? to_f(xr[d]) : 0.0f;
-    s += v[i];
-  }
-  const float mu = warp_sum(s) / D;
-  float q = 0.0f;
+      for (int i = 0; i < NV; ++i) {
+        const int d = lane + 32 * i;
+        gr[i] = d < D ? gamma[(long long)c * D + d] : 0.0f;
+        br[i] = d < D ? beta[(long long)c * D + d] : 0.0f;
+      }
+      have = c;
+    }
+    const T* xr = x + r * D;
+    float v[NV];
+    float s = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) q += (v[i] - mu) * (v[i] - mu);
-  }
-  const float inv = 1.0f / sqrtf(warp_sum(q) / D + eps);
-  const float* gr = gamma + (long long)c * D;
-  const float* br = beta + (long long)c * D;
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      v[i] = d < D ? to_f(xr[d]) : 0.0f;
+      s += v[i];
+    }
+    const float mu = warp_sum(s) / D;
+    float q = 0.0f;
 #pragma unroll
-  for (int i = 0; i < LN_MAXV; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) h[r * D + d] = from_f<T>((v[i] - mu) * inv * gr[d] + br[d]);
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) q += (v[i] - mu) * (v[i] - mu);
+    }
+    const float inv = 1.0f / sqrtf(warp_sum(q) / D + eps);
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D) h[r * D + d] = from_f<T>((v[i] - mu) * inv * gr[i] + br[i]);
+    }
+    if (lane == 0) { mean[r] = mu; rstd[r] = inv; }
   }
-  if (lane == 0) { mean[r] = mu; rstd[r] = inv; }
 }
 
 // dx = rstd * (dg - mean(dg) - xhat * mean(dg * xhat)) [+ res], dg = dh*gamma
@@ -347,11 +363,19 @@ template <typename T>
 int ln_fwd(const T* x, const float* gamma, const float* beta, T* h,
            float* mean, float* rstd, long long rows, int rpc, int D,
            float eps, cudaStream_t st) {
-  const unsigned blocks = (unsigned)((rows + LN_WARPS - 1) / LN_WARPS);
-  ln_fwd_kernel<T><<<blocks, LN_WARPS * 32, 0, st>>>(x, gamma, beta, h, mean,
-                                                     rstd, rows, rpc, D, eps);
-  FC_CHECK();
-  return 0;
+  const long long want = (rows + LN_WARPS - 1) / LN_WARPS;
+  const unsigned blocks = (unsigned)(want < 2048 ? want : 2048);
+#define FC_LN_FWD(NV)                                                      \
+  if (D <= 32 * NV) {                                                      \
+    ln_fwd_kernel<T, NV><<<blocks, LN_WARPS * 32, 0, st>>>(                \
+        x, gamma, beta, h, mean, rstd, rows, rpc, D, eps);                 \
+    FC_CHECK();                                                            \
+    return 0;                                                              \
+  }
+  FC_LN_FWD(4) FC_LN_FWD(8) FC_LN_FWD(12) FC_LN_FWD(16) FC_LN_FWD(24)
+  FC_LN_FWD(LN_MAXV)
+#undef FC_LN_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>

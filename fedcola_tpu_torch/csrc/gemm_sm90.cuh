@@ -1,8 +1,10 @@
 // A bf16 GEMM mainloop for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages, wgmma on two consumer warpgroups, one producer
-// warp.  Used by the bf16 backwards of the fused MLP (mlp_bwd.cu) and of
-// the fused attention sublayer (attn_bwd.cu); the forward entry points
-// still run common.cuh's gemm_kernel.
+// warp.  Every D-wide product of the bf16 fused route runs on it: the
+// forwards (mlp_fwd.cu: fc1 with the GELU epilogue, fc2 with the residual
+// join; attn_fwd.cu: qkv and proj) and the backwards (mlp_bwd.cu,
+// attn_bwd.cu).  float32, and shapes off TMA's grid, stay on common.cuh's
+// gemm_kernel.
 //
 // Block shape.  One persistent block per SM walks 128 x 128 output tiles
 // (of one client, and of one split range of K where the caller splits the
@@ -44,7 +46,17 @@
 //
 // Epilogues read the accumulator fragments (row = 16*warp + lane/4 [+8],
 // col = 8j + 2*(lane%4) [+1]) and store to (row, col) themselves, masking
-// the ragged M and N edges.
+// the ragged M edge and whole pairs past N, which is even on every path
+// (the residual's read with them):
+//   EPI_F32 / EPI_BF16  the sum, as f32 or (after an optional bias) as bf16;
+//   EPI_GELU            T(gelu_erf(acc + bias)), the MLP's hidden activation;
+//   EPI_RES             T(acc + bias), or T(x + s[row / seq] * (acc + bias))
+//                       in f32 with one rounding where s is given: the
+//                       sublayers' residual join, as gemm_kernel's tail;
+//   EPI_GELU_BWD        the dual product's GELU backward (mlp_bwd.cu).
+// A tile with few K steps (K = D = 384 is six) is bound by its epilogue,
+// the erf above all: the ring runs on into the next tile's loads meanwhile,
+// but both consumer warpgroups leave the tensor cores idle for its length.
 #pragma once
 
 #include <cuda.h>
@@ -63,7 +75,8 @@ constexpr int SM90_SMEM = 1024 /* alignment slack */ +
                           SM90_STAGES * SM90_STAGE_BYTES +
                           2 * SM90_STAGES * 8 + SM90_RED_FLOATS * 4;
 
-enum { SM90_EPI_F32 = 0, SM90_EPI_BF16 = 1, SM90_EPI_GELU_BWD = 2 };
+enum { SM90_EPI_F32 = 0, SM90_EPI_BF16 = 1, SM90_EPI_GELU_BWD = 2,
+       SM90_EPI_GELU = 3, SM90_EPI_RES = 4 };
 
 // Everything a launch needs; passed by value as a __grid_constant__ so the
 // tensor maps live in parameter space, where TMA can read them.
@@ -75,10 +88,14 @@ struct Sm90Args {
   int k_tiles;         // 64-deep K tiles of the whole reduction
   int tiles_per_split; // K tiles of one split range
   int splits;          // a tile's z index = client * splits + split
-  void* out;           // EPI_F32 / EPI_BF16: out[split][client][M][N]
+  void* out;           // all but EPI_GELU_BWD: out[split][client][M][N]
   long long out_client, out_split;  // element strides (row stride is N)
-  const bf16* bias;    // [clients, N]: EPI_GELU_BWD's b1; EPI_BF16 adds it
-                       // before rounding when not null
+  const bf16* bias;    // [clients, N]: EPI_GELU_BWD's and EPI_GELU's b1;
+                       // EPI_BF16 and EPI_RES add it before rounding when
+                       // not null
+  const bf16* res;     // EPI_RES with s: the residual x, laid out like out
+  const float* s;      // EPI_RES: row scale s[(client * M + row) / seq], or
+  int seq;             // null (then no residual and seq is not read)
   bf16* hg;            // T(GELU(pre))        [clients, M, N]
   bf16* dprec;         // T(dh * GELU'(pre))  [clients, M, N]
   float* colsum;       // f32 column sums of dpre per row tile
@@ -275,6 +292,10 @@ __device__ __forceinline__ void consume(float (&acc)[64], uint32_t ring,
     mbar_arrive(empty + 8 * ((it1 - 1) % SM90_STAGES));
 }
 
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
@@ -360,17 +381,58 @@ sm90_gemm_kernel(const __grid_constant__ Sm90Args g) {
     int it = 0;
     for (int t = blockIdx.x; t < g.tiles; t += gridDim.x) {
       const Sm90Tile u = sm90_tile(g, t);
+      const int row0 = u.m0 + 64 * wg + 16 * warp + (lane >> 2);
+      const int col0 = u.n0 + 2 * (lane & 3);
+      // What the epilogue reads (the thread's bias pairs, its residual
+      // pairs and row scales) is asked for before the mainloop, so that it
+      // arrives under the products: eight consumer warps an SM hide no
+      // load latency in the epilogue itself.  N is even on every path, so
+      // a pair never straddles the edge.
+      constexpr bool kBias = EPI == SM90_EPI_BF16 || EPI == SM90_EPI_GELU ||
+                             EPI == SM90_EPI_RES;
+      constexpr bool kRes = EPI == SM90_EPI_RES;
+      const long long base = (long long)u.split * g.out_split +
+                             (long long)u.c * g.out_client;
+      uint32_t bpk[kBias ? 16 : 1], xpk[kRes ? 32 : 1];
+      float sv[2] = {0.0f, 0.0f};
+      if constexpr (kBias) {
+        if (g.bias) {
+          const bf16* bias = g.bias + (long long)u.c * g.N;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = col0 + 8 * j;
+            bpk[j] = col < g.N
+                         ? *reinterpret_cast<const uint32_t*>(bias + col)
+                         : 0u;
+          }
+        }
+      }
+      if constexpr (kRes) {
+        if (g.s) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = row0 + 8 * h;
+            if (r < g.M) sv[h] = g.s[((long long)u.c * g.M + r) / g.seq];
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int col = col0 + 8 * j;
+              xpk[2 * j + h] =
+                  (r < g.M && col < g.N)
+                      ? *reinterpret_cast<const uint32_t*>(
+                            g.res + base + (long long)r * g.N + col)
+                      : 0u;
+            }
+          }
+        }
+      }
+
       float acc[64];
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
       consume<TA, TB0>(acc, ring, full, empty, it, it + u.iters, wg, lane);
       it += u.iters;
-      const int row0 = u.m0 + 64 * wg + 16 * warp + (lane >> 2);
-      const int col0 = u.n0 + 2 * (lane & 3);
 
       if constexpr (!kDual) {
-        const long long base = (long long)u.split * g.out_split +
-                               (long long)u.c * g.out_client;
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -378,20 +440,32 @@ sm90_gemm_kernel(const __grid_constant__ Sm90Args g) {
             const int r = row0 + 8 * h, col = col0 + 8 * j;
             if (r >= g.M || col >= g.N) continue;
             float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-            if (EPI == SM90_EPI_BF16 && g.bias) {
-              const bf16* bias = g.bias + (long long)u.c * g.N;
-              v0 += to_f(bias[col]);
-              if (col + 1 < g.N) v1 += to_f(bias[col + 1]);
+            if constexpr (kBias) {
+              if (g.bias) {
+                const float2 b = unpack_bf16x2(bpk[j]);
+                v0 += b.x;
+                v1 += b.y;
+              }
+            }
+            if constexpr (EPI == SM90_EPI_GELU) {
+              v0 = gelu_erf(v0);
+              v1 = gelu_erf(v1);
+            }
+            if constexpr (kRes) {
+              if (g.s) {
+                const float2 x = unpack_bf16x2(xpk[2 * j + h]);
+                v0 = x.x + sv[h] * v0;
+                v1 = x.y + sv[h] * v1;
+              }
             }
             const long long off = base + (long long)r * g.N + col;
             if (EPI == SM90_EPI_F32) {
-              float* o = static_cast<float*>(g.out) + off;
-              if (col + 1 < g.N) *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-              else o[0] = v0;
+              *reinterpret_cast<float2*>(static_cast<float*>(g.out) + off) =
+                  make_float2(v0, v1);
             } else {
-              bf16* o = static_cast<bf16*>(g.out) + off;
-              if (col + 1 < g.N) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-              else o[0] = __float2bfloat16(v0);
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(g.out) +
+                                                 off) =
+                  __floats2bfloat162_rn(v0, v1);
             }
           }
       } else {
@@ -489,6 +563,31 @@ int sm90_gemm(Sm90Args g, int m_tiles, int n_tiles, int z, cudaStream_t st) {
   kern<<<blocks, SM90_THREADS, SM90_SMEM, st>>>(g);
   FC_CHECK();
   return 0;
+}
+
+// Whether the mainloop takes a product: bf16 (dtype code 1) operands whose
+// contiguous dimensions d0, d1 are multiples of 8 (16-byte row strides).
+inline bool sm90_takes(int dtype, int d0, int d1) {
+  return dtype == 1 && d0 % 8 == 0 && d1 % 8 == 0;
+}
+
+// C(c) = EPI(A(c) . W(c)) for rows A [n, M, K] and weights W [n, K, C] in
+// the [in, out] layout (the MN-major B): every forward product, and the
+// attention backward's recomputed qkv.  g carries the epilogue's own fields (out,
+// bias, res, s, seq); out is [n, M, C].
+template <int EPI>
+int sm90_linear(Sm90Args g, const bf16* a, const bf16* w, int n, int M, int K,
+                int C, cudaStream_t st) {
+  int err;
+  if ((err = make_map(&g.a0, a, n, M, K)) ||
+      (err = make_map(&g.b0, w, n, K, C)))
+    return err;
+  g.M = M; g.N = C;
+  g.k_tiles = g.tiles_per_split = ceil_div(K, SM90_BK);
+  g.splits = 1;
+  g.out_client = (long long)M * C;
+  return sm90_gemm<0, 1, 0, EPI>(g, ceil_div(M, SM90_BM),
+                                 ceil_div(C, SM90_BN), n, st);
 }
 
 // out[i] = parts[0][i] + parts[1][i] + ... in that order (no atomics, so

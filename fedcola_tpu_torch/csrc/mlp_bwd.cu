@@ -283,7 +283,7 @@ extern "C" int fc_mlp_bwd(int dtype, int n, int B, int N, int D, int F,
                           float* dhid, void* hg, void* dprec, float* dhn,
                           float* partial, float* db1part, float* wpart,
                           cudaStream_t st) {
-  if (dtype == 1 && D % 8 == 0 && F % 8 == 0)
+  if (sm90_takes(dtype, D, F))
     return mlp_bwd_sm90(
         n, B, N, D, F, rps, static_cast<const bf16*>(x), s, lns, lnb,
         static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
@@ -362,7 +362,7 @@ extern "C" int fc_mlp_ln_bwd_rows(int dtype, int n, int rows, int D, int F,
 // (K-major), ta = 1: a is [n, K, M] (MN-major, as h in h^T.dprec);
 // tb = 0: b is [n, N, K] (K-major, as W in x.W^T), tb = 1: b is [n, K, N]
 // (MN-major, as W in x.W).  c is [n, M, N] f32.  The contiguous dimension
-// of each operand must be a multiple of 8.
+// of each operand must be a multiple of 8, and N even.
 extern "C" int fc_sm90_gemm_test(int ta, int tb, int n, int M, int N, int K,
                                  const void* a, const void* b, float* c,
                                  cudaStream_t st) {

@@ -15,14 +15,32 @@
 // The rows-mode Pallas calls pad rows to their 512-row tile; here every
 // edge is masked, so any rows >= 1 runs unpadded.
 //
-// What bounds it on the H100: 4*rows*D*4D FLOPs per client (~45 GFLOP at
-// the main-path shape, 18,912 rows) on the tensor cores; bytes are x in,
-// out out and the weights.  The TPU kernel keeps the [rows, 4D] hidden
-// activation in VMEM; this first version writes it once to device memory
-// in T (116 MB at the main-path shape, n=2) between the two mma.sync GEMMs
-// of common.cuh.  Keeping it on chip (fc1 -> fc2 through shared memory) is
-// later work.
-#include "common.cuh"
+// What bounds it on the H100: 4*rows*D*F FLOPs per client (89 GFLOP at the
+// main-path shape, n=2, 18,912 rows, D=384, F=1536) on the tensor cores,
+// 0.09 ms at the bf16 peak; the bytes that must move (x in, out out, the
+// weights) are a third of that.  The TPU kernel keeps the [rows, F] hidden
+// activation in VMEM between its two products.
+//
+// bf16 with D and F multiples of 8 (every model on the fused route) runs
+// mlp_fwd_sm90, three launches on the caller's stream:
+//   1. ln_fwd (LN2 in f32, rounded to bf16), or nothing without LN;
+//   2. fc1 on gemm_sm90.cuh's TMA + wgmma mainloop with the EPI_GELU
+//      epilogue: hid = T(gelu_erf(acc + b1)), the erf of common.cuh, so
+//      this path and gemm_kernel's agree.  With K = D (six 64-deep steps a
+//      128 x 128 tile) the tile is bound by that epilogue, not by its
+//      products;
+//   3. fc2 on the mainloop (K = F) with the EPI_RES epilogue: acc + b2 and,
+//      with s, the residual x + s_i * (acc + b2) in f32, rounded once.
+// hid makes one round trip through device memory (116 MB written and read
+// at the shape above, about 0.07 ms of HBM time beside a 0.09 ms FLOP
+// bound).  Keeping it on chip would take a 128 x F f32 accumulator a block
+// (or fc2 partial sums over fc1's column tiles) next to the fc1 tile, which
+// does not fit the 232 registers of a consumer thread.
+// float32, and bf16 off that grid (TMA needs 16-byte row strides), run
+// mlp_fwd_impl: the same function on common.cuh's gemm_kernel.  The choice
+// is made here, by dtype and shape alone (ops/fused_mlp.py uses_sm90
+// mirrors it).
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -61,6 +79,30 @@ int mlp_fwd_impl(int n, int B, int N, int D, int F, const void* x_,
   return gemm<T, T>(g2, n, st);
 }
 
+// The bf16 forward on the Hopper mainloop (steps 1-3 of the note above).
+int mlp_fwd_sm90(int n, int B, int N, int D, int F, const bf16* x,
+                 const float* s, const float* lns, const float* lnb,
+                 const bf16* w1, const bf16* b1, const bf16* w2,
+                 const bf16* b2, bf16* out, bf16* h, float* mean, float* rstd,
+                 bf16* hid, cudaStream_t st) {
+  const int M = B * N;
+  int err;
+  const bf16* a = x;  // fc1's input: LN2(x), or x when lns is NULL
+  if (lns) {
+    if ((err = ln_fwd<bf16>(x, lns, lnb, h, mean, rstd, (long long)n * M, M,
+                            D, 1e-5f, st))) return err;
+    a = h;
+  }
+  Sm90Args g1 = {};
+  g1.out = hid; g1.bias = b1;
+  if ((err = sm90_linear<SM90_EPI_GELU>(g1, a, w1, n, M, D, F, st)))
+    return err;
+  Sm90Args g2 = {};
+  g2.out = out; g2.bias = b2;
+  if (s) { g2.res = x; g2.s = s; g2.seq = N; }
+  return sm90_linear<SM90_EPI_RES>(g2, hid, w2, n, M, F, D, st);
+}
+
 }  // namespace
 
 // x [n,B,N,D] (T); s [n,B] f32 or NULL; lns/lnb [n,D] f32 (NULL: no LN,
@@ -73,6 +115,13 @@ extern "C" int fc_mlp_fwd(int dtype, int n, int B, int N, int D, int F,
                           const void* w2, const void* b2, void* out, void* h,
                           float* mean, float* rstd, void* hid,
                           cudaStream_t st) {
+  if (sm90_takes(dtype, D, F))
+    return mlp_fwd_sm90(
+        n, B, N, D, F, static_cast<const bf16*>(x), s, lns, lnb,
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), static_cast<const bf16*>(b2),
+        static_cast<bf16*>(out), static_cast<bf16*>(h), mean, rstd,
+        static_cast<bf16*>(hid), st);
   if (dtype == 1)
     return mlp_fwd_impl<bf16>(n, B, N, D, F, x, s, lns, lnb, w1, b1, w2, b2,
                               out, h, mean, rstd, hid, st);
@@ -100,4 +149,24 @@ extern "C" int fc_mlp_ln_fwd_rows(int dtype, int n, int rows, int D, int F,
                                   cudaStream_t st) {
   return fc_mlp_fwd(dtype, n, 1, rows, D, F, x, nullptr, lns, lnb, w1, b1,
                     w2, b2, out, h, mean, rstd, hid, st);
+}
+
+// Test only (no path calls it): out[i] = EPI(a[i] . w[i]) in bf16 on the
+// Hopper mainloop for the two forward epilogues.  a [n, M, K], w [n, K, N],
+// bias [n, N], out [n, M, N] (bf16); K and N multiples of 8.  epi = 0:
+// EPI_GELU.  epi = 1: EPI_RES with the residual res [n, M, N] (bf16) and the
+// row scales s [n * M / seq] (f32), or s = NULL for acc + bias alone.
+extern "C" int fc_sm90_epilogue_test(int epi, int n, int M, int N, int K,
+                                     int seq, const void* a, const void* w,
+                                     const void* bias, const void* res,
+                                     const float* s, void* out,
+                                     cudaStream_t st) {
+  Sm90Args g = {};
+  g.out = out;
+  g.bias = static_cast<const bf16*>(bias);
+  const bf16* ap = static_cast<const bf16*>(a);
+  const bf16* wp = static_cast<const bf16*>(w);
+  if (epi == 0) return sm90_linear<SM90_EPI_GELU>(g, ap, wp, n, M, K, N, st);
+  if (s) { g.res = static_cast<const bf16*>(res); g.s = s; g.seq = seq; }
+  return sm90_linear<SM90_EPI_RES>(g, ap, wp, n, M, K, N, st);
 }

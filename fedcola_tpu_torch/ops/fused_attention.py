@@ -18,10 +18,11 @@ Shapes (leading client axis ``n``): x ``[n, B, N, D]``; s ``[n, B]`` f32
 wqkv ``[n, D, 3D]``, bqkv ``[n, 3D]``, wproj ``[n, D, D]``, bproj
 ``[n, D]`` in x's dtype (float32 or bfloat16).
 
-Both backward wrappers assemble their launch in :func:`bwd_launch`; in
-bfloat16 with head_dim 16, 32 or 64 (:func:`uses_sm90`) the entry points
-run their five D-wide products on the TMA + wgmma mainloop and the
-per-head backward in one tensor-core kernel (``csrc/attn_bwd_core.cuh``).
+The wrappers assemble their launches in :func:`fwd_launch` and
+:func:`bwd_launch`; in bfloat16 with head_dim 16, 32 or 64
+(:func:`uses_sm90`) the entry points run every D-wide product on the TMA +
+wgmma mainloop and the per-head forward and backward in one tensor-core
+kernel each (``csrc/attn_fwd_core.cuh``, ``csrc/attn_bwd_core.cuh``).
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  The plain versions round to x's dtype
@@ -199,6 +200,29 @@ def _check_fwd_args(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads):
         kernels.check(bproj, "bproj", (n, D), dt, dev)
 
 
+def fwd_launch(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads: int,
+               save: bool = True):
+    """``(entry point, arguments, outputs)`` of one forward launch, the
+    stream aside.  The outputs are (out, P, cat), P ``[n, B, H, N, N]``
+    only when ``save`` (else None: a null pointer).  Both paths of
+    ``fc_attn_fwd`` (see :func:`uses_sm90`) take the same scratch: h, mean,
+    rstd and qkv ``[n, B, N, 3D]``.  Allocates on x's device, so it also
+    runs on CPU tensors."""
+    n, B, N, D = x.shape
+    H = num_heads
+    dt, dev = x.dtype, x.device
+    out = torch.empty_like(x)
+    P = torch.empty((n, B, H, N, N), dtype=dt, device=dev) if save else None
+    cat = torch.empty_like(x)
+    mean = torch.empty((n * B * N,), dtype=torch.float32, device=dev)
+    scratch = [torch.empty_like(x), mean, torch.empty_like(mean),
+               torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)]
+    ptrs = [x, s, lns, lnb, wqkv, bqkv, wproj, bproj, out, P, cat] + scratch
+    args = [kernels.dtype_code(dt), n, B, N, D, H] \
+        + [kernels.ptr(t) for t in ptrs] + [int(save)]
+    return "attn_fwd", args, (out, P, cat)
+
+
 def attn_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, wqkv, bqkv, wproj,
              bproj, num_heads: int, save: bool = True
              ) -> Tuple[Tensor, Optional[Tensor], Tensor]:
@@ -208,31 +232,19 @@ def attn_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, wqkv, bqkv, wproj,
         return attn_fwd_plain(x, s, lns, lnb, wqkv, bqkv, wproj, bproj,
                               num_heads, save)
     _check_fwd_args(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads)
-    n, B, N, D = x.shape
-    H = num_heads
-    dt = x.dtype
-    out = torch.empty_like(x)
-    P = torch.empty((n, B, H, N, N), dtype=dt, device=x.device) if save \
-        else None
-    cat = torch.empty_like(x)
-    h = torch.empty_like(x)
-    mean = torch.empty((n * B * N,), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=x.device)
-    P_ = kernels.ptr
-    kernels.launch("attn_fwd", kernels.dtype_code(dt), n, B, N, D, H,
-                   P_(x), P_(s), P_(lns), P_(lnb), P_(wqkv), P_(bqkv),
-                   P_(wproj), P_(bproj), P_(out), P_(P), P_(cat), P_(h),
-                   P_(mean), P_(rstd), P_(qkv), int(save))
-    return out, P, cat
+    name, args, outs = fwd_launch(x, s, lns, lnb, wqkv, bqkv, wproj, bproj,
+                                  num_heads, save)
+    kernels.launch(name, *args)
+    return outs
 
 
 def uses_sm90(dtype, D: int, num_heads: int, N: int) -> bool:
-    """The choice ``fc_attn_bwd`` and ``fc_attn_bwd_recompute`` make
-    (``csrc/attn_bwd.cu``): bf16 with head_dim 16, 32 or 64 (the tensor-core
-    head kernel's sizes; D is then on TMA's 8-element grid) and N <= 256
-    runs the Hopper path; float32, or any other head_dim, runs
-    ``gemm_kernel`` and the CUDA-core row and column passes."""
+    """The choice ``fc_attn_fwd``, ``fc_attn_bwd`` and
+    ``fc_attn_bwd_recompute`` make (``csrc/attn_sm90.cuh``): bf16 with
+    head_dim 16, 32 or 64 (the tensor-core head kernels' sizes; D is then on
+    TMA's 8-element grid) and N <= 256 runs the Hopper path; float32, or any
+    other head_dim, runs ``gemm_kernel`` and the CUDA-core attention core
+    and row and column passes."""
     return (dtype == torch.bfloat16 and D % 8 == 0 and N <= 256
             and D // num_heads in (16, 32, 64))
 

@@ -8,7 +8,9 @@ Item mode (the training and eval path of ``models/mat.py``), the sublayer
 
 * :func:`mlp_fwd` — kernel ``csrc/mlp_fwd.cu`` ``fc_mlp_fwd`` (replaces
   ``_make_ln_item_fwd_kernel``; ``s=None`` is its residual=False eval
-  variant);
+  variant); in bfloat16 with D and F multiples of 8 (:func:`uses_sm90`)
+  fc1 and fc2 run on the TMA + wgmma mainloop, the GELU and the residual
+  join in their epilogues;
 * :func:`mlp_bwd` — kernel ``csrc/mlp_bwd.cu`` (replaces
   ``_make_ln_item_bwd_kernel``: ``fc_mlp_bwd`` with residual=True;
   ``s=None`` launches ``fc_mlp_bwd_nores``, its residual=False variant,
@@ -166,9 +168,10 @@ def _fwd_scratch(x, F, ln):
 
 
 def uses_sm90(dtype, D: int, F: int) -> bool:
-    """The choice ``fc_mlp_bwd`` makes (``csrc/mlp_bwd.cu``): bf16 with D
-    and F multiples of 8 (TMA's 16-byte row strides) runs the Hopper
-    mainloop; float32, or D or F off that grid, runs ``gemm_kernel``."""
+    """The choice every forward and backward entry point makes
+    (``csrc/mlp_fwd.cu``, ``csrc/mlp_bwd.cu``): bf16 with D and F multiples
+    of 8 (TMA's 16-byte row strides) runs the Hopper mainloop; float32, or
+    D or F off that grid, runs ``gemm_kernel``."""
     return dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0
 
 
@@ -240,17 +243,39 @@ def bwd_launch(x, s, lns, lnb, w1, b1, w2, do):
     return name, head + [P_(t) for t in ptrs], tuple(bufs[:7 if ln else 5])
 
 
+def fwd_launch(x, s, lns, lnb, w1, b1, w2, b2):
+    """``(entry point, arguments, output)`` of one forward launch, the
+    stream aside: item mode for x ``[n, B, N, D]`` (``mlp_fwd``; s may be
+    None), rows mode for x ``[n, rows, D]`` (``mlp_ln_fwd_rows``, or
+    ``mlp_fwd_rows`` when lns is None).  Both paths of the entry points
+    (see :func:`uses_sm90`) take the same scratch: [h, mean, rstd,] and the
+    hidden activation ``[..., F]`` in x's dtype.  Allocates on x's device,
+    so it also runs on CPU tensors."""
+    ln = lns is not None
+    n, D, F = x.shape[0], x.shape[-1], w1.shape[-1]
+    P_ = kernels.ptr
+    head = [kernels.dtype_code(x.dtype), n, *x.shape[1:-1], D, F, P_(x)]
+    if x.dim() == 3:
+        name = "mlp_ln_fwd_rows" if ln else "mlp_fwd_rows"
+    else:
+        if not ln:
+            raise ValueError("the item sublayer takes LN parameters")
+        name = "mlp_fwd"
+        head.append(P_(s))
+    out = torch.empty_like(x)
+    ptrs = ([lns, lnb] if ln else []) + [w1, b1, w2, b2, out] \
+        + _fwd_scratch(x, F, ln)
+    return name, head + [P_(t) for t in ptrs], out
+
+
 def mlp_fwd(x: Tensor, s: Optional[Tensor], lns, lnb, w1, b1, w2,
             b2) -> Tensor:
     """Kernel 3: ``[x + s*] mlp(LN2(x))``."""
     if not x.is_cuda:
         return mlp_fwd_plain(x, s, lns, lnb, w1, b1, w2, b2)
-    n, B, N, D, F = _check_args(x, s, lns, lnb, w1, b1, w2, b2)
-    out = torch.empty_like(x)
-    P_ = kernels.ptr
-    kernels.launch("mlp_fwd", kernels.dtype_code(x.dtype), n, B, N, D, F,
-                   P_(x), P_(s), P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
-                   P_(b2), P_(out), *map(P_, _fwd_scratch(x, F, True)))
+    _check_args(x, s, lns, lnb, w1, b1, w2, b2)
+    name, args, out = fwd_launch(x, s, lns, lnb, w1, b1, w2, b2)
+    kernels.launch(name, *args)
     return out
 
 
@@ -270,12 +295,9 @@ def mlp_fwd_rows(x: Tensor, w1, b1, w2, b2) -> Tensor:
     """Row 7: ``fc2(GELU(fc1 x))`` over x ``[n, rows, D]``."""
     if not x.is_cuda:
         return mlp_fwd_rows_plain(x, w1, b1, w2, b2)
-    n, _, R, D, F = _check_args(x[:, None], None, None, None, w1, b1, w2, b2)
-    out = torch.empty_like(x)
-    P_ = kernels.ptr
-    kernels.launch("mlp_fwd_rows", kernels.dtype_code(x.dtype), n, R, D, F,
-                   P_(x), P_(w1), P_(b1), P_(w2), P_(b2), P_(out),
-                   *map(P_, _fwd_scratch(x, F, False)))
+    _check_args(x[:, None], None, None, None, w1, b1, w2, b2)
+    name, args, out = fwd_launch(x, None, None, None, w1, b1, w2, b2)
+    kernels.launch(name, *args)
     return out
 
 
@@ -295,12 +317,9 @@ def mlp_ln_fwd_rows(x: Tensor, lns, lnb, w1, b1, w2, b2) -> Tensor:
     """Row 9: ``fc2(GELU(fc1(LN x)))`` over x ``[n, rows, D]``."""
     if not x.is_cuda:
         return mlp_ln_fwd_rows_plain(x, lns, lnb, w1, b1, w2, b2)
-    n, _, R, D, F = _check_args(x[:, None], None, lns, lnb, w1, b1, w2, b2)
-    out = torch.empty_like(x)
-    P_ = kernels.ptr
-    kernels.launch("mlp_ln_fwd_rows", kernels.dtype_code(x.dtype), n, R, D,
-                   F, P_(x), P_(lns), P_(lnb), P_(w1), P_(b1), P_(w2),
-                   P_(b2), P_(out), *map(P_, _fwd_scratch(x, F, True)))
+    _check_args(x[:, None], None, lns, lnb, w1, b1, w2, b2)
+    name, args, out = fwd_launch(x, None, lns, lnb, w1, b1, w2, b2)
+    kernels.launch(name, *args)
     return out
 
 

@@ -59,11 +59,13 @@ _SIGNATURES = {
     "fc_mlp_ln_bwd_rows": [_I] * 6 + [_P] * 27,
     # test only: the Hopper GEMM mainloop alone (tests/test_torch_port_cuda.py)
     "fc_sm90_gemm_test": [_I] * 6 + [_P] * 4,
+    # test only: the mainloop with the forwards' GELU / residual epilogues
+    "fc_sm90_epilogue_test": [_I] * 6 + [_P] * 7,
     # test only: the tensor-core attention forward core, packed layout
     "fc_attn_fwd_core_test": [_I] * 4 + [_P] * 4,
 }
 
-# The bf16 backwards' Hopper GEMM (csrc/gemm_sm90.cuh): its row and K
+# The bf16 fused route's Hopper GEMM (csrc/gemm_sm90.cuh): its row and K
 # tiles, and the SMs the split weight-gradient products should fill.
 SM90_BM, SM90_BK, H100_SMS = 128, 64, 132
 

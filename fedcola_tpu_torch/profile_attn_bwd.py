@@ -7,11 +7,14 @@ Traces ten calls each of ``attn_bwd`` (from the plain forward's saves) and
 shape (n=2 clients, B=96, D=384, 6 heads, bfloat16) for N=197 and N=40,
 and prints the device time per call of every kernel they launch: the
 Hopper GEMM instantiations, the per-head kernel, LayerNorm and the column
-sums.  Inputs are seeded; needs a CUDA device.
+sums, and a SHA-1 digest of each entry point's outputs (seeded inputs, no
+atomics: two builds that compute the same function the same way print the
+same digests).  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import hashlib
 import sys
 
 import numpy as np
@@ -35,6 +38,15 @@ def _inputs(n, B, N, D, dev):
         f(n, B, N, D).to(bf)
 
 
+def digest(tensors) -> str:
+    """SHA-1 over the bytes of every tensor, in order."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
 def main() -> int:
     from fedcola_tpu_torch.ops import fused_attention as fa
     if not torch.cuda.is_available():
@@ -49,8 +61,9 @@ def main() -> int:
             "attn_bwd_recompute": lambda: fa.attn_bwd_recompute(x, *w, da, H)}
         for name, fn in entries.items():
             for _ in range(3):
-                fn()
+                outs = fn()
             torch.cuda.synchronize()
+            print(f"[attn_bwd] {name} N={N}: outputs sha1 {digest(outs)}")
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(CALLS):

@@ -17,7 +17,13 @@ N = 256, 197, 40, 13 and 5 and head_dim 64, 32 and 16, for pair isolation
 and bitwise repeats; the kernels a call launches are read from a profile,
 which is how the tests know that head_dim 48 and float32 stay on the
 CUDA-core kernels; the new forward core is also run in the fused
-sublayer's packed layout with P written.
+sublayer's packed layout with P written.  The bf16 forwards of the fused
+route (``csrc/mlp_fwd.cu``, ``csrc/attn_fwd.cu``: the Hopper GEMM with the
+GELU and residual epilogues, and that forward core) are held to their plain
+versions at n = 1 and 3 clients, D = 64 to 1024, head_dim 64, 32 and 16 and
+N = 256, 197, 40 and 1, with bitwise repeats; the two epilogues alone to a
+float32 reference at ragged M and N across a client boundary; and D = 100
+and head_dim 48 to the plain versions on the ``gemm_kernel`` path.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -518,3 +524,179 @@ def test_forward_core_packed_layout_with_saved_P(dev, N, Dm, heads):
     assert err == 0
     torch.cuda.synchronize()
     assert torch.equal(cat, cat2)
+
+
+# ------------------------------- the fused route's forwards on Hopper ----
+
+@pytest.mark.parametrize("M,N,K,seq", [(200, 136, 72, 40), (72, 264, 40, 9),
+                                       (1000, 24, 600, 125), (197, 384, 384,
+                                                              197)])
+@pytest.mark.parametrize("epi", ["gelu", "bias", "residual"])
+def test_sm90_forward_epilogues_match_f32_reference(dev, epi, M, N, K, seq):
+    """``fc_sm90_epilogue_test``: T(gelu(a.w + b)), T(a.w + b) and T(x +
+    s[row / seq] * (a.w + b)) per client at M and N off the 128 tiles.  The
+    output is poisoned first, and client 1 is 50x client 0, so a tile that
+    ran past client 0's last row into client 1 (reading or writing) shows;
+    the only differences from the f32 reference are the summation order
+    and one bf16 rounding (2^-8 relative)."""
+    r = np.random.RandomState(M + N + K)
+    f = lambda *sh: torch.from_numpy(r.randn(*sh).astype(np.float32)).to(dev)
+    a, w = f(NC, M, K).bfloat16(), (f(NC, K, N) * K ** -0.5).bfloat16()
+    bias, x = f(NC, N).bfloat16(), f(NC, M, N).bfloat16()
+    a[1] *= 50
+    sc = torch.from_numpy(r.choice([0.0, 0.5, 1.0 / 0.9], size=(NC * M // seq,))
+                          .astype(np.float32)).to(dev)
+    out = torch.full((NC, M, N), float("nan"), device=dev,
+                     dtype=torch.bfloat16)
+    acc = torch.matmul(a.float(), w.float()) + bias.float()[:, None]
+    if epi == "gelu":
+        ref = fm.gelu_exact(acc)
+    elif epi == "bias":
+        ref = acc
+    else:
+        ref = x.float() + sc.repeat_interleave(seq).reshape(NC, M, 1) * acc
+    err = kernels.library().fc_sm90_epilogue_test(
+        0 if epi == "gelu" else 1, NC, M, N, K, seq, a.data_ptr(),
+        w.data_ptr(), bias.data_ptr(), x.data_ptr(),
+        sc.data_ptr() if epi == "residual" else None, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    for c in range(NC):
+        d = (out[c].float() - ref[c]).abs()
+        assert (d <= 2.0 ** -7 * ref[c].abs() + 1e-3 * ref[c].abs().max()) \
+            .all(), (c, d.max().item())
+
+
+def _fwd_case(n, Bm, N, Dm, dev, seed):
+    """bf16 inputs of the attention and the MLP sublayer forward, n clients
+    of Bm items."""
+    r = np.random.RandomState(seed)
+    f = lambda *sh, sc=1.0: torch.from_numpy(
+        (r.randn(*sh) * sc).astype(np.float32)).to(dev)
+    Fm = 4 * Dm
+    t = {"x": f(n, Bm, N, Dm).bfloat16(),
+         "s": torch.from_numpy(r.choice([0.0, 1.0 / 0.9], size=(n, Bm))
+                               .astype(np.float32)).to(dev),
+         "ln": [f(n, Dm, sc=0.2) + 1.0, f(n, Dm, sc=0.1)]}
+    t["attn"] = [f(n, Dm, 3 * Dm, sc=Dm ** -0.5).bfloat16(),
+                 f(n, 3 * Dm, sc=0.1).bfloat16(),
+                 f(n, Dm, Dm, sc=Dm ** -0.5).bfloat16(),
+                 f(n, Dm, sc=0.1).bfloat16()]
+    t["mlp"] = [f(n, Dm, Fm, sc=Dm ** -0.5).bfloat16(),
+                f(n, Fm, sc=0.1).bfloat16(),
+                f(n, Fm, Dm, sc=Fm ** -0.5).bfloat16(),
+                f(n, Dm, sc=0.1).bfloat16()]
+    return t
+
+
+def _forwards(t, Hm):
+    """Outputs of every forward variant of both sublayers on one case, as
+    (kernel outputs, plain outputs) by name."""
+    x, s, ln = t["x"], t["s"], t["ln"]
+    xr = x.reshape(x.shape[0], -1, x.shape[-1])
+    both = lambda fn, plain, *a: (fn(*a), plain(*a))
+    one = lambda pair: ([pair[0]], [pair[1]])
+    return {
+        "attn_fwd": both(fa.attn_fwd, fa.attn_fwd_plain, x, s, *ln,
+                         *t["attn"], Hm, True),
+        "attn_fwd_eval": both(fa.attn_fwd, fa.attn_fwd_plain, x, None, *ln,
+                              *t["attn"], Hm, False),
+        "attn_fwd_save_nores": both(fa.attn_fwd, fa.attn_fwd_plain, x, None,
+                                    *ln, *t["attn"], Hm, True),
+        "mlp_fwd": one(both(fm.mlp_fwd, fm.mlp_fwd_plain, x, s, *ln,
+                            *t["mlp"])),
+        "mlp_fwd_eval": one(both(fm.mlp_fwd, fm.mlp_fwd_plain, x, None, *ln,
+                                 *t["mlp"])),
+        "mlp_fwd_rows": one(both(fm.mlp_fwd_rows, fm.mlp_fwd_rows_plain, xr,
+                                 *t["mlp"])),
+        "mlp_ln_fwd_rows": one(both(fm.mlp_ln_fwd_rows,
+                                    fm.mlp_ln_fwd_rows_plain, xr, *ln,
+                                    *t["mlp"])),
+    }
+
+
+@pytest.mark.parametrize("Dm,Hm", [(128, 2), (384, 12), (768, 12),
+                                   (1024, 64), (64, 4)])
+@pytest.mark.parametrize("n,N", [(1, 256), (3, 197), (3, 40), (1, 1), (3, 1)])
+def test_bf16_forwards_hopper_path_match_plain(dev, n, N, Dm, Hm):
+    """head_dim 64, 32, 64, 16, 16 at D = 128 to 1024 (and 64: one ragged
+    column tile), n = 1 and 3 clients of 3 items, so a client's rows (768,
+    591, 120, 1, 3) are never a multiple of 128 but once: out, P and cat of
+    the attention forward (saving with and without the residual, and the
+    eval variant), the four MLP forwards; a second call gives the first
+    call's bits."""
+    dt = torch.bfloat16
+    assert fa.uses_sm90(dt, Dm, Hm, N) and fm.uses_sm90(dt, Dm, 4 * Dm)
+    t = _fwd_case(n, B, N, Dm, dev, seed=n + N + Dm)
+    first, second = _forwards(t, Hm), _forwards(t, Hm)
+    for name, (got, ref) in first.items():
+        _agree(got, ref, dt)
+        for a, b in zip(got, second[name][0]):
+            assert (a is None and b is None) or torch.equal(a, b), name
+    assert first["attn_fwd_eval"][0][1] is None
+    # the eval variant is the saving one without P: the same out and cat
+    assert torch.equal(first["attn_fwd_eval"][0][0],
+                       first["attn_fwd_save_nores"][0][0])
+    assert torch.equal(first["attn_fwd_eval"][0][2],
+                       first["attn_fwd_save_nores"][0][2])
+
+
+def test_bf16_forwards_keep_items_and_clients_apart(dev):
+    """One item changed and 50x its neighbours, then client 1 likewise
+    with other weights: the other
+    items' and client 0's outputs keep their bits (no row, key or scale of
+    a neighbour reaches them through a ragged tile)."""
+    t = _fwd_case(2, B, 197, D, dev, seed=11)
+    base = _forwards(t, H)
+    # rolled along the features, so that LN does not undo the change
+    t["x"][0, 2] = t["x"][0, 2].roll(1, -1) * 50
+    item = _forwards(t, H)
+    t["x"][1] = t["x"][1].roll(1, -1) * 50
+    for k in ("attn", "mlp"):
+        for w in t[k]:
+            w[1] *= 3
+    client = _forwards(t, H)
+    for name in base:
+        a, b, c = base[name][0][0], item[name][0][0], client[name][0][0]
+        a, b, c = (u.reshape(2, B, 197, D) for u in (a, b, c))
+        assert torch.equal(a[0, :2], b[0, :2]), name
+        assert not torch.equal(a[0, 2], b[0, 2]), name
+        assert torch.equal(b[0], c[0]), name
+        assert not torch.equal(b[1], c[1]), name
+
+
+def test_forward_path_choice_by_dtype_and_shape(dev):
+    """The choice is made in C; the kernel names of a profiled call show
+    which path ran.  bf16 on the grid launches no ``gemm_kernel`` and no
+    ``attn_core_fwd_kernel``; float32, D = 100 (MLP) and head_dim 48
+    (attention) launch no ``sm90_gemm_kernel`` and agree with their plain
+    versions on the old path."""
+    cases = []
+    for dtype, Dm, Hm in ((torch.bfloat16, D, H), (torch.float32, D, H),
+                          (torch.bfloat16, 96, 2), (torch.bfloat16, 100, 0)):
+        t = _fwd_case(2, B, 37, Dm, dev, seed=Dm)
+        for k in ("x", "attn", "mlp"):
+            t[k] = t[k].to(dtype) if k == "x" else [w.to(dtype) for w in t[k]]
+        mlp_new = fm.uses_sm90(dtype, Dm, 4 * Dm)
+        attn_new = bool(Hm) and fa.uses_sm90(dtype, Dm, Hm, 37)
+        cases.append((dtype, Dm, mlp_new, attn_new))
+        m_args = (t["x"], t["s"], *t["ln"], *t["mlp"])
+        _agree([fm.mlp_fwd(*m_args)], [fm.mlp_fwd_plain(*m_args)], dtype)
+        mlp = _kernels_of(lambda: fm.mlp_fwd(*m_args))
+        if "kernel" not in mlp:
+            pytest.skip("the profiler recorded no kernel on this machine")
+        assert ("sm90_gemm_kernel" in mlp) is mlp_new, (dtype, Dm)
+        assert ("gemm_kernel<" in mlp.replace("sm90_gemm_kernel<", "")) \
+            is not mlp_new, (dtype, Dm)
+        if not Hm:      # D = 100: the MLP alone
+            continue
+        a_args = (t["x"], t["s"], *t["ln"], *t["attn"], Hm)
+        _agree(fa.attn_fwd(*a_args), fa.attn_fwd_plain(*a_args), dtype)
+        attn = _kernels_of(lambda: fa.attn_fwd(*a_args))
+        assert ("sm90_gemm_kernel" in attn) is attn_new, (dtype, Dm)
+        assert ("attn_fwd_head_kernel" in attn) is attn_new, (dtype, Dm)
+        assert ("attn_core_fwd_kernel" in attn) is not attn_new, (dtype, Dm)
+    assert [c[2:] for c in cases] == [(True, True), (False, False),
+                                      (True, False), (False, False)]

@@ -34,7 +34,9 @@ result line):
             the plain version and a library call (torch.matmul +
             F.scaled_dot_product_attention / F.layer_norm / F.gelu, one
             call sequence per client, so host launches count in it; SDPA
-            alone for flash attention).
+            alone for flash attention).  Kernels 1-4 also at CreamFL's
+            distillation shape (n=1, B=128 public rows, a dout on every
+            token).
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -50,6 +52,13 @@ result line):
             and on the CPU (plain versions), at full width and depth with
             --B 4 and --dropout 0 (see ``loss_bound``); a round's training
             loss may differ by at most 1e-3 relative.
+   baselines the coco.sh baselines at mome_small width through the entry
+            point, two rounds each: FedIoT, FedProx, CreamFL (public set of
+            500 synthetic pairs, batches of 128) and the FedAdam line of
+            scripts/evidence_fedopt.sh; each launches the four fused
+            training kernels; ``loss_bound`` for the FedProx and the
+            CreamFL line (the latter with --num_pub_samples 20
+            --pub_batch_size 20 on both devices).
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
@@ -63,8 +72,9 @@ result line):
 Phases 5 to 8 each zero the launch counters just before and read them
 just after; a kernel's launches are those of the path that runs it.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
-N=197 training-shape times, and under "eval" the eval-shape times of the
-kernels central eval runs); the last line is ``{"ok": true, "device":
+N=197 training-shape times, under "eval" the eval-shape times of the
+kernels central eval runs and under "distill" those of kernels 1-4 at
+the distillation shape); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -311,13 +321,14 @@ def lib_mlp(x, s, lns, lnb, w1, b1, w2, b2):
     return torch.stack(outs)
 
 
-def check_attention(N, dtype, dev, timing):
-    """Kernels 1 and 2 at the training shape (n=2, B=96): kernel 1 with
-    the training flags (save, residual) and the eval flags (neither),
-    kernel 2 from the plain version's saves."""
+def check_attention(N, dtype, dev, timing, n=2, B=96):
+    """Kernels 1 and 2 at a training shape (the group update's n=2, B=96;
+    the distillation's n=1, B=128): kernel 1 with the training flags
+    (save, residual) and the eval flags (neither), kernel 2 from the plain
+    version's saves with a random dout on every token."""
     import torch
     from fedcola_tpu_torch.ops import fused_attention as fa
-    n, B, D, H = 2, 96, 384, 6
+    D, H = 384, 6
     t = _attn_inputs(n, B, N, dtype, dev)
     w = [t[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj", "bproj")]
     res = {}
@@ -365,12 +376,12 @@ def check_attention(N, dtype, dev, timing):
     return res
 
 
-def check_mlp(N, dtype, dev, timing):
-    """Kernels 3 and 4 at the training shape (n=2, B=96): kernel 3 with
-    and without the residual join."""
+def check_mlp(N, dtype, dev, timing, n=2, B=96):
+    """Kernels 3 and 4 at a training shape (as ``check_attention``):
+    kernel 3 with and without the residual join."""
     import torch
     from fedcola_tpu_torch.ops import fused_mlp as fm
-    n, B, D = 2, 96, 384
+    D = 384
     Fh = 4 * D
     t = _mlp_inputs(n, B, N, dtype, dev)
     w = [t[k] for k in ("lns", "lnb", "w1", "b1", "w2", "b2")]
@@ -651,18 +662,24 @@ def phase_kernels():
     """Every kernel against its plain version at every shape its path
     gives it.  Returns, per kernel, the bf16 N=197 training-shape
     measurements (the image stack, the main path's largest shape), the
-    bf16 N=197 eval-shape ones under "eval", and the worst absolute error
-    of all its comparisons."""
+    bf16 N=197 eval-shape ones under "eval", the distillation-shape ones
+    under "distill", and the worst absolute error of all its
+    comparisons."""
+    import functools
     import torch
     dev = torch.device("cuda")
+    distill = dict(n=1, B=128)
     measured, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         timing = dtype == torch.bfloat16
         for N in (197, 40):
-            for shape, check in (("train", check_attention),
-                                 ("train", check_mlp), ("train", check_remat),
-                                 ("train", check_flash), ("rows", check_rows),
-                                 ("eval", check_eval)):
+            for shape, check in (
+                    ("train", check_attention), ("train", check_mlp),
+                    ("train", check_remat), ("train", check_flash),
+                    ("rows", check_rows), ("eval", check_eval),
+                    ("distill", functools.partial(check_attention,
+                                                  **distill)),
+                    ("distill", functools.partial(check_mlp, **distill))):
                 res = check(N, dtype, dev, timing)
                 for name, r in res.items():
                     worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
@@ -680,16 +697,17 @@ def phase_kernels():
                                  f"{r['ms'] / r['library_ms']:.1f}"
                                  f" TFLOP/s="
                                  f"{r['flops'] / r['ms'] / 1e9:.1f}")
-                        if N == 197 and shape != "eval":
-                            measured[name] = r
+                        if N == 197 and shape in ("eval", "distill"):
+                            measured[f"{name}:{shape}"] = r
                         elif N == 197:
-                            measured[name + ":eval"] = r
+                            measured[name] = r
                     log(line)
                 torch.cuda.empty_cache()
     for name in worst:
         measured[name]["max_abs_err"] = worst[name]
-        if name + ":eval" in measured:
-            measured[name]["eval"] = measured.pop(name + ":eval")
+        for shape in ("eval", "distill"):
+            if f"{name}:{shape}" in measured:
+                measured[name][shape] = measured.pop(f"{name}:{shape}")
     return measured
 
 
@@ -806,9 +824,11 @@ def _run_line(tag, flags, out):
               for k, v in res.items() if k.startswith("server_evaluated_")
               and "metrics" not in v}
         r1 = {k: v[f"{k} r@1sum"] for k, v in r1.items()}
+        sections = {k: round(v, 3) for k, v in res["round_sections"].items()}
         log(f"[{tag}] round {r}: loss {loss:.4f} acc1 {acc} r@1sum {r1} "
-            f"round_seconds {res['round_seconds']:.2f} "
-            f"eval_seconds {res.get('eval_seconds', float('nan')):.2f}")
+            f"round_seconds {res['round_seconds']:.3f} "
+            f"eval_seconds {res.get('eval_seconds', float('nan')):.3f} "
+            f"round_sections {sections}")
     log(f"[{tag}] wall {wall:.1f}s, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches { {k: v for k, v in launches.items() if v} }")
@@ -839,6 +859,34 @@ def phase_tiny():
     if fused:
         raise AssertionError(f"mome_tiny launched fused kernels: {fused}")
     return launches
+
+
+def phase_baselines():
+    """The coco.sh baselines beside FedCola (FedIoT, FedProx, CreamFL) and
+    the FedAdam line, each through the four fused training kernels; the
+    loss bound of the FedProx and the CreamFL line.  Returns the launch
+    counts of the four runs together."""
+    from fedcola_tpu_torch import main as port_main
+    loss_bound("fedprox", port_main.FEDPROX_FLAGS)
+    # 20 public pairs on both devices (the CPU side over 500 pairs at
+    # depth 12 would take minutes), in one batch: each public and
+    # distillation step is one more AdamW step whose rounding the round-2
+    # loss carries, and five a pass (batches of 4) took it past the bound
+    loss_bound("creamfl", port_main.CREAMFL_FLAGS + (
+        "--num_pub_samples", "20", "--pub_batch_size", "20"))
+    total = {}
+    for tag, flags in (("fediot", port_main.FEDIOT_FLAGS),
+                       ("fedprox", port_main.FEDPROX_FLAGS),
+                       ("creamfl", port_main.CREAMFL_FLAGS),
+                       ("fedadam", port_main.FEDADAM_FLAGS)):
+        launches = run_line(tag, flags)
+        missing = [k for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+                   if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"{tag} never launched {missing}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 # ---------------------------------------------------------- loss bound ----
@@ -1084,7 +1132,8 @@ def main() -> int:
     measured = phase_kernels()
     phase_model()
     paths = {"main": phase_main(), "tiny": phase_tiny(),
-             "remat": phase_remat(), "rows": phase_rows()}
+             "baselines": phase_baselines(), "remat": phase_remat(),
+             "rows": phase_rows()}
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
@@ -1093,10 +1142,12 @@ def main() -> int:
                "replaces": replaces, "launches": paths[path][name],
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
-        if "eval" in m:
-            # the same entry point at the central evaluation's shape
-            row["eval"] = {k: m["eval"][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for shape in ("eval", "distill"):
+            if shape in m:
+                # the same entry point at central evaluation's or CreamFL
+                # distillation's shape
+                row[shape] = {k: m[shape][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         rows.append(row)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:

@@ -13,9 +13,13 @@ Per round (compare ``update()``, fedavgserver.py:784-856):
 5. FedCola aux exchange (fedavgserver.py:821-845);
 6. lr decay (``curr_lr *= lr_decay`` every ``lr_decay_step`` rounds).
 
-``fedavg`` and ``fedsgd`` are ported, with ``--fedavg_eval`` and ``.npz``
-checkpoints; per-client local evaluation, FedProx / FedIoT, the ``.pt``
-export and the mesh are later slices of the port.
+``fedavg``, ``fedsgd``, ``fedprox`` (the proximal term in the client loss)
+and ``fediot`` (a sharing rule on this machinery) run here, with
+``--fedavg_eval`` and ``.npz`` checkpoints; ``create_server`` also builds
+the FedOpt family (``federation/fedopt.py``) and CreamFL
+(``federation/creamfl.py``).  Per-client local evaluation
+(``--eval_type local|both``), the ``.pt`` export and the mesh are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import logging
 import os
 import time
 from collections import defaultdict
-from typing import Dict, List
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,8 +45,9 @@ from fedcola_tpu_torch.federation import aggregate as agg
 from fedcola_tpu_torch.federation.aux import (exchange_aux_weights,
                                               fold_aux_into_upload)
 from fedcola_tpu_torch.models import naming
-from fedcola_tpu_torch.models.mat import (check_kernel_support, stack_clients,
-                                          tree_leaves, tree_map)
+from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
+                                          stack_clients, tree_leaves,
+                                          tree_map)
 from fedcola_tpu_torch.models.registry import create_model
 from fedcola_tpu_torch.ops.losses import cross_entropy
 from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
@@ -49,8 +55,23 @@ from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
                                                       eval_forward, run_chunk)
 from fedcola_tpu_torch.parallel.optim import init_opt_state, make_optimizer_spec
 from fedcola_tpu_torch.utils.metrics import MetricManager
+from fedcola_tpu_torch.utils.profiling import Timer
 
 logger = logging.getLogger(__name__)
+
+
+@dataclass
+class GroupRun:
+    """One client group's local-update state within a round."""
+    ds: str
+    ids: List[int]
+    mcfg: MATConfig
+    spec: GroupSpec
+    stacked: dict
+    opt_state: dict
+    frozen: Optional[dict]
+    feeder: GroupFeeder
+    acc: Dict[str, torch.Tensor]
 
 
 def resolve_device(cfg: ExperimentConfig) -> torch.device:
@@ -141,6 +162,7 @@ class FedAvgServer:
         cc = self.cfg.crop if "img" in modality else None
         return GroupSpec(modality=modality, criterion=criterion,
                          resize_to=resize_to, imnorm=self.cfg.imnorm,
+                         mu=self.cfg.mu, algorithm=self.cfg.algorithm,
                          aug_resize=self.cfg.resize if cc else None,
                          center_crop=cc)
 
@@ -173,13 +195,19 @@ class FedAvgServer:
     def _train_group(self, ds: str, ids: List[int]):
         """One group's batched local update; returns the stacked upload
         tree (aux folded in) and per-client average training metrics."""
+        g = self._open_group(ds, ids)
+        self._train_chunks(g, g.feeder.round_chunks(self.cfg.E))
+        return self._close_group(g)
+
+    def _open_group(self, ds: str, ids: List[int]) -> GroupRun:
+        """The round-start state of one group: the global model stacked for
+        its ``n`` clients, fresh optimizer state, the freeze mask, the
+        feeder and the on-device metric sums."""
         cfg, mcfg = self.cfg, self.model_cfgs[ds]
         spec = self._group_spec(ds)
         n = len(ids)
         stacked = tree_map(lambda a: a.requires_grad_(True),
                            stack_clients(self.global_params[ds], n))
-        opt_state = init_opt_state(self.opt_spec, stacked, n)
-        frozen = build_frozen_mask(mcfg, stacked, self._frozen_token(ds))
         feeder = GroupFeeder([self.data.client_shards[i] for i in ids],
                              cfg.B, spec.modality,
                              chunk_steps=cfg.train_chunk_steps,
@@ -187,20 +215,32 @@ class FedAvgServer:
                              rng=self.shuffle_rng,
                              debug_two_batches=cfg.debug,
                              aug=self._augment_spec(spec))
-        acc = {k: torch.zeros(n, dtype=torch.float64, device=self.device)
-               for k in ("l", "c", "n")}
-        for chunk in Prefetcher(feeder.round_chunks(cfg.E)):
-            ls, cs, ns = run_chunk(mcfg, spec, self.opt_spec, stacked,
-                                   opt_state, chunk, self.curr_lr, self.gen,
-                                   frozen)
+        return GroupRun(
+            ds=ds, ids=ids, mcfg=mcfg, spec=spec, stacked=stacked,
+            opt_state=init_opt_state(self.opt_spec, stacked, n),
+            frozen=build_frozen_mask(mcfg, stacked, self._frozen_token(ds)),
+            feeder=feeder,
+            acc={k: torch.zeros(n, dtype=torch.float64, device=self.device)
+                 for k in ("l", "c", "n")})
+
+    def _train_chunks(self, g: GroupRun, chunks) -> None:
+        """Local steps over host chunks; the metric sums stay on the
+        device until the group closes."""
+        for chunk in Prefetcher(chunks):
+            ls, cs, ns = run_chunk(g.mcfg, g.spec, self.opt_spec, g.stacked,
+                                   g.opt_state, chunk, self.curr_lr,
+                                   self.gen, g.frozen,
+                                   self.global_params[g.ds])
             nsf = ns.double()
-            acc["l"] += (ls.double() * nsf).sum(1)
-            acc["c"] += cs.double().sum(1)
-            acc["n"] += nsf.sum(1)
+            g.acc["l"] += (ls.double() * nsf).sum(1)
+            g.acc["c"] += cs.double().sum(1)
+            g.acc["n"] += nsf.sum(1)
+
+    def _close_group(self, g: GroupRun):
         with torch.no_grad():
             upload = fold_aux_into_upload(
-                mcfg, tree_map(lambda a: a.detach(), stacked))
-        return upload, self._readback_group_metrics(acc, ds, ids)
+                g.mcfg, tree_map(lambda a: a.detach(), g.stacked))
+        return upload, self._readback_group_metrics(g.acc, g.ds, g.ids)
 
     def _readback_group_metrics(self, acc, ds: str, ids: List[int]):
         loss_sums, cor, cnt = (acc[k].cpu().numpy() for k in ("l", "c", "n"))
@@ -253,9 +293,12 @@ class FedAvgServer:
 
     # --------------------------------------------------------------- round ---
 
-    def update(self) -> List[int]:
+    def _sample_and_train(self, timer: Timer):
+        """Sample the round's clients and run every group's local update
+        (the ``train`` section).  Returns ``(sampled, groups,
+        updated_sizes, uploads)``; ``sampled`` is empty when the warmup
+        filter leaves no client."""
         cfg = self.cfg
-        t0 = time.time()
         sampled = sample_clients(
             self.sampler, self.client_dataset_of, self.client_modality_of,
             cfg.client_datasets, self.Cs, cfg.C, cfg.equal_sampled,
@@ -263,18 +306,27 @@ class FedAvgServer:
         if not sampled:
             logger.warning("round %d: no clients sampled (warmup filter)",
                            self.round)
-            return []
+            return [], {}, {}, {}
         groups: Dict[str, List[int]] = defaultdict(list)
         for i in sampled:
             groups[self.clients[i].dataset].append(i)
         updated_sizes = {i: self.clients[i].n_train for i in sampled}
-
         uploads, round_metrics = {}, {}
-        for ds, ids in groups.items():
-            uploads[ds], m = self._train_group(ds, ids)
-            round_metrics.update(m)
+        with timer.section("train"):
+            for ds, ids in groups.items():
+                uploads[ds], m = self._train_group(ds, ids)
+                round_metrics.update(m)
         self._record_update_summary(sampled, round_metrics, updated_sizes)
-        t_train = time.time() - t0
+        return sampled, groups, updated_sizes, uploads
+
+    def update(self) -> List[int]:
+        cfg = self.cfg
+        t0 = time.time()
+        timer = Timer()
+        sampled, groups, updated_sizes, uploads = \
+            self._sample_and_train(timer)
+        if not sampled:
+            return []
 
         client_cfgs = {ds: self.model_cfgs[ds] for ds in groups}
 
@@ -297,39 +349,41 @@ class FedAvgServer:
                     jobs, weights, self.global_params[ds], uploads)
             return new
 
-        t_fedavg_eval = 0.0
         if cfg.fedavg_eval:
             # evaluate a plain-fedavg aggregate, then restore
             # (fedavgserver.py:794-806)
-            t1 = time.time()
             old = self.global_params
-            self.global_params = aggregate_all(fedavg=True)
-            self._central_evaluate(fedavg=True)
+            with timer.section("fedavg_eval"):
+                self.global_params = aggregate_all(fedavg=True)
+                self._central_evaluate(fedavg=True)
             self.global_params = old
-            t_fedavg_eval = time.time() - t1
 
-        self.global_params = aggregate_all(fedavg=False)
-        if cfg.with_aux:
-            self.global_params = exchange_aux_weights(
-                self.global_params, self.model_cfgs,
-                {ds: DATASET_2_MODALITY[ds] for ds in self.global_params})
-        self._assert_global_finite()
+        with timer.section("aggregate"):
+            self.global_params = aggregate_all(fedavg=False)
+            if cfg.with_aux:
+                self.global_params = exchange_aux_weights(
+                    self.global_params, self.model_cfgs,
+                    {ds: DATASET_2_MODALITY[ds] for ds in self.global_params})
+            # reads every leaf back: the section holds its device work
+            self._assert_global_finite()
 
         if self.round % cfg.lr_decay_step == 0:
             self.curr_lr *= cfg.lr_decay
+        self._record_round_time(t0, timer, len(sampled), len(groups))
+        return sampled
+
+    def _record_round_time(self, t0: float, timer: Timer, n_sampled: int,
+                           n_groups: int) -> None:
+        """``round_seconds`` (host clock after a synchronize) and the
+        round's sections."""
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         dt = time.time() - t0
         self.results[self.round]["round_seconds"] = dt
-        sections = {"train": t_train,
-                    "aggregate": dt - t_train - t_fedavg_eval}
-        if cfg.fedavg_eval:
-            sections["fedavg_eval"] = t_fedavg_eval
-        self.results[self.round]["round_sections"] = sections
-        logger.info("[%s] [Round %04d] %d clients in %d groups, %.2fs",
-                    cfg.algorithm.upper(), self.round, len(sampled),
-                    len(groups), dt)
-        return sampled
+        self.results[self.round]["round_sections"] = dict(timer.sections)
+        logger.info("[%s] [Round %04d] %d clients in %d groups, %.2fs (%s)",
+                    self.cfg.algorithm.upper(), self.round, n_sampled,
+                    n_groups, dt, timer.summary())
 
     # ---------------------------------------------------------------- eval ---
 
@@ -489,9 +543,23 @@ class FedAvgServer:
                     cfg.algorithm.upper(), self.round)
 
 
+class FedProxServer(FedAvgServer):
+    """The proximal term lives in the client loss (``GroupSpec.mu``;
+    reference fedproxserver.py:10-12)."""
+
+
+class FedIoTServer(FedAvgServer):
+    """A sharing rule on the fedavg machinery: ``--shared_param blocks
+    --share_scope modality_exact`` (reference README.md:70; its fediot
+    modules are missing), which ``config.check_args`` applies when neither
+    flag is given."""
+
+
 # fedsgd is fedavg with one local epoch (config.check_args sets E = 1)
 SERVER_REGISTRY = {
     "fedavg": FedAvgServer,
+    "fedprox": FedProxServer,
+    "fediot": FedIoTServer,
     "fedsgd": FedAvgServer,
 }
 
@@ -499,6 +567,10 @@ SERVER_REGISTRY = {
 def create_server(cfg: ExperimentConfig, data: FederatedData, writer=None):
     if cfg.algorithm in SERVER_REGISTRY:
         return SERVER_REGISTRY[cfg.algorithm](cfg, data, writer)
-    raise NotImplementedError(
-        f"--algorithm {cfg.algorithm}: only fedavg and fedsgd are ported; "
-        "FedProx, FedIoT, FedOpt and CreamFL are later slices of the port")
+    if cfg.algorithm == "creamfl":
+        from fedcola_tpu_torch.federation.creamfl import CreamflServer
+        return CreamflServer(cfg, data, writer)
+    if cfg.algorithm in ("fedavgm", "fedadam", "fedyogi", "fedadagrad"):
+        from fedcola_tpu_torch.federation.fedopt import FedOptServer
+        return FedOptServer(cfg, data, writer)
+    raise ValueError(f"unknown algorithm {cfg.algorithm!r}")

@@ -47,6 +47,38 @@ MOME_TINY_FLAGS = tuple(
     "mome_tiny_patch16" if prev == "--model_name" else flag
     for prev, flag in zip(("",) + MAIN_PATH_FLAGS, MAIN_PATH_FLAGS))
 
+_FEDCOLA_SHARING = ("--shared_param", "attn", "--share_scope", "modality",
+                    "--colearn_param", "none", "--compensation",
+                    "--with_aux", "--aux_trained")
+
+
+def _baseline(exp_name: str, algorithm: str, sharing, *extra) -> tuple:
+    """``MAIN_PATH_FLAGS`` (width, depth, data, cuts) with another line's
+    name, algorithm, sharing flags and extra flags."""
+    flags = list(MAIN_PATH_FLAGS)
+    at = flags.index(_FEDCOLA_SHARING[0])
+    flags[at:at + len(_FEDCOLA_SHARING)] = sharing
+    flags[flags.index("--exp_name") + 1] = exp_name
+    flags[flags.index("--algorithm") + 1] = algorithm
+    return tuple(flags) + extra
+
+
+# The baselines scripts/coco.sh runs beside FedCola (:30, :32, :34) and
+# the FedAdam line of scripts/evidence_fedopt.sh:51, cut as MAIN_PATH_FLAGS
+# is; CreamFL's public set is synthetic (seed 999) like the client data.
+_NO_SHARING = ("--shared_param", "none", "--share_scope", "dataset",
+               "--colearn_param", "none")
+FEDIOT_FLAGS = _baseline(
+    "FedIoT", "fediot", ("--shared_param", "blocks", "--share_scope",
+                         "modality_exact", "--colearn_param", "none"))
+FEDPROX_FLAGS = _baseline("FedProx", "fedprox", _NO_SHARING, "--mu", "0.001")
+CREAMFL_FLAGS = _baseline(
+    "CreamFL", "creamfl", _NO_SHARING, "--interintra_weight", "1",
+    "--kd_weight", "1e-7", "--num_pub_samples", "500",
+    "--no_mm_contrastive", "--pub_batch_size", "128")
+FEDADAM_FLAGS = _baseline("FedAdam_coco", "fedadam", _FEDCOLA_SHARING,
+                          "--server_lr", "0.1")
+
 
 class JsonlWriter:
     """Per-round metrics as JSON lines under ``--result_path``."""

@@ -463,13 +463,19 @@ def _embed_text(cfg: MATConfig, emb: Params, ids: torch.Tensor, train: bool,
 def mat_apply_stacked(cfg: MATConfig, params: Params,
                       inputs: Sequence[Optional[torch.Tensor]],
                       feat_out: bool = False, train: bool = False,
-                      gen: Optional[torch.Generator] = None):
+                      gen: Optional[torch.Generator] = None,
+                      seq_feat_out: bool = False):
     """Forward of a client-stacked tree (reference mome.py:881-922).
 
     ``inputs`` is slot-aligned: image slots take ``[n, B, H, W, C]`` floats,
     text slots ``[n, B, L]`` token ids, absent slots None.  Returns a
     slot-aligned list: cls logits ``[n, B, C]``, L2-normalised CLS features
-    ``[n, B, D]`` (rtv head or ``feat_out``), or None."""
+    ``[n, B, D]`` (rtv head or ``feat_out``), or None.
+
+    ``seq_feat_out`` returns the rtv head's literal output instead: the
+    whole sequence after the final LayerNorm, every token L2-normalised,
+    ``[n, B, N, D]`` float32 (mome.py:651-659).  Its one consumer is
+    CreamFL's distillation, which sums it over tokens."""
     if train and gen is None:
         raise ValueError("training forward needs a torch.Generator")
     outs: List[Optional[torch.Tensor]] = [None] * len(cfg.modalities)
@@ -484,6 +490,11 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
         h = _run_stack(cfg, _effective_kernels(cfg, params, s), h, train, gen)
         h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"],
                         1e-6)
+        if seq_feat_out:
+            hf = h.float()
+            outs[i] = hf / torch.clamp(hf.norm(dim=-1, keepdim=True),
+                                       min=1e-12)
+            continue
         cls_tok = h[:, :, 0].float()
         if feat_out or cfg.tasks[i] == "rtv":
             norm = cls_tok.norm(dim=-1, keepdim=True)
@@ -500,10 +511,12 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
 def mat_apply(cfg: MATConfig, params: Params,
               inputs: Sequence[Optional[torch.Tensor]],
               feat_out: bool = False, train: bool = False,
-              gen: Optional[torch.Generator] = None):
+              gen: Optional[torch.Generator] = None,
+              seq_feat_out: bool = False):
     """Single-model forward: ``params`` without a client axis, inputs
     ``[B, ...]`` (the JAX ``mat_apply`` signature)."""
     stacked = tree_map(lambda a: a.unsqueeze(0), params)
     ins = [None if a is None else a.unsqueeze(0) for a in inputs]
-    outs = mat_apply_stacked(cfg, stacked, ins, feat_out, train, gen)
+    outs = mat_apply_stacked(cfg, stacked, ins, feat_out, train, gen,
+                             seq_feat_out)
     return [None if o is None else o[0] for o in outs]

@@ -28,11 +28,13 @@ from fedcola_tpu_torch.parallel.optim import OptimizerSpec, opt_update
 class GroupSpec:
     """Static description of one client group's local training program."""
     modality: str                  # img | txt | img+txt
-    criterion: str                 # CrossEntropyLoss | ContrastiveLoss
+    criterion: str                 # CrossEntropyLoss | ContrastiveLoss | ...
     img_slot: int = 0
     txt_slot: int = 1
     resize_to: Optional[int] = None      # on-device resize (e.g. 32->224)
     imnorm: bool = False                 # (x/255 - .5)/.5 (data.py:107-109)
+    mu: float = 0.0                      # fedprox proximal coefficient
+    algorithm: str = "fedavg"
     aug_resize: Optional[int] = None
     center_crop: Optional[int] = None    # eval-side CenterCrop after Resize
 
@@ -84,29 +86,58 @@ def _route_inputs(cfg: MATConfig, spec: GroupSpec, batch, dtype):
     return ins, None
 
 
-def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen):
+def _per_client(fn):
+    """Apply a loss defined on one client's ``[B, ...]`` batch to each
+    client of a stacked group: ``[n]`` losses."""
+    def stacked(logits, y, valid):
+        return torch.stack([fn(logits[c], y[c], valid[c])
+                            for c in range(logits.shape[0])])
+    return stacked
+
+
+def _cls_criterion(name: str):
+    """Criterion lookup by torch.nn name (reference fedavgclient.py:23, with
+    the monkey-patched losses of src/utils.py:286-315).  ``seq2seq_ce`` is
+    absent: it needs ``[B, L, V]`` logits, which no MAT head emits
+    (``config.check_args`` refuses Seq2SeqLoss)."""
+    return {
+        "CrossEntropyLoss": losses.cross_entropy,
+        "PainlessBCEWithLogitsLoss": losses.painless_bce,
+        "BCEWithLogitsLoss": losses.painless_bce,
+        "SegLoss": _per_client(losses.seg_loss),
+    }[name]
+
+
+def _mm_criterion(name: str):
+    """Multimodal criterion (TASK_2_CRITERION, fedavgserver.py:76-80)."""
+    return {
+        "ContrastiveLoss": losses.clip_contrastive,
+        "MCSoftContrastiveLoss": losses.mc_soft_contrastive,
+    }[name]
+
+
+def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen,
+                global_params=None):
     """Per-client losses ``[n]`` and (correct, n_valid) counts for one step
-    of a client-stacked group (reference fedavgclient.py:81-95)."""
+    of a client-stacked group (reference fedavgclient.py:81-95); FedProx
+    adds the proximal term against the round's global model
+    (fedproxclient.py:64-67)."""
     dtype = DTYPES[cfg.compute_dtype]
     valid = batch["valid"]
     ins, out_slot = _route_inputs(cfg, spec, batch, dtype)
     if out_slot is not None:
-        if spec.criterion != "CrossEntropyLoss":
-            raise NotImplementedError(
-                f"criterion {spec.criterion!r} is not ported yet")
         logits = mat_apply_stacked(cfg, params, ins, train=True,
                                    gen=gen)[out_slot]
-        loss = losses.cross_entropy(logits, batch["y"], valid)
+        loss = _cls_criterion(spec.criterion)(logits, batch["y"], valid)
         correct = ((logits.argmax(-1) == batch["y"]) & valid).sum(-1)
     else:
-        if spec.criterion != "ContrastiveLoss":
-            raise NotImplementedError(
-                f"criterion {spec.criterion!r} is not ported yet")
         feats = mat_apply_stacked(cfg, params, ins, feat_out=True,
                                   train=True, gen=gen)
-        loss = losses.clip_contrastive(feats[spec.img_slot],
-                                       feats[spec.txt_slot], valid)
+        loss = _mm_criterion(spec.criterion)(feats[spec.img_slot],
+                                             feats[spec.txt_slot], valid)
         correct = torch.zeros_like(loss, dtype=torch.int64)
+    if spec.algorithm == "fedprox" and spec.mu > 0:
+        loss = loss + losses.fedprox_term(params, global_params, spec.mu)
     return loss, (correct, valid.sum(-1))
 
 
@@ -138,14 +169,14 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
               opt_state, chunk: Dict[str, np.ndarray], lr: float, gen,
-              frozen=None):
+              frozen=None, global_params=None):
     """Run one host chunk (``[n, S, ...]`` arrays + ``step_valid [n, S]``)
     of local steps for a client-stacked group, updating ``params`` and
-    ``opt_state`` in place.  Returns per-step device tensors (loss,
+    ``opt_state`` in place.  ``global_params``: the round's global model,
+    which the FedProx term reads.  Returns per-step device tensors (loss,
     correct, n_valid), each ``[n, S]``; steps no client runs are skipped."""
     device = tree_leaves(params)[0].device
     sv_all = chunk["step_valid"]
-    leaves = tree_leaves(params)
     ls, cs, ns = [], [], []
     for s in range(sv_all.shape[1]):
         if not sv_all[:, s].any():
@@ -153,13 +184,9 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
         batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
                                  if k != "step_valid"}, device)
         sv = torch.from_numpy(sv_all[:, s].copy()).to(device)
-        loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen)
-        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-        grad_tree = _unflatten_like(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-        opt_update(opt, params, grad_tree, opt_state, lr, frozen=frozen,
-                   step_valid=sv)
+        loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen,
+                                               global_params)
+        descend(opt, params, opt_state, loss, lr, frozen, sv)
         ls.append(loss.detach())
         cs.append(correct)
         ns.append(n_valid)
@@ -167,6 +194,21 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
         z = torch.zeros((sv_all.shape[0], 0), device=device)
         return z, z, z
     return (torch.stack(ls, 1), torch.stack(cs, 1), torch.stack(ns, 1))
+
+
+def descend(opt: OptimizerSpec, params, opt_state, loss: torch.Tensor,
+            lr: float, frozen=None, step_valid=None) -> None:
+    """One optimizer step, in place, on the gradient of ``loss.sum()`` (the
+    clients' losses are independent).  A leaf the loss does not reach gets
+    a zero gradient, which still decays its moments: freeze it in
+    ``frozen`` to skip it as torch skips a parameter whose grad is None."""
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+    grad_tree = _unflatten_like(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
+    opt_update(opt, params, grad_tree, opt_state, lr, frozen=frozen,
+               step_valid=step_valid)
 
 
 def _unflatten_like(tree, flat):

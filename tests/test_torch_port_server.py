@@ -9,7 +9,8 @@ dropout 0, float32), as ``tests/test_torch_port_round.py`` runs its rounds:
 * checkpoints: a port checkpoint holds the names and shapes of the JAX
   server's; a run stopped after round 1 and resumed equals an unbroken
   two-round run exactly (losses and every leaf);
-* ``--algorithm fedsgd``: one round agrees (loss 1e-5 relative).
+* ``--algorithm fedsgd``: one round agrees (loss 1e-5 relative);
+* ``--eval_type local`` stays refused, under every algorithm.
 """
 
 import os
@@ -177,7 +178,10 @@ def test_fedsgd_round_matches_jax_server(tmp_path):
 
 @pytest.mark.parametrize("algorithm", ["fedprox", "fediot", "fedadam"])
 def test_unported_algorithms_are_refused_by_name(tmp_path, algorithm):
+    """Every algorithm of the JAX package runs in the port; per-client
+    local evaluation does not yet, and each server refuses it by its flag
+    rather than evaluating something else."""
     cfg = tconfig.parse_args(_flags(tmp_path, algorithm=algorithm)
-                             + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=algorithm):
+                             + ["--device", "cpu", "--eval_type", "local"])
+    with pytest.raises(NotImplementedError, match="--eval_type local"):
         tcreate(cfg, tload(cfg, np.random.RandomState(cfg.seed)))

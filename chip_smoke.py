@@ -44,7 +44,14 @@ result line):
             other (D=128).
 5. main     two rounds of the scripts/coco.sh FedCola line through
             ``fedcola_tpu_torch.main`` at full mome_small width (D=384,
-            depth 12, B=96), synthetic data, two clients per group.
+            depth 12, B=96), synthetic data, two clients per group; every
+            group must train on the resident data plane (its train set
+            staged on the card; so in every line below but [resident]),
+            the staged bytes and the peak device memory printed.
+   resident the same two rounds with FEDCOLA_RESIDENT_BUDGET=0 (every
+            batch copied from the host) in the same process: each round's
+            training loss and every eval result bitwise equal to [main]'s;
+            both runs' round_seconds and eval_seconds.
 6. tiny     the same line at mome_tiny width (D=192, 3 heads, depth 12):
             attention through the flash kernels, no fused kernel.
    bound    for the mome_small and the mome_tiny line each: the same two
@@ -58,7 +65,21 @@ result line):
             scripts/evidence_fedopt.sh; each launches the four fused
             training kernels; ``loss_bound`` for the FedProx and the
             CreamFL line (the latter with --num_pub_samples 20
-            --pub_batch_size 20 on both devices).
+            --pub_batch_size 20 on both devices); CreamFL's public set
+            must be staged.
+   retrieval COCO retrieval eval at mome_small on an in-memory test set of
+            1000 unique 224 px images with 5 captions each (a deduplicated
+            store): the unique-image split against the joint per-row
+            forward (FEDCOLA_EVAL_UNIQUE_IMAGES=0), features within 3e-2
+            of max|ref|, the 5k and 1k recalls within one image or caption
+            per direction; both extraction times.
+   local    one round of the FedCola line with --eval_type both
+            --test_size 0.2: clients_evaluated_out present and finite,
+            local eval's seconds.
+   augment  one round with --crop 224 --randhf 0.5: resident, finite
+            loss; the augmentation's apply on the card against the CPU
+            with the same draws (equal; within 1 uint8 level where a
+            resize runs).
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
@@ -69,8 +90,9 @@ result line):
             sublayer on the unflattened batch, and fused_mlp against its
             plain version, in bfloat16.
 
-Phases 5 to 8 each zero the launch counters just before and read them
-just after; a kernel's launches are those of the path that runs it.  The
+Phases 5 to 8 (and resident, local, augment) each zero the launch
+counters just before and read them just after; a kernel's launches are
+those of the path that runs it.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
 N=197 training-shape times, under "eval" the eval-shape times of the
 kernels central eval runs and under "distill" those of kernels 1-4 at
@@ -791,14 +813,16 @@ def phase_model():
 
 # ------------------------------------------------------ main and tiny ----
 
-def run_line(tag: str, flags) -> dict:
-    """Two rounds of a coco.sh line through the port's entry point; returns
-    the launch counts of that run."""
+def run_line(tag: str, flags, resident: bool = True):
+    """The rounds of a coco.sh line through the port's entry point; returns
+    the launch counts of that run and the server.  With ``resident``, every
+    group must have trained on the resident plane (its train set staged on
+    the card)."""
     with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
-        return _run_line(tag, flags, out)
+        return _run_line(tag, flags, out, resident)
 
 
-def _run_line(tag, flags, out):
+def _run_line(tag, flags, out, resident):
     import math
     import torch
     from fedcola_tpu_torch import main as port_main
@@ -812,7 +836,12 @@ def _run_line(tag, flags, out):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(kernels.LAUNCHES)
-    for r in (1, 2):
+    if resident:
+        host_fed = [ds for ds in server.cfg.client_datasets
+                    if server._resident_cache.get(ds) is None]
+        if host_fed:
+            raise AssertionError(f"[{tag}] groups not resident: {host_fed}")
+    for r in sorted(server.results):
         res = server.results[r]
         loss = res["clients_updated_summary"]["loss"]["avg"]
         if not math.isfinite(loss):
@@ -829,29 +858,31 @@ def _run_line(tag, flags, out):
             f"round_seconds {res['round_seconds']:.3f} "
             f"eval_seconds {res.get('eval_seconds', float('nan')):.3f} "
             f"round_sections {sections}")
-    log(f"[{tag}] wall {wall:.1f}s, peak device memory "
+    staged = {k: v is not None for k, v in server._resident_cache.items()}
+    log(f"[{tag}] wall {wall:.1f}s, staged {server._resident_bytes / 1e6:.1f}"
+        f" MB {staged}, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches { {k: v for k, v in launches.items() if v} }")
-    return launches
+    return launches, server
 
 
 def phase_main():
     """The mome_small line: the four fused kernels of the first slice."""
     from fedcola_tpu_torch import main as port_main
     loss_bound("main", port_main.MAIN_PATH_FLAGS)
-    launches = run_line("main", port_main.MAIN_PATH_FLAGS)
+    launches, server = run_line("main", port_main.MAIN_PATH_FLAGS)
     missing = [k for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    return launches
+    return launches, server.results
 
 
 def phase_tiny():
     """The mome_tiny line: attention through the flash kernels only."""
     from fedcola_tpu_torch import main as port_main
     loss_bound("tiny", port_main.MOME_TINY_FLAGS)
-    launches = run_line("tiny", port_main.MOME_TINY_FLAGS)
+    launches, _ = run_line("tiny", port_main.MOME_TINY_FLAGS)
     if not (launches["flash_fwd"] and launches["flash_bwd"]):
         raise AssertionError(f"mome_tiny never launched flash: {launches}")
     fused = {k: v for k, v in launches.items()
@@ -879,14 +910,197 @@ def phase_baselines():
                        ("fedprox", port_main.FEDPROX_FLAGS),
                        ("creamfl", port_main.CREAMFL_FLAGS),
                        ("fedadam", port_main.FEDADAM_FLAGS)):
-        launches = run_line(tag, flags)
+        launches, server = run_line(tag, flags)
         missing = [k for k in ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
                    if launches[k] == 0]
         if missing:
             raise AssertionError(f"{tag} never launched {missing}")
+        if tag == "creamfl" and server._pub_host_logged:
+            raise AssertionError("creamfl: the public set was host-fed")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+# ------------------------------------------------------ resident plane ----
+
+def phase_resident(resident_results):
+    """[main] again with ``FEDCOLA_RESIDENT_BUDGET=0`` (every group and
+    test set fed from the host), against [main]'s resident run in this
+    process: the same batches, generator draws and kernels, so each round's
+    training loss and every eval result must be bitwise equal.  Prints both
+    runs' ``round_seconds`` and ``eval_seconds``."""
+    from fedcola_tpu_torch import main as port_main
+    os.environ["FEDCOLA_RESIDENT_BUDGET"] = "0"
+    try:
+        launches, server = run_line("resident", port_main.MAIN_PATH_FLAGS,
+                                    resident=False)
+    finally:
+        del os.environ["FEDCOLA_RESIDENT_BUDGET"]
+    if any(v is not None for v in server._resident_cache.values()):
+        raise AssertionError("budget 0 staged a dataset")
+    for r in sorted(resident_results):
+        a, b = resident_results[r], server.results[r]
+        keys = ["clients_updated_summary"] + sorted(
+            k for k in a if k.startswith("server_evaluated_"))
+        diff = [k for k in keys if a[k] != b.get(k)]
+        log(f"[resident] round {r}: round_seconds resident "
+            f"{a['round_seconds']:.3f} host-fed {b['round_seconds']:.3f}, "
+            f"eval_seconds resident {a['eval_seconds']:.3f} host-fed "
+            f"{b['eval_seconds']:.3f}; {len(keys)} results compared, "
+            f"unequal: {diff}")
+        if diff:
+            raise AssertionError(f"round {r}: resident and host-fed runs "
+                                 f"differ in {diff}")
+    return launches
+
+
+RETRIEVAL_IMAGES = 1000     # unique 224 px images, 5 captions each
+
+
+def phase_retrieval():
+    """COCO retrieval eval at mome_small on an in-memory COCO-shaped test
+    set of ``RETRIEVAL_IMAGES`` unique images (a deduplicated store and its
+    caption -> image row map on a TaskDataset, no image files): the
+    unique-image split (the image tower once per unique image) against the
+    joint per-row forward (``FEDCOLA_EVAL_UNIQUE_IMAGES=0``): features
+    within the bf16 gate (3e-2 of max|ref|), the 5k and the 1k (n-fold)
+    recalls within one image or caption per direction; both times."""
+    import numpy as np
+    import torch
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.data.datasets import TaskDataset
+    from fedcola_tpu_torch.eval import retrieval
+    from fedcola_tpu_torch.models.mat import tree_map
+    from fedcola_tpu_torch.models.registry import create_model
+    from fedcola_tpu_torch.parallel.client_update import GroupSpec
+    cfg = parse_args(list(port_main.MAIN_PATH_FLAGS))
+    mcfg, params = create_model(cfg.model_name, cfg, "Coco",
+                                torch.Generator().manual_seed(cfg.seed))
+    params = tree_map(lambda a: a.cuda(), params)
+    n_img, px = RETRIEVAL_IMAGES, mcfg.img_size
+    n = 5 * n_img
+    r = np.random.RandomState(0)
+    row = np.arange(n) // 5
+    test = TaskDataset(
+        name="Coco", task="rtv", modality="img+txt", num_classes=None, n=n,
+        texts=r.randint(5, mcfg.vocab_size, (n, mcfg.max_text_len))
+        .astype(np.int32), image_ids=row, ann_ids=np.arange(n),
+        image_size=px,
+        _image_store=r.randint(0, 256, (n_img, px, px, 3), np.uint8),
+        _image_row=row)
+    resident = {"img_store": torch.from_numpy(test._image_store).cuda(),
+                "img_row": torch.from_numpy(row.astype(np.int32)).cuda(),
+                "txt": torch.from_numpy(test.texts).cuda()}
+    spec = GroupSpec(modality="img+txt", criterion="ContrastiveLoss",
+                     imnorm=True)
+    args = (mcfg, spec, params, test, cfg.eval_batch_size)
+    out = {}
+    for tag, unique in (("split", "1"), ("joint", "0")):
+        os.environ["FEDCOLA_EVAL_UNIQUE_IMAGES"] = unique
+        try:
+            retrieval.extract_features(*args, np.random.RandomState(1),
+                                       resident)      # warm-up
+            torch.cuda.synchronize()
+            t0 = time.time()
+            feats = retrieval.extract_features(
+                *args, np.random.RandomState(1), resident)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            scores = retrieval.evaluate(*args, rng=np.random.RandomState(1),
+                                        resident=resident)
+        finally:
+            del os.environ["FEDCOLA_EVAL_UNIQUE_IMAGES"]
+        out[tag] = feats, scores, secs
+    (fs, ss, ts), (fj, sj, tj) = out["split"], out["joint"]
+    worst = 0.0
+    for name, a, b in (("image", fs[0], fj[0]), ("caption", fs[1], fj[1])):
+        d = (a - b).abs().max().item() / b.abs().max().item()
+        worst = max(worst, d)
+        if not (a.shape == b.shape and d <= 3e-2):
+            raise AssertionError(f"{name} features: split vs joint {d:.3e} "
+                                 f"of max|ref| (shapes {a.shape}, {b.shape})")
+    for a, b in zip(fs[2:], fj[2:]):
+        if not np.array_equal(a, b):
+            raise AssertionError("split and joint class vectors differ")
+    per_fold = n_img // 5
+    for block, imgs in ((None, n_img), ("n_fold", per_fold)):
+        a = ss[block] if block else ss
+        b = sj[block] if block else sj
+        for d, q in (("i2t", imgs), ("t2i", 5 * imgs)):
+            for k in ("recall_1", "recall_5", "recall_10"):
+                if abs(a[d][k] - b[d][k]) > 1.0 / q + 1e-9:
+                    raise AssertionError(
+                        f"{block or '5k'} {d} {k}: split {a[d][k]} vs "
+                        f"joint {b[d][k]}")
+    log(f"[retrieval] {n_img} unique images, {n} captions: features split "
+        f"vs joint max|d| / max|ref| {worst:.3e}; 5k r@1 i2t/t2i split "
+        f"{ss['i2t']['recall_1']:.4f}/{ss['t2i']['recall_1']:.4f} joint "
+        f"{sj['i2t']['recall_1']:.4f}/{sj['t2i']['recall_1']:.4f}; "
+        f"extraction {ts:.3f}s split, {tj:.3f}s joint")
+
+
+def phase_local():
+    """One round of the FedCola line with ``--eval_type both --test_size
+    0.2``: every client of the eval cohort evaluates the global model on
+    its holdout, on the resident plane, a dataset's clients in one pass a
+    step.  ``clients_evaluated_out`` must be there and finite."""
+    import math
+    from fedcola_tpu_torch import main as port_main
+    launches, server = run_line("local", port_main.MAIN_PATH_FLAGS + (
+        "--eval_type", "both", "--test_size", "0.2", "--R", "1"))
+    res = server.results[1]
+    out = res.get("clients_evaluated_out")
+    if not out or not all(math.isfinite(v) for m in out.values()
+                          for v in m.values()):
+        raise AssertionError(f"clients_evaluated_out: {out}")
+    log(f"[local] {out['loss']} acc1 {out.get('acc1')}; local eval "
+        f"{res['local_eval_seconds']:.3f}s, central eval "
+        f"{res['eval_seconds']:.3f}s")
+    if not (launches["attn_fwd"] and launches["mlp_fwd"]):
+        raise AssertionError(f"[local] no forward kernel: {launches}")
+    return launches
+
+
+def phase_augment():
+    """One round of the FedCola line with ``--crop 224 --randhf 0.5``: crop
+    and flips run on the card inside the resident gather, so every group
+    stays resident; the loss is finite.  And the augmentation's apply on
+    the card against the same call on the CPU with the same draws, on
+    CIFAR-sized images resized to 224 (within 1 uint8 level) and on 224 px
+    images (equal)."""
+    import math
+    import torch
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.parallel import client_update as cu
+    flags = port_main.MAIN_PATH_FLAGS
+    c = int(flags[flags.index("--resize") + 1])      # 224: the model's input
+    launches, server = run_line("augment", flags + (
+        "--crop", str(c), "--randhf", "0.5", "--R", "1"))
+    spec, _, _ = server._group_aug_plan("CIFAR100",
+                                        server._group_spec("CIFAR100"))
+    if not (spec.device_aug and spec.aug_crop == c):
+        raise AssertionError(f"augmentation not on the card: {spec}")
+    loss = server.results[1]["clients_updated_summary"]["loss"]["avg"]
+    if not math.isfinite(loss):
+        raise AssertionError(f"[augment] non-finite loss {loss}")
+    gen = torch.Generator("cuda").manual_seed(0)
+    B = 2 * server.cfg.B
+    for size, resize, tol in ((32, c, 1), (c, None, 0)):
+        x = torch.randint(0, 256, (B, size, size, 3), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+        d = cu.draw_augment(B, (size, size), c, 0.5, 0.5, resize, gen)
+        got = cu.apply_augment(x, d, c, resize)
+        cpu = cu.AugDraws(*(t.cpu() for t in (d.ys, d.xs, d.hflip,
+                                              d.vflip)))
+        ref = cu.apply_augment(x.cpu(), cpu, c, resize)
+        err = (got.cpu().int() - ref.int()).abs().max().item()
+        log(f"[augment] apply on the card vs the CPU, {B} images {size} px "
+            f"-> {c}: max |d| {err} levels (bound {tol})")
+        if err > tol:
+            raise AssertionError(f"device_augment card vs CPU: {err}")
+    return launches
 
 
 # ---------------------------------------------------------- loss bound ----
@@ -1131,9 +1345,12 @@ def main() -> int:
 
     measured = phase_kernels()
     phase_model()
-    paths = {"main": phase_main(), "tiny": phase_tiny(),
-             "baselines": phase_baselines(), "remat": phase_remat(),
-             "rows": phase_rows()}
+    main_launches, main_results = phase_main()
+    paths = {"main": main_launches, "resident": phase_resident(main_results),
+             "tiny": phase_tiny(), "baselines": phase_baselines()}
+    phase_retrieval()
+    paths.update(local=phase_local(), augment=phase_augment(),
+                 remat=phase_remat(), rows=phase_rows())
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

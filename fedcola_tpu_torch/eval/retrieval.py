@@ -1,11 +1,18 @@
 """Image-text retrieval evaluator (reference ``COCOEvaluator``,
-src/metrics/eval_coco.py:90-465); port of ``fedcola_tpu/eval/retrieval.py``
-with the host-fed extraction path.
+src/metrics/eval_coco.py:90-465); port of ``fedcola_tpu/eval/retrieval.py``.
 
 * features come from the MAT with ``feat_out=True`` over the test set in
   a shuffled order (the reference's shuffle=True eval loader), images are
   deduped by image id keeping first-seen order, and caption features are
   re-sorted so each image's captions are contiguous;
+* with the test set staged on the device (``resident``), every batch is a
+  device gather and the features stay there; a deduplicated image store
+  splits the towers: the image tower runs once per unique image, the text
+  tower once per caption row (``FEDCOLA_EVAL_UNIQUE_IMAGES=0`` runs the
+  joint per-row forward instead).  The JAX package's
+  ``FEDCOLA_EVAL_CHUNK_STEPS`` is not carried: it only groups batches into
+  one jitted call there and changes no number, and eager PyTorch has no
+  call to group;
 * ``evaluate_recall`` computes the [n_q, n_g] similarities, ranks them by a
   double (stable) argsort and takes the best rank among each query's
   positives, on the features' device;
@@ -15,42 +22,90 @@ with the host-fed extraction path.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from fedcola_tpu_torch.data.datasets import TaskDataset
-from fedcola_tpu_torch.models.mat import MATConfig
-from fedcola_tpu_torch.parallel.client_update import GroupSpec, eval_forward
+from fedcola_tpu_torch.models.mat import DTYPES, MATConfig, mat_apply
+from fedcola_tpu_torch.parallel.client_update import (GroupSpec, _take,
+                                                      eval_batch,
+                                                      eval_forward,
+                                                      preprocess_images)
 
 
 def extract_features(cfg: MATConfig, spec: GroupSpec, params,
                      dataset: TaskDataset, batch_size: int = 512,
-                     rng: Optional[np.random.RandomState] = None):
+                     rng: Optional[np.random.RandomState] = None,
+                     resident: Optional[Dict[str, torch.Tensor]] = None):
     """Returns aligned (image_features [n_img, D], caption_features
     [n_cap, D], image_classes, caption_classes) as float32 device tensors
-    and numpy class vectors."""
+    and numpy class vectors.  ``resident``: the test set's staged arrays,
+    from which batches gather on the device; dedup and alignment need only
+    the image ids, known on the host, so they are device gathers of the
+    features either way.
+
+    A deduplicated store (path-backed COCO / Flickr) splits the towers on
+    the resident plane: the text tower runs per caption row and the image
+    tower once per unique ``img_store`` row instead of once per caption,
+    the same features (the eval forward is per sample) for a fifth of the
+    image tower's work at five captions an image."""
     device = next(iter(params["norm"].values())).device
-    n = dataset.n
-    order = np.arange(n)
+    order = np.arange(dataset.n)
     if rng is not None:
         rng.shuffle(order)
-    fi_parts, ft_parts = [], []
-    for start in range(0, n, batch_size):
-        idx = order[start:start + batch_size]
-        batch = {"x": torch.from_numpy(dataset.load_images(idx)).to(device),
-                 "y": torch.from_numpy(np.asarray(dataset.texts[idx])).to(device)}
-        fi, ft = eval_forward(cfg, spec, params, batch)
-        fi_parts.append(fi.float())
-        ft_parts.append(ft.float())
-    fi_all = torch.cat(fi_parts)
-    ft_all = torch.cat(ft_parts)
     ids = np.asarray(dataset.image_ids)[order]
     img_rows, image_classes, sorted_idx = _dedup_align(ids)
-    return (fi_all[torch.from_numpy(img_rows).to(device)],
-            ft_all[torch.from_numpy(sorted_idx).to(device)],
+    if (resident is not None and "img_store" in resident
+            and os.environ.get("FEDCOLA_EVAL_UNIQUE_IMAGES", "1") == "1"):
+        dtype = DTYPES[cfg.compute_dtype]
+        rows = lambda key, i: _take(  # noqa: E731
+            resident[key], torch.from_numpy(i).to(device))
+        ft_all, = _run_batches(
+            lambda i: _tower(cfg, spec, params, spec.txt_slot,
+                             rows("txt", i)),
+            order, batch_size)
+        fi_all, = _run_batches(
+            lambda i: _tower(cfg, spec, params, spec.img_slot,
+                             preprocess_images(rows("img_store", i), spec,
+                                               dtype)),
+            np.arange(resident["img_store"].shape[0]), batch_size)
+        # fi_all is by store row: take each first-seen caption's store row
+        img_rows = np.asarray(dataset._image_row, np.int64)[order[img_rows]]
+    else:
+        fi_all, ft_all = _run_batches(
+            lambda i: eval_forward(cfg, spec, params, eval_batch(
+                spec, i, device, dataset, resident)),
+            order, batch_size)
+    take = lambda f, rows: f.index_select(  # noqa: E731
+        0, torch.from_numpy(rows).to(device))
+    return (take(fi_all, img_rows), take(ft_all, sorted_idx),
             image_classes, ids[sorted_idx])
+
+
+def _run_batches(fwd: Callable, indices: np.ndarray,
+                 batch_size: int) -> tuple:
+    """``fwd`` (row indices -> a feature tensor or a tuple of them) over
+    ``indices`` in batches; the float32 features, concatenated on the
+    device."""
+    outs = None
+    for start in range(0, len(indices), batch_size):
+        f = fwd(indices[start:start + batch_size])
+        parts = f if isinstance(f, tuple) else (f,)
+        if outs is None:
+            outs = tuple([] for _ in parts)
+        for o, p in zip(outs, parts):
+            o.append(p.float())
+    return tuple(torch.cat(o) for o in outs)
+
+
+def _tower(cfg: MATConfig, spec: GroupSpec, params, slot: int, x):
+    """One tower's eval features: the MAT with only input ``slot`` set."""
+    ins = [None] * len(cfg.modalities)
+    ins[slot] = x
+    return mat_apply(cfg, params, ins, feat_out=True)[slot]
 
 
 def _dedup_align(ids: np.ndarray):
@@ -134,9 +189,10 @@ def evaluate_n_fold(image_features, caption_features, image_classes,
 
 def evaluate(cfg: MATConfig, spec: GroupSpec, params, dataset: TaskDataset,
              batch_size: int = 512, n_crossfolds: int = 5,
-             rng: Optional[np.random.RandomState] = None) -> Dict:
+             rng: Optional[np.random.RandomState] = None,
+             resident: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
     imf, capf, imc, capc = extract_features(cfg, spec, params, dataset,
-                                            batch_size, rng)
+                                            batch_size, rng, resident)
     scores: Dict = {}
     if n_crossfolds > 0 and len(imf) >= n_crossfolds * 1000:
         scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc, n_crossfolds)

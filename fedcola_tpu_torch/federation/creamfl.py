@@ -23,10 +23,13 @@ A round (creamflserver.py:338-435):
    sequence features against the aggregated client features times
    ``--kd_weight`` (creamflserver.py:293-336).
 
-The public set is staged on the device once, in padded batches of
-``--pub_batch_size``: the port has no resident data plane and no staging
-budget (500 images of 224x224x3 uint8 are 75 MB).  Every public pass is
-client-stacked like a task step, so each kernel launch covers the group.
+The public set is cut into padded batches of ``--pub_batch_size`` and
+staged on the device once, under the resident plane's one budget
+(``FEDCOLA_RESIDENT_BUDGET``; 500 images of 224x224x3 uint8 are 75 MB);
+a set over what is left of it is copied to the device batch by batch on
+every pass instead, with one log line.  The task data takes the FedAvg
+path's plane (``_group_aug_plan``).  Every public pass is client-stacked
+like a task step, so each kernel launch covers the group.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -75,16 +78,19 @@ class CreamflServer(FedAvgServer):
                 "(the public set and the distillation train the multimodal "
                 f"global model); got --datasets {list(cfg.client_datasets)}"
             ) from None
-        self.pub_batches = self._stage_pub_set()
+        self._pub_host = self._pub_batch_list()
+        self._pub_batches_dev = None
+        self._pub_pinned_bytes = 0
+        self._pub_host_logged = False
         self.g_img = self.g_txt = None
         self._pub_feats: Dict[int, torch.Tensor] = {}
 
     # ------------------------------------------------------------ pub data --
 
-    def _stage_pub_set(self) -> List[Dict]:
-        """The public set on the device, as padded batches: ``img`` uint8
-        ``[B, H, W, C]``, ``txt`` ``[B, L]``, ``didx`` (row in the set),
-        ``valid`` and ``n_valid``."""
+    def _pub_batch_list(self) -> List[Dict]:
+        """The public set as padded host batches: ``img`` uint8 ``[B, H, W,
+        C]``, ``txt`` ``[B, L]``, ``didx`` (row in the set), ``valid`` and
+        ``n_valid``."""
         cfg = self.cfg
         try:
             if cfg.synthetic_data:
@@ -109,24 +115,50 @@ class CreamflServer(FedAvgServer):
             ds = fetch_synthetic("Coco", "img+txt", "rtv", max(n, 5), None,
                                  img_hw=mm_cfg.img_size, seq_len=cfg.seq_len,
                                  vocab_size=mm_cfg.vocab_size, seed=999)
-        idx = np.arange(ds.n)
-        img = torch.from_numpy(ds.load_images(idx)).to(self.device)
-        txt = torch.from_numpy(np.asarray(ds.texts[idx])).to(self.device)
+        img = ds.load_images(np.arange(ds.n))
+        txt = np.asarray(ds.texts)
         B = cfg.pub_batch_size
         batches = []
         for s in range(0, ds.n, B):
             e = min(s + B, ds.n)
-            sel = torch.from_numpy(pad_batch_indices(np.arange(s, e), B)) \
-                .to(self.device)
-            valid = torch.zeros(B, dtype=torch.bool, device=self.device)
+            sel = pad_batch_indices(np.arange(s, e), B)
+            valid = np.zeros(B, bool)
             valid[:e - s] = True
             batches.append({"img": img[sel], "txt": txt[sel], "didx": sel,
                             "valid": valid, "n_valid": e - s})
-        logger.info("[CREAMFL] public set: %d samples staged on the device "
-                    "in %d batches (%.1f MB)", ds.n, len(batches),
-                    sum(b["img"].nbytes + b["txt"].nbytes
-                        for b in batches) / 1e6)
+        logger.info("[CREAMFL] public set: %d samples in %d batches",
+                    ds.n, len(batches))
         return batches
+
+    def _pub_batches(self) -> Iterator[Dict]:
+        """The public batches on the device.  Staged once and reused while
+        they fit what is left of the resident budget (the set is the same
+        every pass); otherwise copied batch by batch on every pass, so a
+        large ``--num_pub_samples`` does not pin device memory for the
+        whole run.  ``finalize`` releases the staging."""
+        if self._pub_batches_dev is not None:
+            yield from self._pub_batches_dev
+            return
+        to_dev = lambda b: {  # noqa: E731
+            k: torch.from_numpy(v).to(self.device)
+            if isinstance(v, np.ndarray) else v for k, v in b.items()}
+        total = sum(b["img"].nbytes + b["txt"].nbytes for b in self._pub_host)
+        if total <= self.resident_budget_left():
+            self._pub_batches_dev = [to_dev(b) for b in self._pub_host]
+            self._resident_bytes += total
+            self._pub_pinned_bytes = total
+            logger.info("[CREAMFL] public set staged on the device (%.1f "
+                        "MB)", total / 1e6)
+            yield from self._pub_batches_dev
+            return
+        if not self._pub_host_logged:
+            self._pub_host_logged = True
+            logger.info("[CREAMFL] public set stays host-fed per pass "
+                        "(%.2f GB > %.2f GB remaining of the resident "
+                        "budget)", total / 1e9,
+                        self.resident_budget_left() / 1e9)
+        for b in self._pub_host:
+            yield to_dev(b)
 
     def _pub_inputs(self, ds: str, batch, modality: str, n: int):
         """Slot-aligned MAT inputs of a public batch for ``n`` stacked
@@ -153,7 +185,7 @@ class CreamflServer(FedAvgServer):
         spec = self._group_spec(ds)
         params = _unsqueeze(self.global_params[ds])
         gi, gt = [], []
-        for b in self.pub_batches:
+        for b in self._pub_batches():
             outs = mat_apply_stacked(
                 self.model_cfgs[ds], params,
                 self._pub_inputs(ds, b, "img+txt", 1), feat_out=True)
@@ -218,7 +250,7 @@ class CreamflServer(FedAvgServer):
                  for leaf in ("kernel", "bias")}
         token = tuple(sorted(set(self._frozen_token(g.ds) or ()) | heads))
         frozen = build_frozen_mask(g.mcfg, g.stacked, token or None)
-        for b in self.pub_batches:
+        for b in self._pub_batches():
             descend(pub_opt, g.stacked, g.opt_state, self._pub_loss(g, b),
                     self.curr_lr, frozen)
 
@@ -231,7 +263,8 @@ class CreamflServer(FedAvgServer):
         fs = [mat_apply_stacked(
             g.mcfg, g.stacked,
             self._pub_inputs(g.ds, b, g.spec.modality, len(g.ids)),
-            feat_out=True)[slot][:, :b["n_valid"]] for b in self.pub_batches]
+            feat_out=True)[slot][:, :b["n_valid"]]
+            for b in self._pub_batches()]
         feats = torch.cat(fs, 1)
         for j, cid in enumerate(g.ids):
             self._pub_feats[cid] = feats[j]
@@ -243,7 +276,11 @@ class CreamflServer(FedAvgServer):
         do_pub = self.cfg.interintra_weight > 0 and not (
             self.cfg.no_mm_contrastive and g.spec.modality == "img+txt")
         for _ in range(self.cfg.E):
-            self._train_chunks(g, g.feeder.epoch_chunks())
+            # the public pass follows every epoch, so epochs stream one at
+            # a time
+            self._train_chunks(g, g.feeder.round_index_chunks(1)
+                               if g.data is not None
+                               else g.feeder.epoch_chunks())
             if do_pub:
                 self._public_epoch(g)
         if g.spec.modality != "img+txt":
@@ -283,7 +320,7 @@ class CreamflServer(FedAvgServer):
         state = init_opt_state(opt, params, 1)
         # frozen aux weights must not decay either
         frozen = build_frozen_mask(mcfg, params)
-        for b in self.pub_batches:
+        for b in self._pub_batches():
             outs = mat_apply_stacked(mcfg, params,
                                      self._pub_inputs(ds, b, "img+txt", 1),
                                      train=True, gen=self.gen,
@@ -354,7 +391,9 @@ class CreamflServer(FedAvgServer):
 
     def finalize(self):
         # the staged public set and its features are training-only state
-        self.pub_batches = []
+        self._pub_batches_dev = None
+        self._resident_bytes -= self._pub_pinned_bytes
+        self._pub_pinned_bytes = 0
         self.g_img = self.g_txt = None
         self._pub_feats = {}
         super().finalize()

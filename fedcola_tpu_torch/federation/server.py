@@ -1,12 +1,18 @@
 """FedAvg server / round orchestrator (reference ``FedavgServer``,
 src/server/fedavgserver.py:117-898); port of
-``fedcola_tpu/federation/server.py`` on one device, host-fed.
+``fedcola_tpu/federation/server.py`` on one device.
 
 Per round (compare ``update()``, fedavgserver.py:784-856):
 
 1. sample clients (equal_sampled / warmup filtering);
 2. batched local updates: the sampled clients of each dataset train as one
-   client-stacked group (``parallel/client_update.py``);
+   client-stacked group (``parallel/client_update.py``), on the resident
+   data plane: each dataset is staged on the device once, within one
+   budget for every consumer (``FEDCOLA_RESIDENT_BUDGET``, 6 GiB by
+   default), and every step gathers its batch there from index maps.  A
+   dataset over the budget, or a group with ``--randrot`` / ``--randjit``
+   (host-side transforms), is fed from the host instead, with a
+   ``[DATA]`` log line;
 3. aux fold-in for uni-modal with_aux groups (fedavgclient.py:158-184);
 4. per-dataset aggregation: host-planned coefficients, one weighted
    reduction on the device (``federation/aggregate.py``);
@@ -15,15 +21,15 @@ Per round (compare ``update()``, fedavgserver.py:784-856):
 
 ``fedavg``, ``fedsgd``, ``fedprox`` (the proximal term in the client loss)
 and ``fediot`` (a sharing rule on this machinery) run here, with
-``--fedavg_eval`` and ``.npz`` checkpoints; ``create_server`` also builds
-the FedOpt family (``federation/fedopt.py``) and CreamFL
-(``federation/creamfl.py``).  Per-client local evaluation
-(``--eval_type local|both``), the ``.pt`` export and the mesh are later
-slices of the port.
+``--fedavg_eval``, ``.npz`` checkpoints and per-client local evaluation
+(``--eval_type local|both``); ``create_server`` also builds the FedOpt
+family (``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).
+The ``.pt`` export and the mesh are later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -49,11 +55,14 @@ from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
                                           stack_clients, tree_leaves,
                                           tree_map)
 from fedcola_tpu_torch.models.registry import create_model
-from fedcola_tpu_torch.ops.losses import cross_entropy
+from fedcola_tpu_torch.ops.losses import clip_contrastive, cross_entropy
 from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
                                                       build_frozen_mask,
-                                                      eval_forward, run_chunk)
+                                                      eval_batch,
+                                                      eval_forward,
+                                                      local_eval, run_chunk)
 from fedcola_tpu_torch.parallel.optim import init_opt_state, make_optimizer_spec
+from fedcola_tpu_torch.utils.dispatch import DispatchWindow, pad_batch_indices
 from fedcola_tpu_torch.utils.metrics import MetricManager
 from fedcola_tpu_torch.utils.profiling import Timer
 
@@ -72,6 +81,7 @@ class GroupRun:
     frozen: Optional[dict]
     feeder: GroupFeeder
     acc: Dict[str, torch.Tensor]
+    data: Optional[Dict[str, torch.Tensor]]   # staged arrays, or host-fed
 
 
 def resolve_device(cfg: ExperimentConfig) -> torch.device:
@@ -95,10 +105,6 @@ class FedAvgServer:
                 cfg.dist_process_id)):
             raise NotImplementedError(
                 "mesh / multi-host runs are a later slice of the port")
-        if cfg.eval_type != "global":
-            raise NotImplementedError(
-                f"--eval_type {cfg.eval_type}: per-client local evaluation "
-                "is a later slice of the port (use --eval_type global)")
         self.cfg = cfg
         self.data = data
         self.writer = writer
@@ -112,6 +118,12 @@ class FedAvgServer:
         # device randomness (DropPath draws); the JAX package's key stream
         # cannot be replayed, so this is its own stream from the same seed
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        # the resident data plane: staged arrays by cache key (None: the
+        # dataset stays host-fed) and the bytes all stagings pin
+        self._resident_cache: Dict[str, Optional[Dict]] = {}
+        self._resident_bytes = 0
+        self._aug_host_logged: set = set()
+        self._train_dataset_cache: Dict[str, object] = {}
 
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model_cfgs = {}
@@ -141,10 +153,24 @@ class FedAvgServer:
     # ---------------------------------------------------------------- util --
 
     def _train_dataset(self, ds: str):
-        for i in range(self.data.K):
-            if self.client_dataset_of[i] == ds:
-                return self.data.client_shards[i].dataset
-        raise KeyError(ds)
+        """The one TaskDataset behind a dataset's client shards (the
+        layout ``loaders.load_federated_data`` builds); the resident plane
+        stages that object, so the invariant is asserted.  Cached: the
+        serial local-eval path asks once per client."""
+        if ds not in self._train_dataset_cache:
+            shards = [self.data.client_shards[i] for i in range(self.data.K)
+                      if self.client_dataset_of[i] == ds]
+            if not shards:
+                raise KeyError(ds)
+            first = shards[0].dataset
+            if not all(s.dataset is first for s in shards):
+                raise ValueError(
+                    f"clients of dataset {ds!r} hold distinct TaskDataset "
+                    "objects; the resident data plane requires the "
+                    "shared-dataset layout loaders.load_federated_data "
+                    "builds")
+            self._train_dataset_cache[ds] = first
+        return self._train_dataset_cache[ds]
 
     def _group_spec(self, ds: str) -> GroupSpec:
         modality = DATASET_2_MODALITY[ds]
@@ -182,13 +208,93 @@ class FedAvgServer:
             self.model_cfgs[ds]) if self.param_scope.get(name) == "all"}))
         return frozen or None
 
-    def _augment_spec(self, spec: GroupSpec):
-        """Train-time augmentation runs on the host in this port."""
+    def _group_aug_plan(self, ds: str, spec: GroupSpec):
+        """A group's data plane and augmentation routing, shared by the
+        FedAvg and CreamFL train paths: returns ``(spec, aug, data)``.
+        Crop and flips run on the device inside the resident gather
+        (``spec.aug_*``) and keep the group resident; rotation and color
+        jitter are host-side transforms (``aug``), so those flags feed the
+        group from the host (logged once per dataset).  Reference
+        transforms: data.py:86-134."""
         cfg = self.cfg
         aug = AugmentSpec(resize=cfg.resize, crop=cfg.crop,
                           randrot=cfg.randrot, randhf=cfg.randhf,
                           randvf=cfg.randvf, randjit=cfg.randjit)
-        return aug if ("img" in spec.modality and aug.active) else None
+        aug = aug if ("img" in spec.modality and aug.active) else None
+        data = None
+        if aug is None:
+            data = self._resident_data(ds, spec)
+        elif aug.device_supported:
+            data = self._resident_data(ds, spec)
+            if data is not None:
+                spec = dataclasses.replace(
+                    spec, aug_resize=aug.resize, aug_crop=aug.crop,
+                    aug_randhf=aug.randhf, aug_randvf=aug.randvf)
+                aug = None
+        elif ds not in self._aug_host_logged:
+            self._aug_host_logged.add(ds)
+            logger.info("[DATA] %s: --randrot/--randjit are host-side "
+                        "transforms; group runs host-fed (crop/flips alone "
+                        "would keep the device-resident plane)", ds)
+        return spec, aug, data
+
+    # ------------------------------------------------------ resident plane --
+
+    def _stage_resident(self, cache_key: str, dset, spec: GroupSpec):
+        """Stage one dataset's arrays on the device once; returns the dict
+        of device tensors, or None when the dataset stays host-fed (images
+        decoded lazily, or over what is left of the budget).  Path-backed
+        retrieval sets stage their deduplicated image store and the
+        caption -> image row map (``datasets.py`` ``materialize_images``),
+        so a step's gather is ``img_store[img_row[idx]]``."""
+        if cache_key in self._resident_cache:
+            return self._resident_cache[cache_key]
+        arrays = {}
+        if "img" in spec.modality:
+            if dset.images is not None:
+                arrays["img"] = dset.images
+            elif dset._image_store is not None:
+                arrays["img_store"] = dset._image_store
+                arrays["img_row"] = np.asarray(dset._image_row, np.int32)
+            else:
+                self._resident_cache[cache_key] = None   # lazy decode
+                return None
+        if "txt" in spec.modality:
+            arrays["txt"] = np.asarray(dset.texts, np.int32)
+        if spec.modality != "img+txt":
+            arrays["tgt"] = np.asarray(dset.targets, np.int32)
+        total = sum(a.nbytes for a in arrays.values())
+        if total > self.resident_budget_left():
+            logger.info("[DATA] %s stays host-fed (%.2f GB > %.2f GB "
+                        "remaining of the resident budget)", cache_key,
+                        total / 1e9, self.resident_budget_left() / 1e9)
+            self._resident_cache[cache_key] = None
+            return None
+        dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               for k, v in arrays.items()}
+        logger.info("[DATA] %s staged device-resident (%.1f MB); per-round "
+                    "host traffic is now index maps only", cache_key,
+                    total / 1e6)
+        self._resident_cache[cache_key] = dev
+        self._resident_bytes += total
+        return dev
+
+    def resident_budget_left(self) -> int:
+        """What is left of the staging budget (``FEDCOLA_RESIDENT_BUDGET``
+        bytes, 6 GiB by default): one ledger over every consumer (train
+        and eval sets, CreamFL's public set)."""
+        budget = int(os.environ.get("FEDCOLA_RESIDENT_BUDGET",
+                                    6 * 1024 ** 3))
+        return max(budget - self._resident_bytes, 0)
+
+    def _resident_data(self, ds: str, spec: GroupSpec):
+        """The staged train arrays of a dataset's client group."""
+        return self._stage_resident(ds, self._train_dataset(ds), spec)
+
+    def _resident_eval_data(self, ds: str, spec: GroupSpec):
+        """The staged server test set of a dataset."""
+        return self._stage_resident(f"eval:{ds}", self.data.server_eval[ds],
+                                    spec)
 
     # ------------------------------------------------------------- training --
 
@@ -196,15 +302,17 @@ class FedAvgServer:
         """One group's batched local update; returns the stacked upload
         tree (aux folded in) and per-client average training metrics."""
         g = self._open_group(ds, ids)
-        self._train_chunks(g, g.feeder.round_chunks(self.cfg.E))
+        self._train_chunks(g, g.feeder.round_index_chunks(self.cfg.E)
+                           if g.data is not None
+                           else g.feeder.round_chunks(self.cfg.E))
         return self._close_group(g)
 
     def _open_group(self, ds: str, ids: List[int]) -> GroupRun:
         """The round-start state of one group: the global model stacked for
         its ``n`` clients, fresh optimizer state, the freeze mask, the
-        feeder and the on-device metric sums."""
+        feeder, the on-device metric sums and the group's data plane."""
         cfg, mcfg = self.cfg, self.model_cfgs[ds]
-        spec = self._group_spec(ds)
+        spec, aug, data = self._group_aug_plan(ds, self._group_spec(ds))
         n = len(ids)
         stacked = tree_map(lambda a: a.requires_grad_(True),
                            stack_clients(self.global_params[ds], n))
@@ -213,24 +321,24 @@ class FedAvgServer:
                              chunk_steps=cfg.train_chunk_steps,
                              shuffle=not cfg.no_shuffle,
                              rng=self.shuffle_rng,
-                             debug_two_batches=cfg.debug,
-                             aug=self._augment_spec(spec))
+                             debug_two_batches=cfg.debug, aug=aug)
         return GroupRun(
             ds=ds, ids=ids, mcfg=mcfg, spec=spec, stacked=stacked,
             opt_state=init_opt_state(self.opt_spec, stacked, n),
             frozen=build_frozen_mask(mcfg, stacked, self._frozen_token(ds)),
             feeder=feeder,
             acc={k: torch.zeros(n, dtype=torch.float64, device=self.device)
-                 for k in ("l", "c", "n")})
+                 for k in ("l", "c", "n")},
+            data=data)
 
     def _train_chunks(self, g: GroupRun, chunks) -> None:
-        """Local steps over host chunks; the metric sums stay on the
+        """Local steps over a group's chunks; the metric sums stay on the
         device until the group closes."""
         for chunk in Prefetcher(chunks):
             ls, cs, ns = run_chunk(g.mcfg, g.spec, self.opt_spec, g.stacked,
                                    g.opt_state, chunk, self.curr_lr,
                                    self.gen, g.frozen,
-                                   self.global_params[g.ds])
+                                   self.global_params[g.ds], data=g.data)
             nsf = ns.double()
             g.acc["l"] += (ls.double() * nsf).sum(1)
             g.acc["c"] += cs.double().sum(1)
@@ -401,7 +509,8 @@ class FedAvgServer:
             if DATASET_2_MODALITY[ds] == "img+txt":
                 res = retrieval.evaluate(
                     mcfg, spec, params, test, batch_size=B,
-                    rng=np.random.RandomState(self.cfg.seed + self.round))
+                    rng=np.random.RandomState(self.cfg.seed + self.round),
+                    resident=self._resident_eval_data(ds, spec))
                 r1sum = 0.0
                 payload = {}
                 for split_key, prefix in (("n_fold", "1k"), (None, "5k")):
@@ -422,15 +531,20 @@ class FedAvgServer:
                     self.writer.log(payload, self.round)
                 continue
             mm = MetricManager(cfg.eval_metrics)
-            img = "img" in DATASET_2_MODALITY[ds]
+            resident = self._resident_eval_data(ds, spec)
+
+            def drain_one(logits, idx):
+                logits = logits.float().cpu()
+                y = torch.from_numpy(test.targets[idx].astype(np.int64))
+                mm.track(float(cross_entropy(logits, y)), logits.numpy(),
+                         y.numpy())
+
+            window = DispatchWindow(drain_one)
             for start in range(0, test.n, B):
                 idx = np.arange(start, min(start + B, test.n))
-                x = test.load_images(idx) if img else test.texts[idx]
-                batch = {"x": torch.from_numpy(np.asarray(x)).to(self.device)}
-                logits = eval_forward(mcfg, spec, params, batch).float().cpu()
-                y = torch.from_numpy(test.targets[idx].astype(np.int64))
-                loss = float(cross_entropy(logits, y))
-                mm.track(loss, logits.numpy(), y.numpy())
+                batch = eval_batch(spec, idx, self.device, test, resident)
+                window.push(eval_forward(mcfg, spec, params, batch), idx)
+            window.flush()
             mm.aggregate(test.n)
             result = mm.results
             tag = f"{ds}_fedavg" if fedavg else ds
@@ -470,8 +584,138 @@ class FedAvgServer:
             "bottom10p_std": float(bot.std()),
         }
 
+    @torch.no_grad()
+    def _local_evaluate(self, ids, participated: bool):
+        """Per-client evaluation of the global models on the clients' local
+        holdout sets (``--test_size`` > 0).  The reference's client eval is
+        broken for MAT (``self.model(inputs, task=...)``,
+        fedavgclient.py:140); this is its intended semantics: each client
+        evaluates the downloaded global model on its holdout, with acc1 for
+        classification clients and f1 otherwise (fedavgserver.py:252).
+
+        A dataset whose train arrays are resident and whose clients are
+        classification or img+txt evaluates as one batched pass over all
+        its clients (``client_update.local_eval``); the others run client
+        by client."""
+        t0 = time.time()
+        losses, sizes = [], []
+        # per-task-metric cohort values as (value, n_samples) pairs
+        metric_vals: Dict[str, List] = defaultdict(list)
+        groups: Dict[str, List[int]] = defaultdict(list)
+        for i in ids:
+            shard = self.data.client_shards[i]
+            if shard.test_indices is None or len(shard.test_indices) == 0:
+                continue
+            groups[self.clients[i].dataset].append(i)
+
+        B = self.cfg.B
+        serial: List[int] = []
+        for ds, gids in groups.items():
+            spec = self._group_spec(ds)
+            # client holdouts index the train set, so its staging serves
+            resident = self._resident_data(ds, spec)
+            if resident is None or not (self.clients[gids[0]].task == "cls"
+                                        or spec.modality == "img+txt"):
+                serial.extend(gids)
+                continue
+            tidxs = [self.data.client_shards[i].test_indices for i in gids]
+            S = max(-(-len(t) // B) for t in tidxs)
+            idx = np.zeros((len(gids), S, B), np.int32)
+            val = np.zeros((len(gids), S, B), bool)
+            for c, t in enumerate(tidxs):
+                for s in range(-(-len(t) // B)):
+                    sel = t[s * B:(s + 1) * B]
+                    idx[c, s] = pad_batch_indices(sel, B)
+                    val[c, s, :len(sel)] = True
+            ls, cs, ns = (a.cpu().numpy() for a in local_eval(
+                self.model_cfgs[ds], spec, self.global_params[ds], idx, val,
+                resident))
+            for j in range(len(gids)):
+                losses.append(float(ls[j] / max(ns[j], 1.0)))
+                sizes.append(len(tidxs[j]))
+                if spec.modality != "img+txt":
+                    metric_vals["acc1"].append(
+                        (float(cs[j] / max(ns[j], 1.0)), len(tidxs[j])))
+
+        for i in serial:
+            loss, metrics, n = self._local_evaluate_one(i, B)
+            losses.append(loss)
+            sizes.append(n)
+            for m, v in metrics.items():
+                metric_vals[m].append((float(v), n))
+        if not losses:
+            return
+        summary = {"loss": self.summarize_losses(losses, sizes)}
+        for m, pairs in metric_vals.items():
+            summary[m] = self.summarize_losses([p[0] for p in pairs],
+                                               [p[1] for p in pairs])
+        key = f'clients_evaluated_{"in" if participated else "out"}'
+        self.results[self.round][key] = summary
+        self.results[self.round]["local_eval_seconds"] = time.time() - t0
+        logger.info("[EVAL] [LOCAL] %d clients | loss avg %.4f std %.4f "
+                    "top10%% %.4f bot10%% %.4f", len(losses),
+                    summary["loss"]["avg"], summary["loss"]["std"],
+                    summary["loss"]["top10p_avg"],
+                    summary["loss"]["bottom10p_avg"])
+        if self.writer:
+            tag = "In" if participated else "Out"
+            self.writer.log({f"Local Test Loss ({tag})/Avg.":
+                             summary["loss"]["avg"],
+                             f"Local Test Loss ({tag})/Std.":
+                             summary["loss"]["std"]}, self.round)
+
+    def _local_evaluate_one(self, i: int, B: int):
+        """One client's holdout evaluation, batch by batch (the fallback
+        of :meth:`_local_evaluate`): ``(loss, metrics, n_samples)``."""
+        shard = self.data.client_shards[i]
+        ds = self.clients[i].dataset
+        mcfg, params = self.model_cfgs[ds], self.global_params[ds]
+        spec = self._group_spec(ds)
+        resident = self._resident_data(ds, spec)
+        metrics = ["acc1"] if self.clients[i].task == "cls" else ["f1"]
+        mm = MetricManager(metrics if spec.modality != "img+txt" else [])
+        d = shard.dataset
+
+        def drain_one(out, sel):
+            if spec.modality == "img+txt":
+                fi, ft = out
+                mm.track(float(clip_contrastive(fi[:len(sel)],
+                                                ft[:len(sel)])),
+                         count=len(sel))
+            else:
+                logits = out[:len(sel)].float().cpu()
+                y = torch.from_numpy(d.targets[sel].astype(np.int64))
+                mm.track(float(cross_entropy(logits, y)), logits.numpy(),
+                         y.numpy())
+
+        window = DispatchWindow(drain_one)
+        tidx = shard.test_indices
+        for s in range(0, len(tidx), B):
+            sel = tidx[s:s + B]
+            batch = eval_batch(spec, pad_batch_indices(sel, B), self.device,
+                               d, resident)
+            window.push(eval_forward(mcfg, spec, params, batch), sel)
+        window.flush()
+        mm.aggregate(len(tidx))
+        return (mm.results["loss"], mm.results.get("metrics", {}),
+                len(tidx))
+
     def evaluate(self, excluded_ids=()):
-        self._central_evaluate()
+        """``--eval_type`` local / both: the clients' holdout evaluation of
+        an eval cohort sampled among the clients not in ``excluded_ids``
+        (the reference's ``clients_evaluated_out``, fedavgserver.py:866);
+        global / both: the central evaluation."""
+        cfg = self.cfg
+        if cfg.eval_type != "global":
+            ids = sample_clients(
+                self.sampler, self.client_dataset_of,
+                self.client_modality_of, cfg.client_datasets, self.Cs,
+                cfg.C, cfg.equal_sampled, self.round,
+                exclude=list(excluded_ids),
+                eval_fraction=cfg.eval_fraction, eval_mode=True)
+            self._local_evaluate(ids, participated=False)
+        if cfg.eval_type != "local":
+            self._central_evaluate()
 
     # ------------------------------------------------------------- finalize --
 

@@ -1,5 +1,5 @@
 """Batched client local updates over client-stacked trees (port of
-``fedcola_tpu/parallel/client_update.py``, host-fed data plane).
+``fedcola_tpu/parallel/client_update.py``).
 
 A round's sampled clients are grouped by dataset; their parameters,
 optimizer state and batches are stacked on a leading client axis ``[n,
@@ -7,6 +7,12 @@ optimizer state and batches are stacked on a leading client axis ``[n,
 clients together, so each kernel launch covers the whole group.  Per-step
 ``step_valid`` masks make padded steps exact no-ops (heterogeneous
 per-client step counts), per-sample ``valid`` masks the partial final batch.
+
+Two data planes feed the steps.  On the resident plane (the default) the
+server stages each dataset on the device once and a chunk carries only
+index maps; every step gathers its batch there (``resident_gather``) and
+crop / flips run on the device (``device_augment``).  On the host-fed
+plane a chunk carries the gathered pixels and tokens, copied per step.
 """
 
 from __future__ import annotations
@@ -35,18 +41,31 @@ class GroupSpec:
     imnorm: bool = False                 # (x/255 - .5)/.5 (data.py:107-109)
     mu: float = 0.0                      # fedprox proximal coefficient
     algorithm: str = "fedavg"
-    aug_resize: Optional[int] = None
+    # train augmentation on the device, inside the resident gather
+    # (reference transforms data.py:86-134; rotation / jitter stay on the
+    # host)
+    aug_resize: Optional[int] = None     # Resize((r, r)) BEFORE the crop
+    aug_crop: Optional[int] = None       # RandomCrop(c, padding=4,
+    #                                      pad_if_needed=True)
+    aug_randhf: Optional[float] = None   # RandomHorizontalFlip(p)
+    aug_randvf: Optional[float] = None   # RandomVerticalFlip(p)
     center_crop: Optional[int] = None    # eval-side CenterCrop after Resize
 
+    @property
+    def device_aug(self) -> bool:
+        return (self.aug_crop is not None or self.aug_randhf is not None
+                or self.aug_randvf is not None)
 
-def _resize(x: torch.Tensor, size: int) -> torch.Tensor:
+
+def _resize(x: torch.Tensor, size: int,
+            antialias: bool = False) -> torch.Tensor:
     """Bilinear resize of ``[..., H, W, C]`` float images, half-pixel
-    centres, no antialias (``jax.image.resize(..., "bilinear")`` when
-    upsampling)."""
+    centres (``jax.image.resize(..., "bilinear")`` when upsampling; with
+    ``antialias`` in every direction)."""
     lead = x.shape[:-3]
     y = x.reshape((-1,) + tuple(x.shape[-3:])).permute(0, 3, 1, 2)
     y = F.interpolate(y, size=(size, size), mode="bilinear",
-                      align_corners=False, antialias=False)
+                      align_corners=False, antialias=antialias)
     return y.permute(0, 2, 3, 1).reshape(lead + (size, size, x.shape[-1]))
 
 
@@ -69,6 +88,136 @@ def preprocess_images(x: torch.Tensor, spec: GroupSpec,
             and tuple(x.shape[-3:-1]) != (spec.resize_to,) * 2):
         x = _resize(x, spec.resize_to)
     return x.to(dtype)
+
+
+# --------------------------------------------------- device augmentation ----
+
+@dataclass
+class AugDraws:
+    """The random part of one :func:`device_augment` call, per sample:
+    crop offsets ``ys`` / ``xs`` into the padded image and the flip masks
+    (None where the transform is off)."""
+    ys: Optional[torch.Tensor] = None
+    xs: Optional[torch.Tensor] = None
+    hflip: Optional[torch.Tensor] = None
+    vflip: Optional[torch.Tensor] = None
+
+
+def _crop_canvas(hw: Tuple[int, int], crop: int,
+                 resize: Optional[int]) -> Tuple[int, int, int, int]:
+    """``(H, W, dh, dw)``: the padded image a crop is taken from (the 4-pixel
+    padding plus ``pad_if_needed``'s deficit on both sides) and that
+    deficit."""
+    h, w = (resize, resize) if resize is not None else hw
+    h, w = h + 8, w + 8
+    dh, dw = max(crop - h, 0), max(crop - w, 0)
+    return h + 2 * dh, w + 2 * dw, dh, dw
+
+
+def draw_augment(B: int, hw: Tuple[int, int], crop: Optional[int],
+                 randhf: Optional[float], randvf: Optional[float],
+                 resize: Optional[int], gen: torch.Generator) -> AugDraws:
+    """Draw the per-sample crop offsets and flips for a batch of ``B``
+    images of size ``hw`` from ``gen``, on the generator's device."""
+    dev = gen.device
+    d = AugDraws()
+    if crop is not None:
+        H, W, _, _ = _crop_canvas(hw, crop, resize)
+        d.ys = torch.randint(0, H - crop + 1, (B,), generator=gen, device=dev)
+        d.xs = torch.randint(0, W - crop + 1, (B,), generator=gen, device=dev)
+    if randhf is not None:
+        d.hflip = torch.rand(B, generator=gen, device=dev) < randhf
+    if randvf is not None:
+        d.vflip = torch.rand(B, generator=gen, device=dev) < randvf
+    return d
+
+
+def apply_augment(x: torch.Tensor, draws: AugDraws, crop: Optional[int],
+                  resize: Optional[int] = None) -> torch.Tensor:
+    """Train augmentation of uint8 ``[B, H, W, C]`` images with the given
+    draws, in the reference's transform order (data.py:93-103):
+    Resize((r, r)) -> RandomCrop(c, padding=4, pad_if_needed=True) ->
+    RandomHorizontalFlip -> RandomVerticalFlip.  The crop is one gather
+    over the batch."""
+    if crop is not None:
+        if resize is not None and tuple(x.shape[1:3]) != (resize, resize):
+            # pixel-scale bilinear, rounded back to uint8 (the reference
+            # resizes the uint8 PIL image before cropping)
+            x = _resize(x.float(), resize, antialias=True)
+            x = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+        _, _, dh, dw = _crop_canvas(tuple(x.shape[1:3]), crop, None)
+        x = F.pad(x, (0, 0, 4 + dw, 4 + dw, 4 + dh, 4 + dh))
+        ar = torch.arange(crop, device=x.device)
+        rows = (draws.ys[:, None] + ar)[:, :, None]
+        cols = (draws.xs[:, None] + ar)[:, None, :]
+        b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        x = x[b, rows, cols]
+    if draws.hflip is not None:
+        x = torch.where(draws.hflip[:, None, None, None], x.flip(2), x)
+    if draws.vflip is not None:
+        x = torch.where(draws.vflip[:, None, None, None], x.flip(1), x)
+    return x
+
+
+def device_augment(x: torch.Tensor, gen: torch.Generator,
+                   crop: Optional[int], randhf: Optional[float],
+                   randvf: Optional[float],
+                   resize: Optional[int] = None) -> torch.Tensor:
+    """Per-sample train augmentation on the device (the host ``_augment``
+    semantics of ``data/pipeline.py``), drawn from ``gen``."""
+    draws = draw_augment(x.shape[0], tuple(x.shape[1:3]), crop, randhf,
+                         randvf, resize, gen)
+    return apply_augment(x, draws, crop, resize)
+
+
+# ------------------------------------------------------ resident gather ----
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``t`` at ``idx`` (any shape): ``[*idx.shape, ...]``."""
+    return t.index_select(0, idx.reshape(-1)).reshape(
+        tuple(idx.shape) + tuple(t.shape[1:]))
+
+
+def _take_images(data: Dict[str, torch.Tensor],
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Row gather from staged image storage: ``img [N, H, W, C]`` for
+    array-backed datasets, or a deduplicated ``img_store`` plus the
+    caption -> image map ``img_row`` for path-backed retrieval sets, where
+    the gather adds one indirection."""
+    if "img_store" in data:
+        return _take(data["img_store"], _take(data["img_row"], idx))
+    return _take(data["img"], idx)
+
+
+def resident_gather(spec: GroupSpec, data: Dict[str, torch.Tensor],
+                    idx: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None):
+    """A batch assembled on the device from the staged dataset arrays."""
+    batch = {} if valid is None else {"valid": valid}
+    if spec.modality == "img":
+        batch["x"] = _take_images(data, idx)
+        batch["y"] = _take(data["tgt"], idx)
+    elif spec.modality == "txt":
+        batch["x"] = _take(data["txt"], idx)
+        batch["y"] = _take(data["tgt"], idx)
+    else:  # img+txt: token ids ride the target slot
+        batch["x"] = _take_images(data, idx)
+        batch["y"] = _take(data["txt"], idx)
+    return batch
+
+
+def eval_batch(spec: GroupSpec, idx: np.ndarray, device, dset=None,
+               data: Optional[Dict[str, torch.Tensor]] = None):
+    """The eval batch of rows ``idx``: gathered on the device from the
+    staged arrays ``data`` when there are any, else read from the
+    TaskDataset ``dset`` on the host and copied."""
+    if data is not None:
+        return resident_gather(spec, data, torch.from_numpy(
+            np.asarray(idx)).to(device))
+    x = dset.texts[idx] if spec.modality == "txt" else dset.load_images(idx)
+    y = dset.texts[idx] if spec.modality == "img+txt" \
+        else dset.targets[idx].astype(np.int32)
+    return to_device_batch({"x": x, "y": y}, device)
 
 
 def _route_inputs(cfg: MATConfig, spec: GroupSpec, batch, dtype):
@@ -169,21 +318,41 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
               opt_state, chunk: Dict[str, np.ndarray], lr: float, gen,
-              frozen=None, global_params=None):
-    """Run one host chunk (``[n, S, ...]`` arrays + ``step_valid [n, S]``)
-    of local steps for a client-stacked group, updating ``params`` and
-    ``opt_state`` in place.  ``global_params``: the round's global model,
+              frozen=None, global_params=None,
+              data: Optional[Dict[str, torch.Tensor]] = None):
+    """Run one chunk of local steps for a client-stacked group, updating
+    ``params`` and ``opt_state`` in place.  Host-fed, the chunk holds the
+    gathered ``[n, S, B, ...]`` batches; on the resident plane (``data``:
+    the staged dataset arrays) it holds ``idx`` / ``valid [n, S, B]``, and
+    each step gathers and augments its batch on the device.  Both carry
+    ``step_valid [n, S]``.  ``global_params``: the round's global model,
     which the FedProx term reads.  Returns per-step device tensors (loss,
-    correct, n_valid), each ``[n, S]``; steps no client runs are skipped."""
+    correct, n_valid), each ``[n, S]``; steps no client runs are
+    skipped."""
     device = tree_leaves(params)[0].device
     sv_all = chunk["step_valid"]
+    if data is not None:
+        # the whole chunk's index maps in one copy
+        on_dev = to_device_batch(chunk, device)
     ls, cs, ns = [], [], []
     for s in range(sv_all.shape[1]):
         if not sv_all[:, s].any():
             continue
-        batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
-                                 if k != "step_valid"}, device)
-        sv = torch.from_numpy(sv_all[:, s].copy()).to(device)
+        if data is None:
+            batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
+                                     if k != "step_valid"}, device)
+            sv = torch.from_numpy(sv_all[:, s].copy()).to(device)
+        else:
+            batch = resident_gather(spec, data, on_dev["idx"][:, s],
+                                    on_dev["valid"][:, s])
+            sv = on_dev["step_valid"][:, s]
+            if spec.device_aug:
+                x = batch["x"]
+                x = device_augment(x.reshape((-1,) + tuple(x.shape[2:])),
+                                   gen, spec.aug_crop, spec.aug_randhf,
+                                   spec.aug_randvf, resize=spec.aug_resize)
+                batch["x"] = x.reshape(tuple(sv.shape) + (-1,)
+                                       + tuple(x.shape[1:]))
         loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen,
                                                global_params)
         descend(opt, params, opt_state, loss, lr, frozen, sv)
@@ -235,3 +404,41 @@ def eval_forward(cfg: MATConfig, spec: GroupSpec, params,
         return mat_apply(cfg, params, ins)[slot]
     outs = mat_apply(cfg, params, ins, feat_out=True)
     return outs[spec.img_slot], outs[spec.txt_slot]
+
+
+@torch.no_grad()
+def local_eval(cfg: MATConfig, spec: GroupSpec, params,
+               idx: np.ndarray, valid: np.ndarray,
+               data: Dict[str, torch.Tensor]):
+    """Per-client holdout evaluation of one global model on the resident
+    plane: ``idx`` / ``valid [n, S, B]`` index the staged train arrays.
+    Every step is one eval forward over all ``n`` clients' rows (the
+    weights are shared, so the flattened ``[n·B]`` batch is exact), reduced
+    per client under ``valid``: CE for classification clients (whatever
+    the training criterion), the group's contrastive criterion on each
+    client's slice for img+txt.  Returns float64 device tensors ``[n]``:
+    the loss·count sums, correct counts and valid counts (the
+    ``MetricManager.track`` weighting, src/utils.py:339,347)."""
+    device = tree_leaves(params)[0].device
+    n = idx.shape[0]
+    on_dev = to_device_batch({"idx": idx, "valid": valid}, device)
+    ls, cs, ns = (torch.zeros(n, dtype=torch.float64, device=device)
+                  for _ in range(3))
+    for s in range(idx.shape[1]):
+        if not valid[:, s].any():
+            continue
+        i, v = on_dev["idx"][:, s], on_dev["valid"][:, s]
+        batch = resident_gather(spec, data, i.reshape(-1))
+        out = eval_forward(cfg, spec, params, batch)
+        if spec.modality == "img+txt":
+            fi, ft = (f.reshape(i.shape + f.shape[1:]) for f in out)
+            loss = _mm_criterion(spec.criterion)(fi, ft, v)
+        else:
+            logits = out.reshape(i.shape + out.shape[1:])
+            y = batch["y"].reshape(i.shape)
+            loss = losses.cross_entropy(logits, y, v)
+            cs += ((logits.argmax(-1) == y) & v).sum(-1)
+        nv = v.sum(-1).double()
+        ls += loss.double() * nv
+        ns += nv
+    return ls, cs, ns

@@ -10,7 +10,10 @@ dropout 0, float32), as ``tests/test_torch_port_round.py`` runs its rounds:
   server's; a run stopped after round 1 and resumed equals an unbroken
   two-round run exactly (losses and every leaf);
 * ``--algorithm fedsgd``: one round agrees (loss 1e-5 relative);
-* ``--eval_type local`` stays refused, under every algorithm.
+* ``--eval_type local`` runs under ``fedprox``, ``fediot`` and ``fedadam``
+  as under fedavg (``tests/test_torch_port_local_eval.py``): the clients'
+  holdout results agree with the JAX server's, and no central evaluation
+  runs.
 """
 
 import os
@@ -30,6 +33,7 @@ from fedcola_tpu_torch.federation.server import create_server as tcreate
 from fedcola_tpu_torch.models import convert
 from fedcola_tpu_torch.models.mat import tree_leaves
 
+from test_torch_port_local_eval import check_local_eval, eval_pair
 from test_torch_port_round import FEDCOLA
 
 
@@ -177,11 +181,12 @@ def test_fedsgd_round_matches_jax_server(tmp_path):
 
 
 @pytest.mark.parametrize("algorithm", ["fedprox", "fediot", "fedadam"])
-def test_unported_algorithms_are_refused_by_name(tmp_path, algorithm):
-    """Every algorithm of the JAX package runs in the port; per-client
-    local evaluation does not yet, and each server refuses it by its flag
-    rather than evaluating something else."""
-    cfg = tconfig.parse_args(_flags(tmp_path, algorithm=algorithm)
-                             + ["--device", "cpu", "--eval_type", "local"])
-    with pytest.raises(NotImplementedError, match="--eval_type local"):
-        tcreate(cfg, tload(cfg, np.random.RandomState(cfg.seed)))
+def test_local_eval_matches_jax_server_under_algorithm(tmp_path, algorithm):
+    """Per-client local evaluation runs under every server class, from the
+    port's trained weights, as the JAX server's does."""
+    tserver, jserver, tcalls, jcalls = eval_pair(tmp_path, "local",
+                                                 algorithm)
+    assert type(tserver).__name__ == type(jserver).__name__
+    check_local_eval(tserver, jserver, tcalls, jcalls)
+    assert not any(k.startswith("server_evaluated_")
+                   for k in tserver.results[1])

@@ -80,6 +80,20 @@ result line):
             loss; the augmentation's apply on the card against the CPU
             with the same draws (equal; within 1 uint8 level where a
             resize runs).
+   fixtures the coco.sh FedCola line as written (``main.fixture_flags``:
+            ``--pretrained --use_bert_tokenizer``, path-backed
+            ``--data_paths``) at mome_small width on fixtures written by
+            ``data/fixtures.py`` at scripts/evidence_pretrained.sh's sizes
+            and a ViT-small checkpoint from ``write_timm_vit_checkpoint``:
+            the image towers (and the aux copies) hold the checkpoint at
+            init; ``loss_bound``; three rounds, the third traced
+            (``--profile_every 3``): every group resident, the four fused
+            training kernels launched, text on the native encoder, Coco
+            staged as a deduplicated image store (so retrieval takes the
+            unique-image split), the towers moved off the checkpoint, each
+            ``<ds>.pt`` loaded with ``weights_only`` maps back to the final
+            weights bit for bit, and the trace names the ``fc_*`` ranges;
+            writing, load, staging, export and trace sizes printed.
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
@@ -90,7 +104,7 @@ result line):
             sublayer on the unflattened batch, and fused_mlp against its
             plain version, in bfloat16.
 
-Phases 5 to 8 (and resident, local, augment) each zero the launch
+Phases 5 to 8 (and resident, local, augment, fixtures) each zero the launch
 counters just before and read them just after; a kernel's launches are
 those of the path that runs it.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
@@ -1103,6 +1117,153 @@ def phase_augment():
     return launches
 
 
+# ------------------------------------------------------------ fixtures ----
+
+# scripts/evidence_pretrained.sh's sizes: Coco (train / test images, px),
+# CIFAR100 and AG_NEWS (train / test rows)
+FIXTURE_COCO = (1000, 250, 224)
+FIXTURE_CIFAR = (4800, 1000)
+FIXTURE_AGNEWS = (4800, 1000)
+FIXTURE_TRAINING_KERNELS = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+
+
+def phase_fixtures():
+    """The coco.sh FedCola line with its own data flags
+    (``main.fixture_flags``: ``--pretrained --use_bert_tokenizer`` and
+    path-backed ``--data_paths``) on fixtures written here by the port's
+    writers, and a timm-layout ViT-small checkpoint written here too
+    (``FEDCOLA_PRETRAIN_VIT_SMALL_PATCH16_224``).  ``loss_bound`` card
+    against CPU, then three rounds with ``--profile_every 3`` (round 3
+    traced).  Requires: every group resident, the four training kernels
+    launched, captions on the native encoder, the image towers equal to the
+    checkpoint at init and moved off it by training, Coco staged as a
+    deduplicated image store (train and test, so retrieval takes the
+    unique-image split), each ``<ds>.pt`` loading with ``weights_only`` and
+    mapping back to the final global weights bit for bit, and a trace that
+    names the kernel wrappers' ``fc_*`` ranges."""
+    import numpy as np
+    import torch
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.data import fixtures
+    from fedcola_tpu_torch.data.loaders import load_federated_data
+    from fedcola_tpu_torch.models.mat import tree_leaves, tree_map
+    from fedcola_tpu_torch.models.pretrained import write_timm_vit_checkpoint
+    from fedcola_tpu_torch.models.registry import MODEL_SIZES, create_model
+    from fedcola_tpu_torch.models.torch_io import (from_torch_state_dict,
+                                                   to_torch_state_dict)
+    from fedcola_tpu_torch.native import tokenizer_fast
+    with tempfile.TemporaryDirectory(prefix="fedcola_fixtures_") as d:
+        t0 = time.time()
+        coco = fixtures.coco_fixture(os.path.join(d, "coco"), *FIXTURE_COCO)
+        cifar = fixtures.cifar100_fixture(os.path.join(d, "cifar"),
+                                          *FIXTURE_CIFAR)
+        agnews = fixtures.agnews_fixture(os.path.join(d, "agnews"),
+                                         *FIXTURE_AGNEWS)
+        t_data = time.time() - t0
+        D, depth, _, src, px = MODEL_SIZES["mome_small_patch16"]
+        ckpt = write_timm_vit_checkpoint(
+            os.path.join(d, f"{src}.npz"), D, depth, img_size=px, seed=5)
+        t_ckpt = time.time() - t0 - t_data
+        env = f"FEDCOLA_PRETRAIN_{src.upper()}"
+        os.environ[env] = ckpt
+        try:
+            flags = port_main.fixture_flags(coco, cifar, agnews)
+            cfg = parse_args(list(flags))
+            rows0 = tokenizer_fast.NATIVE_ROWS
+            t0 = time.time()
+            data = load_federated_data(cfg, np.random.RandomState(cfg.seed))
+            t_load = time.time() - t0
+            native = tokenizer_fast.NATIVE_ROWS - rows0
+            log(f"[fixtures] written in {t_data:.1f}s (Coco {FIXTURE_COCO}, "
+                f"CIFAR100 {FIXTURE_CIFAR}, AG_NEWS {FIXTURE_AGNEWS}), "
+                f"checkpoint {os.path.getsize(ckpt) / 1e6:.1f} MB in "
+                f"{t_ckpt:.1f}s; load + decode + tokenize {t_load:.1f}s, "
+                f"{native} captions / rows on the native encoder")
+            if native == 0:
+                raise AssertionError("no text went through the native "
+                                     "encoder")
+            if data.server_eval["Coco"].image_paths is None:
+                raise AssertionError("the Coco test set is not path-backed")
+            with np.load(ckpt) as z:
+                qkv = torch.from_numpy(np.stack(
+                    [z[f"blocks.{j}.attn.qkv.weight"].T
+                     for j in range(depth)]))
+            for ds in ("CIFAR100", "Coco"):
+                mcfg, params = create_model(
+                    cfg.model_name, cfg, ds,
+                    torch.Generator().manual_seed(cfg.seed))
+                tower = params["blk"]["0"]["qkv_kernel"]
+                if not torch.equal(tower, qkv):
+                    raise AssertionError(f"{ds}: image tower is not the "
+                                         f"checkpoint at init")
+                if mcfg.has_aux and not torch.equal(
+                        params["aux"]["qkv_aux"], qkv):
+                    raise AssertionError(f"{ds}: aux not re-synced to the "
+                                         f"loaded kernels")
+            del data, params
+
+            loss_bound("fixtures", flags)
+
+            out = os.path.join(d, "run")
+            rows0 = tokenizer_fast.NATIVE_ROWS
+            launches, server = _run_line("fixtures", flags + (
+                "--R", "3", "--profile_every", "3"), out, resident=True)
+        finally:
+            del os.environ[env]
+        missing = [k for k in FIXTURE_TRAINING_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"[fixtures] never launched {missing}")
+        if tokenizer_fast.NATIVE_ROWS == rows0:
+            raise AssertionError("[fixtures] the run encoded no text on the "
+                                 "native encoder")
+        for key in ("Coco", "eval:Coco"):
+            staged = server._resident_cache.get(key) or {}
+            if "img_store" not in staged:
+                raise AssertionError(f"[fixtures] {key} not staged as a "
+                                     f"deduplicated image store: "
+                                     f"{sorted(staged)}")
+        n_test = server._resident_cache["eval:Coco"]["img_store"].shape[0]
+        if n_test != FIXTURE_COCO[1]:
+            raise AssertionError(f"[fixtures] {n_test} unique test images")
+        for ds in ("CIFAR100", "Coco"):
+            if torch.equal(server.global_params[ds]["blk"]["0"]
+                           ["qkv_kernel"].cpu(), qkv):
+                raise AssertionError(f"[fixtures] {ds} image tower never "
+                                     f"moved off the checkpoint")
+        ckpt_dir = os.path.join(out, "result", server.cfg.exp_name)
+        for ds, params in server.global_params.items():
+            sd = torch.load(os.path.join(ckpt_dir, f"{ds}.pt"),
+                            map_location="cpu", weights_only=True)
+            mcfg = server.model_cfgs[ds]
+            back = from_torch_state_dict(
+                mcfg, tree_map(torch.zeros_like, params), sd)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(back), tree_leaves(params))):
+                raise AssertionError(f"[fixtures] {ds}.pt does not map back "
+                                     f"to the final global weights")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for ds, params in server.global_params.items():
+            torch.save(to_torch_state_dict(server.model_cfgs[ds], params),
+                       os.path.join(d, f"export_{ds}.pt"))
+        t_export = time.time() - t0
+        pt_mb = sum(os.path.getsize(os.path.join(ckpt_dir, f"{ds}.pt"))
+                    for ds in server.global_params) / 1e6
+        trace = os.path.join(out, "log", "trace_round0003", "trace.json")
+        with open(trace) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        wrappers = sorted(n for n in names if n.startswith("fc_"))
+        log(f"[fixtures] .pt export {t_export:.2f}s ({pt_mb:.1f} MB, "
+            f"{len(server.global_params)} files); round 3 traced (its "
+            f"round_seconds include the profiler): "
+            f"{os.path.getsize(trace) / 1e6:.1f} MB, ranges {wrappers}")
+        if not {"fc_attn_fwd", "fc_mlp_fwd"} <= set(wrappers):
+            raise AssertionError(f"[fixtures] the trace names no kernel "
+                                 f"wrapper: {wrappers}")
+    return launches
+
+
 # ---------------------------------------------------------- loss bound ----
 
 LOSS_BOUND = 1e-3   # relative, per round
@@ -1350,7 +1511,8 @@ def main() -> int:
              "tiny": phase_tiny(), "baselines": phase_baselines()}
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
-                 remat=phase_remat(), rows=phase_rows())
+                 fixtures=phase_fixtures(), remat=phase_remat(),
+                 rows=phase_rows())
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():

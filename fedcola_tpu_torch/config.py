@@ -211,7 +211,7 @@ class ExperimentConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     checkpoint_every: int = 0                # 0 = only final (reference parity)
-    profile_every: int = 0                   # accepted, not used by the port
+    profile_every: int = 0                   # torch.profiler trace every N rounds
     detect_anomaly: bool = False             # non-finite loss raises at once
     moment_dtype: str = "float32"            # Adam moment storage (bfloat16 halves opt-state HBM)
     # FedOpt-family server step size.  None = this round's --lr (the

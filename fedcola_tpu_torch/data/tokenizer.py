@@ -12,8 +12,9 @@ pipeline (basic tokenizer: clean -> CJK spacing -> lowercase+strip accents
 never need network access.  When the ``transformers`` wheel has a cached
 ``bert-base-uncased`` it can be used instead; otherwise pass a vocab file.
 
-This copy keeps the pure-Python encoder only; the C++ batch-encoding fast
-path of the JAX package is not carried over.
+``encode_batch`` runs the C++ batch encoder (``fedcola_tpu_torch/native``)
+where it gives the same ids: default semantics, ASCII strings.  This module
+is the reference implementation and the encoder for everything else.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import unicodedata
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
+
+from fedcola_tpu_torch.native import tokenizer_fast
 
 logger = logging.getLogger(__name__)
 
@@ -165,6 +168,12 @@ class WordPieceTokenizer:
         return np.asarray(ids, dtype=np.int32)
 
     def encode_batch(self, texts: Iterable[str], max_length: int = 40) -> np.ndarray:
+        texts = list(texts)
+        if tokenizer_fast.supports(self, max_length):
+            lib = tokenizer_fast.load()
+            if lib is not None:
+                return tokenizer_fast.encode_batch(lib, self, texts,
+                                                   max_length)
         return np.stack([self.encode(t, max_length) for t in texts])
 
 

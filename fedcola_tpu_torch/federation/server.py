@@ -21,10 +21,11 @@ Per round (compare ``update()``, fedavgserver.py:784-856):
 
 ``fedavg``, ``fedsgd``, ``fedprox`` (the proximal term in the client loss)
 and ``fediot`` (a sharing rule on this machinery) run here, with
-``--fedavg_eval``, ``.npz`` checkpoints and per-client local evaluation
-(``--eval_type local|both``); ``create_server`` also builds the FedOpt
-family (``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).
-The ``.pt`` export and the mesh are later slices of the port.
+``--fedavg_eval``, ``.npz`` checkpoints, per-client local evaluation
+(``--eval_type local|both``) and the reference-format ``.pt`` export of
+``finalize``; ``create_server`` also builds the FedOpt family
+(``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).  The
+mesh is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
                                           stack_clients, tree_leaves,
                                           tree_map)
 from fedcola_tpu_torch.models.registry import create_model
+from fedcola_tpu_torch.models.torch_io import to_torch_state_dict
 from fedcola_tpu_torch.ops.losses import clip_contrastive, cross_entropy
 from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
                                                       build_frozen_mask,
@@ -778,9 +780,14 @@ class FedAvgServer:
             json.dump(json_sanitize({str(k): v
                                      for k, v in self.results.items()}), f,
                       indent=4, default=float)
-        self.save_checkpoint(os.path.join(cfg.result_path, cfg.exp_name))
-        logger.info("reference-format .pt state dicts are not written: "
-                    "models/torch_io.py is not ported yet")
+        ckpt_dir = os.path.join(cfg.result_path, cfg.exp_name)
+        self.save_checkpoint(ckpt_dir)
+        # reference-format final checkpoints: a state dict per dataset under
+        # the reference's parameter names and layouts (fedavgserver.py:
+        # 884-898), which its ModalityAgnosticTransformer loads strictly
+        for ds, params in self.global_params.items():
+            torch.save(to_torch_state_dict(self.model_cfgs[ds], params),
+                       os.path.join(ckpt_dir, f"{ds}.pt"))
         if self.writer:
             self.writer.finish()
         logger.info("[%s] finished federated learning (%d rounds)",

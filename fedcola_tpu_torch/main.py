@@ -5,10 +5,12 @@
 
 R rounds of ``server.update()``, ``server.evaluate`` every ``eval_every``
 rounds and after the last, then the results JSON and the final ``.npz``
-checkpoint under ``<result_path>/<exp_name>/``.  ``--checkpoint_every N``
-also saves every N rounds to ``<result_path>/<exp_name>/ckpt``; a run that
-finds that directory resumes from it.  Runs on the card unless ``--device
-cpu`` is given.
+checkpoint and one reference-format ``<ds>.pt`` state dict per dataset
+under ``<result_path>/<exp_name>/``.  ``--checkpoint_every N`` also saves
+every N rounds to ``<result_path>/<exp_name>/ckpt``; a run that finds that
+directory resumes from it.  ``--profile_every N`` traces the update of
+every N-th round (``<log_path>/trace_round<r>/trace.json``).  Runs on the
+card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -80,6 +82,18 @@ FEDADAM_FLAGS = _baseline("FedAdam_coco", "fedadam", _FEDCOLA_SHARING,
                           "--server_lr", "0.1")
 
 
+def fixture_flags(coco: str, cifar: str, agnews: str) -> tuple:
+    """The scripts/coco.sh FedCola line with its own data flags (``COMMON``,
+    scripts/coco.sh:13-21: ``--pretrained --use_bert_tokenizer`` and
+    path-backed ``--data_paths``) on the fixture roots of
+    ``data/fixtures.py``, cut as ``MAIN_PATH_FLAGS`` is.  ``--pretrained``
+    reads the checkpoint named by ``FEDCOLA_PRETRAIN_<SRC>`` (see
+    ``models/pretrained.py``)."""
+    flags = [f for f in MAIN_PATH_FLAGS if f != "--synthetic_data"]
+    return tuple(flags) + ("--pretrained", "--use_bert_tokenizer",
+                           "--data_paths", cifar, agnews, coco, coco)
+
+
 class JsonlWriter:
     """Per-round metrics as JSON lines under ``--result_path``."""
 
@@ -106,6 +120,7 @@ def main(argv=None):
     from fedcola_tpu_torch.federation.server import (create_server,
                                                      resolve_device)
     from fedcola_tpu_torch.utils.logging import set_logger
+    from fedcola_tpu_torch.utils.profiling import round_trace
     from fedcola_tpu_torch.utils.seeding import set_seed
 
     cfg = parse_args(argv)
@@ -128,7 +143,9 @@ def main(argv=None):
         logger.info("resumed from checkpoint at round %d", server.round)
     for r in range(server.round + 1, cfg.R + 1):
         server.round = r
-        server.update()
+        with round_trace(cfg.profile_every > 0 and r % cfg.profile_every == 0,
+                         cfg.log_path, r):
+            server.update()
         if (cfg.eval_every > 0 and r % cfg.eval_every == 0) or r == cfg.R:
             server.evaluate([])
         if cfg.checkpoint_every and r % cfg.checkpoint_every == 0:

@@ -11,6 +11,7 @@ import torch
 from fedcola_tpu_torch.config import (DATASET_2_MODALITY, DATASET_2_TASK,
                                       ExperimentConfig, NUM_CLASS, VOCAB_SIZES)
 from fedcola_tpu_torch.models.mat import MATConfig, init_mat
+from fedcola_tpu_torch.models.pretrained import load_pretrained_vit
 
 # (embed_dim, depth, num_heads, pretrained timm source, img_size)
 MODEL_SIZES = {
@@ -64,9 +65,9 @@ def build_mat_config(model_name: str, cfg: ExperimentConfig,
 
 def create_model(model_name: str, cfg: ExperimentConfig, dataset: str,
                  gen: torch.Generator) -> Tuple[MATConfig, dict]:
-    if cfg.pretrained:
-        raise NotImplementedError(
-            "--pretrained: importing timm ViT weights (models/pretrained.py) "
-            "is a later slice of the port")
     mat_cfg = build_mat_config(model_name, cfg, dataset)
-    return mat_cfg, init_mat(mat_cfg, gen)
+    params = init_mat(mat_cfg, gen)
+    if cfg.pretrained:
+        params = load_pretrained_vit(mat_cfg, params,
+                                     MODEL_SIZES[model_name][3])
+    return mat_cfg, params

@@ -36,7 +36,15 @@ result line):
             call sequence per client, so host launches count in it; SDPA
             alone for flash attention).  Kernels 1-4 also at CreamFL's
             distillation shape (n=1, B=128 public rows, a dout on every
-            token).
+            token).  Past the resident kernels' 256 keys, where every
+            attention kernel streams the keys: rows 1, 1e, 2, 5, 11, 11e
+            and 12 (and the MLP rows, whose products do not depend on N)
+            at N = 257 and 512, bfloat16 at the same shapes and float32
+            at B = 8, every output and gradient, bitwise repeats in both
+            dtypes; the fused rows at N = 1536 (n=2, B=4) and the flash
+            rows at N = 1024 (n=2, B=8); bf16 at N = 512 timed; the route at
+            N = 1025 (flash: ``attention_xla``, no launch; fused: its
+            kernel).
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -104,13 +112,25 @@ result line):
             sublayer on the unflattened batch, and fused_mlp against its
             plain version, in bfloat16.
 
-Phases 5 to 8 (and resident, local, augment, fixtures) each zero the launch
+9. long     the long-text line (``main.MEDABS_LONG_FLAGS``: the
+            MedicalAbstracts line of scripts/evidence_medabstracts.sh at
+            ``--seq_len 512``, mome_small full width and depth, B=96):
+            ``loss_bound``, two rounds (round and eval seconds, acc1 and
+            f1, staged bytes, peak memory), one group update under
+            'save_attn' (row 5 at N = 512) and one mome_tiny round of the
+            same line (rows 11, 11e and 12 at N = 512); every attention
+            launch of the phase is at N = 512, and each of rows 1, 1e, 2,
+            3, 3e, 4, 5, 6, 11 and 12 must launch.
+
+Phases 5 to 9 (and resident, local, augment, fixtures) each zero the launch
 counters just before and read them just after; a kernel's launches are
 those of the path that runs it.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
 N=197 training-shape times, under "eval" the eval-shape times of the
-kernels central eval runs and under "distill" those of kernels 1-4 at
-the distillation shape); the last line is ``{"ok": true, "device":
+kernels central eval runs, under "distill" those of kernels 1-4 at the
+distillation shape, and under "long" and "long_eval" the N = 512 times at
+the training and eval shapes, "long" with the [long] phase's launches);
+the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -205,7 +225,10 @@ def check_sass(kernels) -> None:
             "flash_fwd.o": ("HMMA",), "flash_bwd.o": ("HMMA",)}
     # the mangled template arguments: ILi64ELi2EE is <64, 2>
     pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel|"
-                         r"attn_fwd_head_kernel)I((?:L[ib]\d+E)+)E")
+                         r"attn_fwd_head_kernel|attn_fwd_head_stream_kernel|"
+                         r"attn_bwd_head_rows_stream_kernel|"
+                         r"attn_bwd_head_cols_stream_kernel)"
+                         r"I((?:L[ib]\d+E)+)E")
     for name, ops in want.items():
         obj = str(kernels.BUILD_DIR / name)
         run = lambda flag: subprocess.run(
@@ -276,10 +299,9 @@ def _compare(got, ref, dtype, what):
 
 
 def _same_bits(fn, args, first, name):
-    """A second call of a bf16 kernel gives the first call's bits."""
+    """A second call of a kernel gives the first call's bits (no atomics
+    on any path, float32 or bfloat16)."""
     import torch
-    if first[0].dtype != torch.bfloat16:
-        return
     again = fn(*args)
     for a, b in zip(first, [again] if torch.is_tensor(again) else again):
         if not torch.equal(a, b):
@@ -366,6 +388,9 @@ def check_attention(N, dtype, dev, timing, n=2, B=96):
     from fedcola_tpu_torch.ops import fused_attention as fa
     D, H = 384, 6
     t = _attn_inputs(n, B, N, dtype, dev)
+    if not bool((t["s"] != 0).any()):
+        raise AssertionError(f"n={n}, B={B}, N={N}: every DropPath scale "
+                             f"is 0, so the backward would check nothing")
     w = [t[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj", "bproj")]
     res = {}
     got = fa.attn_fwd(t["x"], t["s"], *w, H, save=True)
@@ -476,13 +501,13 @@ def _lib_grad_timer(lib, t, wnames, dout):
                                                retain_graph=True))
 
 
-def check_remat(N, dtype, dev, timing):
+def check_remat(N, dtype, dev, timing, n=2, B=96):
     """Kernels 5 and 6, the backward of the remat policies, at the
     training shape (n=2, B=96): the recompute attention backward and the
     MLP backward without residual."""
     from fedcola_tpu_torch.ops import fused_attention as fa
     from fedcola_tpu_torch.ops import fused_mlp as fm
-    n, B, D, H = 2, 96, 384, 6
+    D, H = 384, 6
     ta = _attn_inputs(n, B, N, dtype, dev)
     wa = [ta[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj")]
     args5 = (ta["x"], *wa, ta["da"], H)
@@ -596,12 +621,12 @@ def _sdpa(q, k, v, scale):
     return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
 
 
-def check_flash(N, dtype, dev, timing):
+def check_flash(N, dtype, dev, timing, n=2, B=96):
     """Kernels 11 and 12 at mome_tiny's training shape (n=2, B=96, H=3,
     hd=64): one launch covers all n*B*H pairs."""
     import torch
     from fedcola_tpu_torch.ops import flash_attention as fl
-    t = _flash_inputs(2, 96, N, dtype, dev)
+    t = _flash_inputs(n, B, N, dtype, dev)
     q, k, v, do = (t[x] for x in ("q", "k", "v", "do"))
     scale = 64 ** -0.5
     got = fl.flash_fwd(q, k, v, scale)
@@ -635,7 +660,7 @@ def check_flash(N, dtype, dev, timing):
     return res
 
 
-def check_eval(N, dtype, dev, timing):
+def check_eval(N, dtype, dev, timing, B=500):
     """Kernels 1 and 3 with the eval flags (no saves, no residual), and the
     flash forward (mome_tiny), at the central evaluation's shape: the
     unstacked global model (n=1) on one batch of min(--eval_batch_size
@@ -644,7 +669,7 @@ def check_eval(N, dtype, dev, timing):
     from fedcola_tpu_torch.ops import flash_attention as fl
     from fedcola_tpu_torch.ops import fused_attention as fa
     from fedcola_tpu_torch.ops import fused_mlp as fm
-    n, B, D, H = 1, 500, 384, 6
+    n, D, H = 1, 384, 6
     ta = _attn_inputs(n, B, N, dtype, dev)
     wa = [ta[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj", "bproj")]
     got = fa.attn_fwd(ta["x"], None, *wa, H, save=False)[0]
@@ -694,18 +719,46 @@ def check_eval(N, dtype, dev, timing):
     return res
 
 
+LONG_N = 512                # the long-text line's --seq_len
+
+
+def _report(name, shape, dtype, N, r, timing):
+    """One [kernels] line: the error, and with ``timing`` the times, the
+    bound and the achieved rate."""
+    line = (f"[kernels] {name:18s} {shape:9s} {str(dtype)[6:]:8s} N={N:4d} "
+            f"max|d|={r['max_abs_err']:.3e}")
+    if timing:
+        bound, by = _bound(r["flops"], r["bytes"], dtype)
+        r.update(bound_ms=bound, bound_by=by)
+        line += (f" ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                 f"library_ms={r['library_ms']:.4f} bound_ms={bound:.4f} "
+                 f"({by}) ms/bound={r['ms'] / bound:.1f} "
+                 f"ms/library={r['ms'] / r['library_ms']:.1f} "
+                 f"TFLOP/s={r['flops'] / r['ms'] / 1e9:.1f}")
+    log(line)
+
+
 def phase_kernels():
     """Every kernel against its plain version at every shape its path
     gives it.  Returns, per kernel, the bf16 N=197 training-shape
     measurements (the image stack, the main path's largest shape), the
     bf16 N=197 eval-shape ones under "eval", the distillation-shape ones
-    under "distill", and the worst absolute error of all its
-    comparisons."""
+    under "distill", the bf16 N=512 ones (the long-text line, the keys
+    streamed) under "long" and "long_eval", and the worst absolute error
+    of all its comparisons."""
     import functools
     import torch
     dev = torch.device("cuda")
     distill = dict(n=1, B=128)
     measured, worst = {}, {}
+
+    def record(res, shape, dtype, N, timing, key=None):
+        for name, r in res.items():
+            worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+            _report(name, shape, dtype, N, r, timing)
+            if timing and key:
+                measured[key(name)] = r
+
     for dtype in (torch.float32, torch.bfloat16):
         timing = dtype == torch.bfloat16
         for N in (197, 40):
@@ -716,35 +769,80 @@ def phase_kernels():
                     ("distill", functools.partial(check_attention,
                                                   **distill)),
                     ("distill", functools.partial(check_mlp, **distill))):
-                res = check(N, dtype, dev, timing)
-                for name, r in res.items():
-                    worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
-                    line = (f"[kernels] {name:18s} {shape:5s} "
-                            f"{str(dtype)[6:]:8s} N={N:3d} "
-                            f"max|d|={r['max_abs_err']:.3e}")
-                    if timing:
-                        bound, by = _bound(r["flops"], r["bytes"], dtype)
-                        r.update(bound_ms=bound, bound_by=by)
-                        line += (f" ms={r['ms']:.4f} plain_ms="
-                                 f"{r['plain_ms']:.4f} library_ms="
-                                 f"{r['library_ms']:.4f} bound_ms={bound:.4f}"
-                                 f" ({by}) ms/bound={r['ms'] / bound:.1f}"
-                                 f" ms/library="
-                                 f"{r['ms'] / r['library_ms']:.1f}"
-                                 f" TFLOP/s="
-                                 f"{r['flops'] / r['ms'] / 1e9:.1f}")
-                        if N == 197 and shape in ("eval", "distill"):
-                            measured[f"{name}:{shape}"] = r
-                        elif N == 197:
-                            measured[name] = r
-                    log(line)
+                key = None
+                if N == 197:
+                    key = ((lambda k, s=shape: f"{k}:{s}")
+                           if shape in ("eval", "distill") else str)
+                record(check(N, dtype, dev, timing), shape, dtype, N, timing,
+                       key)
                 torch.cuda.empty_cache()
+    check_long_kernels(dev, record)
     for name in worst:
         measured[name]["max_abs_err"] = worst[name]
-        for shape in ("eval", "distill"):
+        for shape in ("eval", "distill", "long", "long_eval"):
             if f"{name}:{shape}" in measured:
                 measured[name][shape] = measured.pop(f"{name}:{shape}")
     return measured
+
+
+def check_long_kernels(dev, record):
+    """Past the resident kernels' 256 keys, where every attention kernel
+    streams the keys: rows 1, 1e, 2, 5, 11, 11e and 12 (and the MLP rows
+    3, 3e, 4 and 6, whose products do not depend on N) at N = 257 (the
+    edge) and 512 (the long line), in bfloat16 at the path's shapes and
+    in float32 (the CUDA-core kernels) at B = 8, forward and every
+    gradient, each called twice for the same bits; bf16 at N = 512 timed
+    ("long": training shape, "long_eval": central eval's).  Then the far
+    ends at a batch small enough for the plain versions' memory: the fused
+    rows at N = 1536 (n=2, B=4), the flash rows at N = 1024 (n=2, B=8).
+    Last, the route at N = 1025: the flash route runs ``attention_xla``
+    (no flash launch), the fused route its kernel."""
+    import torch
+    from fedcola_tpu_torch.ops import flash_attention as fl
+    from fedcola_tpu_torch.ops import fused_attention as fa
+    from fedcola_tpu_torch.ops import kernels
+    from fedcola_tpu_torch.ops.attention import attention_xla
+    for dtype in (torch.float32, torch.bfloat16):
+        small = dtype == torch.float32
+        for N in (257, LONG_N):
+            timing = dtype == torch.bfloat16 and N == LONG_N
+            for shape, check in (("long", check_attention),
+                                 ("long", check_mlp), ("long", check_remat),
+                                 ("long", check_flash),
+                                 ("long_eval", check_eval)):
+                size = {} if not small else (
+                    dict(B=8) if check is check_eval else dict(n=2, B=8))
+                record(check(N, dtype, dev, timing, **size), shape, dtype, N,
+                       timing, lambda k, s=shape: f"{k}:{s}")
+                torch.cuda.empty_cache()
+        for N, check, size in ((1536, check_attention, dict(n=2, B=4)),
+                               (1536, check_remat, dict(n=2, B=4)),
+                               (1024, check_flash, dict(n=2, B=8))):
+            record(check(N, dtype, dev, False, **size), "far", dtype, N,
+                   False)
+            torch.cuda.empty_cache()
+    # the route past MAX_FUSED_SEQ
+    N = fl.MAX_FUSED_SEQ + 1
+    t = _flash_inputs(1, 2, N, torch.bfloat16, dev)
+    leaves = [t[k].clone().requires_grad_(True) for k in ("q", "k", "v")]
+    kernels.reset_launches()
+    o = fl.flash_attention(*leaves, 0.125)
+    grads = torch.autograd.grad(o, leaves, t["do"])
+    ref = attention_xla(*leaves, 0.125)
+    same = torch.equal(o, ref) and all(
+        torch.equal(a, b) for a, b in
+        zip(grads, torch.autograd.grad(ref, leaves, t["do"])))
+    flash_launches = kernels.LAUNCHES["flash_fwd"] + \
+        kernels.LAUNCHES["flash_bwd"]
+    ta = _attn_inputs(1, 2, N, torch.bfloat16, dev)
+    wa = [ta[k] for k in ("lns", "lnb", "wqkv", "bqkv", "wproj", "bproj")]
+    out = fa.attn_fwd(ta["x"], None, *wa, 6, save=False)[0]
+    log(f"[kernels] route N={N}: flash route launches {flash_launches} "
+        f"kernels and equals attention_xla bitwise ({same}); fused route "
+        f"launches attn_fwd {kernels.LAUNCHES['attn_fwd']} time(s), "
+        f"finite {bool(torch.isfinite(out.float()).all())}")
+    if flash_launches or not same or kernels.LAUNCHES["attn_fwd"] != 1:
+        raise AssertionError(f"route at N={N}: {dict(kernels.LAUNCHES)}")
 
 
 # --------------------------------------------------------------- model ----
@@ -1264,6 +1362,103 @@ def phase_fixtures():
     return launches
 
 
+# ---------------------------------------------------------------- long ----
+
+def _long_remat_step(flags):
+    """One group update of the long line's text group (n=2 clients, one
+    step of B=96 at N = 512) under remat 'save_attn', where the attention
+    backward is row 5 (``fc_attn_bwd_recompute``) and the MLP's row 6.
+    Returns the launch counts."""
+    import math
+    import numpy as np
+    import torch
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.models.mat import stack_clients, tree_map
+    from fedcola_tpu_torch.models.registry import create_model
+    from fedcola_tpu_torch.ops import kernels
+    from fedcola_tpu_torch.parallel.client_update import GroupSpec, run_chunk
+    from fedcola_tpu_torch.parallel.optim import (init_opt_state,
+                                                  make_optimizer_spec)
+    cfg = parse_args(list(flags))
+    mcfg, params = create_model(cfg.model_name, cfg, "MedicalAbstracts",
+                                torch.Generator().manual_seed(cfg.seed))
+    n, S, B = 2, 1, cfg.B
+    r = np.random.RandomState(0)
+    chunk = {"x": r.randint(0, mcfg.vocab_size,
+                            (n, S, B, mcfg.max_text_len)).astype(np.int32),
+             "y": r.randint(0, 5, (n, S, B)).astype(np.int64),
+             "valid": np.ones((n, S, B), bool),
+             "step_valid": np.ones((n, S), bool)}
+    stacked = tree_map(lambda a: a.cuda().requires_grad_(True),
+                       stack_clients(params, n))
+    opt = make_optimizer_spec(cfg)
+    state = init_opt_state(opt, stacked, n)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ls, _, _ = run_chunk(mcfg.replace(remat_policy="save_attn"),
+                         GroupSpec(modality="txt",
+                                   criterion="CrossEntropyLoss"),
+                         opt, stacked, state, chunk, cfg.lr,
+                         torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    losses = ls.float().cpu().flatten().tolist()
+    log(f"[long] 'save_attn' group update at N={mcfg.max_text_len}: losses "
+        f"{losses} in {time.time() - t0:.2f}s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[long] save_attn: non-finite loss {losses}")
+    return launches
+
+
+def phase_long():
+    """The long-text line (``main.MEDABS_LONG_FLAGS``: the
+    MedicalAbstracts line of scripts/evidence_medabstracts.sh at
+    ``--seq_len 512``, mome_small at full width and depth, B=96): its loss
+    bound, two rounds, one 'save_attn' group update, and one mome_tiny
+    round of the same line (the flash route at N = 512).  Every attention
+    launch here is at N = 512 (a text-only model at 512 tokens).  Returns
+    the launch counts of the four runs together."""
+    import math
+    from fedcola_tpu_torch import main as port_main
+    flags = port_main.MEDABS_LONG_FLAGS
+    loss_bound("long", flags)
+    launches, server = run_line("long", flags)
+    mcfg = server.model_cfgs["MedicalAbstracts"]
+    if mcfg.modalities != (None, "txt") or mcfg.max_text_len != LONG_N:
+        raise AssertionError(f"[long] model {mcfg.modalities} at "
+                             f"{mcfg.max_text_len} tokens")
+    for r in sorted(server.results):
+        m = server.results[r]["server_evaluated_MedicalAbstracts"]["metrics"]
+        log(f"[long] round {r}: acc1 {m['acc1']} f1 {m['f1']}")
+        if not all(math.isfinite(v) for v in (m["acc1"], m["f1"])):
+            raise AssertionError(f"[long] round {r}: metrics {m}")
+    total = dict(launches)
+    for k, v in _long_remat_step(flags).items():
+        total[k] += v
+    tiny = tuple("mome_tiny_patch16" if prev == "--model_name" else
+                 ("1" if prev == "--R" else flag)
+                 for prev, flag in zip(("",) + flags, flags))
+    tiny_launches, _ = run_line("long-tiny", tiny)
+    fused = {k: v for k, v in tiny_launches.items()
+             if v and not k.startswith("flash")}
+    if fused:
+        raise AssertionError(f"[long-tiny] launched fused kernels: {fused}")
+    for k, v in tiny_launches.items():
+        total[k] += v
+    want = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd",
+            "attn_bwd_recompute", "mlp_bwd_nores", "flash_fwd", "flash_bwd")
+    log(f"[long] launches at N={LONG_N}: "
+        f"{ {k: total[k] for k in want} }")
+    missing = [k for k in want if not total[k]]
+    if missing:
+        raise AssertionError(f"[long] never launched {missing}")
+    return total
+
+
 # ---------------------------------------------------------- loss bound ----
 
 LOSS_BOUND = 1e-3   # relative, per round
@@ -1512,7 +1707,7 @@ def main() -> int:
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
                  fixtures=phase_fixtures(), remat=phase_remat(),
-                 rows=phase_rows())
+                 rows=phase_rows(), long=phase_long())
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
@@ -1521,14 +1716,19 @@ def main() -> int:
                "replaces": replaces, "launches": paths[path][name],
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
-        for shape in ("eval", "distill"):
+        for shape in ("eval", "distill", "long", "long_eval"):
             if shape in m:
-                # the same entry point at central evaluation's or CreamFL
-                # distillation's shape
+                # the same entry point at central evaluation's, CreamFL
+                # distillation's or the long line's shape (N = 512)
                 row[shape] = {k: m[shape][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if "long" in row:
+            # the long line's launches (every one at N = 512)
+            row["long"]["launches"] = paths["long"][name]
         rows.append(row)
-    missing = [r["name"] for r in rows if r["launches"] == 0]
+    missing = [r["name"] for r in rows if r["launches"] == 0] + \
+        [r["name"] + " (long)" for r in rows
+         if "long" in r and r["long"]["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")

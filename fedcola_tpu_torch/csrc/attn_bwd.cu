@@ -20,15 +20,17 @@
 // blocks run in no order, so every reduction over rows has one owner and a
 // fixed order.  No atomics: results are the same on every run.
 //
-// bf16 with hd in {16, 32, 64} (so D % 16 == 0; N <= 256 always) runs
+// bf16 with hd in {16, 32, 64} (so D % 16 == 0), at every N, runs
 // attn_bwd_sm90:
 //   1. ln_fwd (LN1), then qkv = T(h.Wqkv + bqkv) on gemm_sm90.cuh's TMA +
 //      wgmma mainloop, the bias added in the epilogue before rounding;
 //   2. dbproj's column sums of the f32 s*da, the same pass writing dac =
 //      T(s*da); dO = T(dac.Wproj^T) on the mainloop;
-//   3. the per-head backward, one fused launch on tensor cores
-//      (attn_bwd_core.cuh): dq | dk | dv written straight as the bf16 dqkvc,
-//      dbqkv's f32 column sums per (item, head) into hpart, and (recompute)
+//   3. the per-head backward on tensor cores (attn_bwd_core.cuh): one fused
+//      launch up to N = 256, past it a row and a column kernel that stream
+//      the keys (the row statistics through the f32 scratch stats);
+//      dq | dk | dv written straight as the bf16 dqkvc, dbqkv's f32 column
+//      sums per (item, head[, query block]) into hpart, and (recompute)
 //      cat; P and dS never reach device memory;
 //   4. dWproj = cat^T.dac and dWqkv = h^T.dqkvc: each client's rows cut into
 //      split ranges (planned by the caller from the rows and the output
@@ -38,8 +40,10 @@
 // f32, and bf16 off that grid, run attn_bwd_impl: the same function on
 // common.cuh's gemm_kernel with the per-head backward on CUDA cores in two
 // passes per (item, head), a row pass (dP, delta, dS and dQ) and a column
-// pass (dK and dV), dS and the f32 dqkv going through device memory.  The
-// choice is made here, by dtype and shape alone.
+// pass (dK and dV), dS and the f32 dqkv going through device memory; past
+// N = 256 the row pass streams the keys and the column pass owns a block
+// of AB_KR keys (the *_stream_kernel pair below).  The choice is made
+// here, by dtype and shape alone.
 #include "attn_bwd_core.cuh"
 #include "attn_core.cuh"
 #include "attn_sm90.cuh"
@@ -47,9 +51,10 @@
 namespace {
 
 constexpr int AB_WARPS = 8;
-constexpr int AB_MAXR = 8;    // keys per lane: N <= 256
+constexpr int AB_MAXR = 8;    // keys per lane of the resident row pass
 constexpr int AB_MAXHD = 64;  // hd <= 64
 constexpr int AB_RC = 32;     // rows per chunk in the column pass
+constexpr int AB_KR = 32;     // streamed column pass: keys a block
 
 // Row pass: one warp per query row i of one (item, head).
 //   dP[i,j] = dO[i] . V[j];  delta_i = sum_j dP[i,j] P[i,j]
@@ -213,6 +218,227 @@ attn_bwd_cols_kernel(const T* qkv, const T* P, const T* dO, const T* dS,
   }
 }
 
+// The streamed row pass (N > AT_RESIDENT_N): grid (H, items, ceil(N /
+// AT_QR)), one warp per AT_QR / AB_WARPS query rows of the block, the keys
+// and values in chunks of AT_KC rows (one a lane).  Pass 1: delta (and,
+// RECOMP, the row max and sum, delta's numerator carried under the running
+// max); pass 2: dS = T(P (dP - delta)) written, dQ accumulated.  Shared
+// memory: the block's q and dO rows, one K and V chunk, one dS row a warp.
+template <typename T, bool RECOMP>
+__global__ void __launch_bounds__(AB_WARPS * 32)
+attn_bwd_rows_stream_kernel(const T* qkv, const T* P, const T* dO, T* dS,
+                            float* dqkv, int N, int D, int H, float scale) {
+  constexpr int RPW = AT_QR / AB_WARPS;
+  extern __shared__ float smf[];
+  const int hd = D / H, ld = hd + 1;
+  float* Qs = smf;                 // [AT_QR][hd+1]
+  float* Gs = Qs + AT_QR * ld;     // [AT_QR][hd+1] (dO)
+  float* Ks = Gs + AT_QR * ld;     // [AT_KC][hd+1]
+  float* Vs = Ks + AT_KC * ld;     // [AT_KC][hd+1]
+  float* sw = Vs + AT_KC * ld;     // [warps][AT_KC]
+
+  const int h = blockIdx.x;
+  const long long item = blockIdx.y;
+  const int q0 = blockIdx.z * AT_QR, nq = min(AT_QR, N - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* base = qkv + item * N * 3LL * D;
+  for (int e = tid; e < nq * hd; e += blockDim.x) {
+    const int i = e / hd, d = e % hd;
+    const long long row = (long long)(q0 + i);
+    Qs[i * ld + d] = to_f(base[row * 3 * D + h * hd + d]);
+    Gs[i * ld + d] = to_f(dO[(item * N + row) * D + h * hd + d]);
+  }
+  float m[RPW], l[RPW], dl[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) { m[r] = -INFINITY; l[r] = 0.0f; dl[r] = 0.0f; }
+  float* ds = sw + warp * AT_KC;
+
+  // pass 1
+  for (int j0 = 0; j0 < N; j0 += AT_KC) {
+    const int kc = min(AT_KC, N - j0);
+    __syncthreads();
+    for (int e = tid; e < kc * hd; e += blockDim.x) {
+      const int j = e / hd, d = e % hd;
+      const long long row = (long long)(j0 + j) * 3 * D + h * hd + d;
+      Ks[j * ld + d] = to_f(base[row + D]);
+      Vs[j * ld + d] = to_f(base[row + 2 * D]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = warp * RPW + r;
+      if (i >= nq) continue;
+      float dp = 0.0f, s = -INFINITY;
+      if (lane < kc) {
+        const float* gr = Gs + i * ld;
+        const float* vr = Vs + lane * ld;
+        for (int d = 0; d < hd; ++d) dp += gr[d] * vr[d];
+        if (RECOMP) {
+          const float* qr = Qs + i * ld;
+          const float* kr = Ks + lane * ld;
+          float a = 0.0f;
+          for (int d = 0; d < hd; ++d) a += qr[d] * kr[d];
+          s = a * scale;
+        }
+      }
+      if (RECOMP) {
+        const float mn = fmaxf(m[r], warp_max(s));
+        const float corr = expf(m[r] - mn);
+        const float e = lane < kc ? expf(s - mn) : 0.0f;
+        l[r] = l[r] * corr + warp_sum(e);
+        dl[r] = dl[r] * corr + warp_sum(e * dp);
+        m[r] = mn;
+      } else {
+        const float pv = lane < kc ? to_f(P[((item * H + h) * N + q0 + i) *
+                                                (long long)N + j0 + lane])
+                                   : 0.0f;
+        dl[r] += warp_sum(pv * dp);
+      }
+    }
+  }
+  float delta[RPW], dq[RPW][2];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    delta[r] = RECOMP ? dl[r] / l[r] : dl[r];
+    dq[r][0] = 0.0f;
+    dq[r][1] = 0.0f;
+  }
+
+  // pass 2
+  for (int j0 = 0; j0 < N; j0 += AT_KC) {
+    const int kc = min(AT_KC, N - j0);
+    __syncthreads();
+    for (int e = tid; e < kc * hd; e += blockDim.x) {
+      const int j = e / hd, d = e % hd;
+      const long long row = (long long)(j0 + j) * 3 * D + h * hd + d;
+      Ks[j * ld + d] = to_f(base[row + D]);
+      Vs[j * ld + d] = to_f(base[row + 2 * D]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = warp * RPW + r;
+      if (i >= nq) continue;
+      if (lane < kc) {
+        const long long at =
+            ((item * H + h) * N + q0 + i) * (long long)N + j0 + lane;
+        const float* gr = Gs + i * ld;
+        const float* vr = Vs + lane * ld;
+        float dp = 0.0f;
+        for (int d = 0; d < hd; ++d) dp += gr[d] * vr[d];
+        float pv;
+        if (RECOMP) {
+          const float* qr = Qs + i * ld;
+          const float* kr = Ks + lane * ld;
+          float a = 0.0f;
+          for (int d = 0; d < hd; ++d) a += qr[d] * kr[d];
+          pv = expf(a * scale - m[r]) / l[r];
+        } else {
+          pv = to_f(P[at]);
+        }
+        const T st = from_f<T>(pv * (dp - delta[r]));
+        dS[at] = st;
+        ds[lane] = to_f(st);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < hd) {
+          float a = 0.0f;
+          for (int j = 0; j < kc; ++j) a += ds[j] * Ks[j * ld + d];
+          dq[r][dd] += a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int i = warp * RPW + r;
+    if (i >= nq) continue;
+#pragma unroll
+    for (int dd = 0; dd < 2; ++dd) {
+      const int d = lane + 32 * dd;
+      if (d < hd)
+        dqkv[(item * N + q0 + i) * 3LL * D + h * hd + d] = dq[r][dd] * scale;
+    }
+  }
+}
+
+// The streamed column pass: grid (H, items, ceil(N / AB_KR)), each block
+// owning AB_KR keys (their dV and dK accumulators in shared memory, one
+// thread an element) and reading the saved P and dS of those keys, AB_RC
+// query rows at a time, as attn_bwd_cols_kernel reads the whole rows.
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_cols_stream_kernel(const T* qkv, const T* P, const T* dO,
+                            const T* dS, float* dqkv, int N, int D, int H,
+                            float scale) {
+  extern __shared__ float smf[];
+  const int hd = D / H;
+  float* dV = smf;                   // [AB_KR][hd]
+  float* dK = dV + AB_KR * hd;       // [AB_KR][hd]
+  float* Pc = dK + AB_KR * hd;       // [AB_RC][AB_KR]
+  float* Sc = Pc + AB_RC * AB_KR;    // [AB_RC][AB_KR]
+  float* Oc = Sc + AB_RC * AB_KR;    // [AB_RC][hd]
+  float* Qc = Oc + AB_RC * hd;       // [AB_RC][hd]
+
+  const int h = blockIdx.x;
+  const long long item = blockIdx.y;
+  const int k0 = blockIdx.z * AB_KR, nk = min(AB_KR, N - k0);
+  const int tid = threadIdx.x;
+  const long long pbase = (item * H + h) * (long long)N * N;
+  for (int e = tid; e < nk * hd; e += blockDim.x) {
+    dV[e] = 0.0f;
+    dK[e] = 0.0f;
+  }
+
+  for (int i0 = 0; i0 < N; i0 += AB_RC) {
+    const int rc = min(AB_RC, N - i0);
+    __syncthreads();
+    for (int e = tid; e < rc * nk; e += blockDim.x) {
+      const int ii = e / nk, jj = e % nk;
+      const long long at = pbase + (long long)(i0 + ii) * N + k0 + jj;
+      Pc[ii * AB_KR + jj] = to_f(P[at]);
+      Sc[ii * AB_KR + jj] = to_f(dS[at]);
+    }
+    for (int e = tid; e < rc * hd; e += blockDim.x) {
+      const int ii = e / hd, d = e % hd;
+      const long long row = item * N + i0 + ii;
+      Oc[ii * hd + d] = to_f(dO[row * D + h * hd + d]);
+      Qc[ii * hd + d] = to_f(qkv[row * 3LL * D + h * hd + d]);
+    }
+    __syncthreads();
+    for (int e = tid; e < nk * hd; e += blockDim.x) {
+      const int j = e / hd, d = e % hd;
+      float v = dV[e], k = dK[e];
+      for (int ii = 0; ii < rc; ++ii) {
+        v += Pc[ii * AB_KR + j] * Oc[ii * hd + d];
+        k += Sc[ii * AB_KR + j] * Qc[ii * hd + d];
+      }
+      dV[e] = v;
+      dK[e] = k;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nk * hd; e += blockDim.x) {
+    const int j = e / hd, d = e % hd;
+    float* row = dqkv + (item * N + k0 + j) * 3LL * D;
+    row[D + h * hd + d] = dK[e] * scale;
+    row[2 * D + h * hd + d] = dV[e];
+  }
+}
+
+__host__ __device__ inline size_t attn_bwd_rows_stream_smem(int hd) {
+  return (size_t)((2 * AT_QR + 2 * AT_KC) * (hd + 1) + AB_WARPS * AT_KC) *
+         sizeof(float);
+}
+__host__ __device__ inline size_t attn_bwd_cols_stream_smem(int hd) {
+  return (size_t)(2 * AB_KR * hd + 2 * AB_RC * AB_KR + 2 * AB_RC * hd) *
+         sizeof(float);
+}
+
 template <typename T>
 int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
                   const float* s, const float* lns, const float* lnb,
@@ -270,25 +496,49 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
   if ((err = gemm<T, T>(o, n, st))) return err;
 
   // per-head attention backward
-  const int NP = (N + 31) / 32 * 32;
-  const size_t smem_r = (size_t)(2 * N * (hd + 1) + 2 * AB_WARPS * AB_MAXHD +
-                                 AB_WARPS * NP) * sizeof(float);
-  auto rows_kernel = recompute ? attn_bwd_rows_kernel<T, true>
-                               : attn_bwd_rows_kernel<T, false>;
-  cudaFuncSetAttribute(rows_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_r);
-  FC_CHECK();
-  rows_kernel<<<dim3(H, n * B), AB_WARPS * 32, smem_r, st>>>(
-      qkv, P, dO, dS, dqkv, N, D, H, scale);
-  FC_CHECK();
-  const size_t smem_c = (size_t)(2 * N * hd + 2 * AB_RC * NP + 2 * AB_RC * hd) *
-                        sizeof(float);
-  cudaFuncSetAttribute(attn_bwd_cols_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
-  FC_CHECK();
-  attn_bwd_cols_kernel<T><<<dim3(H, n * B), 256, smem_c, st>>>(
-      qkv, P, dO, dS, dqkv, N, D, H, scale);
-  FC_CHECK();
+  if (attn_streams_keys(N)) {
+    const size_t smem_r = attn_bwd_rows_stream_smem(hd);
+    auto rows_kernel = recompute ? attn_bwd_rows_stream_kernel<T, true>
+                                 : attn_bwd_rows_stream_kernel<T, false>;
+    cudaFuncSetAttribute(rows_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_r);
+    FC_CHECK();
+    rows_kernel<<<dim3(H, n * B, (N + AT_QR - 1) / AT_QR), AB_WARPS * 32,
+                  smem_r, st>>>(qkv, P, dO, dS, dqkv, N, D, H, scale);
+    FC_CHECK();
+    const size_t smem_c = attn_bwd_cols_stream_smem(hd);
+    cudaFuncSetAttribute(attn_bwd_cols_stream_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_c);
+    FC_CHECK();
+    attn_bwd_cols_stream_kernel<T>
+        <<<dim3(H, n * B, (N + AB_KR - 1) / AB_KR), 256, smem_c, st>>>(
+            qkv, P, dO, dS, dqkv, N, D, H, scale);
+    FC_CHECK();
+  } else {
+    const int NP = (N + 31) / 32 * 32;
+    const size_t smem_r = (size_t)(2 * N * (hd + 1) + 2 * AB_WARPS * AB_MAXHD +
+                                   AB_WARPS * NP) * sizeof(float);
+    auto rows_kernel = recompute ? attn_bwd_rows_kernel<T, true>
+                                 : attn_bwd_rows_kernel<T, false>;
+    cudaFuncSetAttribute(rows_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_r);
+    FC_CHECK();
+    rows_kernel<<<dim3(H, n * B), AB_WARPS * 32, smem_r, st>>>(
+        qkv, P, dO, dS, dqkv, N, D, H, scale);
+    FC_CHECK();
+    const size_t smem_c =
+        (size_t)(2 * N * hd + 2 * AB_RC * NP + 2 * AB_RC * hd) * sizeof(float);
+    cudaFuncSetAttribute(attn_bwd_cols_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_c);
+    FC_CHECK();
+    attn_bwd_cols_kernel<T><<<dim3(H, n * B), 256, smem_c, st>>>(
+        qkv, P, dO, dS, dqkv, N, D, H, scale);
+    FC_CHECK();
+  }
 
   // dbqkv = colsum(dqkv) in f32, with the T copy for the products
   if ((err = colsum<float, T>(dqkv, n, M, 3 * D, nullptr, 1, nullptr, nullptr,
@@ -318,8 +568,10 @@ int attn_bwd_impl(int n, int B, int N, int D, int H, const void* x_,
 // (steps 1-5 of the note above).  rps_proj / rps_qkv: rows per split range
 // of dWproj / dWqkv (multiples of 64); their partials go to wpart
 // [S, n, D, D] / [S, n, D, 3D] (unused by a product with S == 1, which
-// writes its gradient directly).  hpart [n*B, 3D] f32.  P is read unless
-// recompute; cat is read, or written when recompute.
+// writes its gradient directly).  hpart [n*B*attn_part_rows(N), 3D] f32;
+// stats [n*B, H, N, 3] f32 past N = 256 (the streamed head kernels' row
+// statistics), else unused.  P is read unless recompute; cat is read, or
+// written when recompute.
 int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
                   int rps_qkv, const bf16* x, const float* s,
                   const float* lns, const float* lnb, const bf16* wqkv,
@@ -328,7 +580,7 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
                   float* dlnb, float* dwqkv, float* dbqkv, float* dwproj,
                   float* dbproj, bf16* h, float* mean, float* rstd, bf16* qkv,
                   bf16* dac, bf16* dO, bf16* dqkvc, float* dh, float* partial,
-                  float* hpart, float* wpart, bool recompute,
+                  float* stats, float* hpart, float* wpart, bool recompute,
                   cudaStream_t st) {
   const int M = B * N;
   const long long rows = (long long)n * M;
@@ -369,12 +621,12 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
   const HeadLayout L = {(long long)N * 3 * D, 3 * D, (long long)N * D, D,
                         (long long)N * 3 * D, 3 * D};
   if ((err = attn_bwd_head(qkv, qkv + D, qkv + 2 * D, dO, P, dqkvc, dqkvc + D,
-                           dqkvc + 2 * D, cat, hpart, L, n * B, H, N, hd,
-                           scale, 0.0f, recompute ? AH_RECOMP : AH_SAVED,
-                           st))) return err;
-  if ((err = colsum<float, bf16>(hpart, n, B, 3 * D, nullptr, 1, nullptr,
-                                 nullptr, nullptr, nullptr, partial, dbqkv,
-                                 st))) return err;
+                           dqkvc + 2 * D, cat, hpart, stats, L, n * B, H, N,
+                           hd, scale, 0.0f,
+                           recompute ? AH_RECOMP : AH_SAVED, st))) return err;
+  if ((err = colsum<float, bf16>(hpart, n, B * attn_part_rows(N), 3 * D,
+                                 nullptr, 1, nullptr, nullptr, nullptr,
+                                 nullptr, partial, dbqkv, st))) return err;
 
   // dWproj = cat^T . dac [D, D] and dWqkv = h^T . dqkvc [D, 3D], K = the rows
   const bf16* lhs[2] = {cat, h};
@@ -433,9 +685,9 @@ int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
                       float* dwproj, float* dbproj, void* h, float* mean,
                       float* rstd, void* qkv, void* dac, void* dO, void* dS,
                       float* dqkv, void* dqkvc, float* dh, float* partial,
-                      float* hpart, float* wpart, bool recompute,
-                      cudaStream_t st) {
-  if (attn_on_sm90(dtype, N, D, H))
+                      float* stats, float* hpart, float* wpart,
+                      bool recompute, cudaStream_t st) {
+  if (attn_on_sm90(dtype, D, H))
     return attn_bwd_sm90(
         n, B, N, D, H, rps_proj, rps_qkv, static_cast<const bf16*>(x), s, lns,
         lnb, static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
@@ -444,7 +696,8 @@ int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
         static_cast<bf16*>(dx), dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj,
         static_cast<bf16*>(h), mean, rstd, static_cast<bf16*>(qkv),
         static_cast<bf16*>(dac), static_cast<bf16*>(dO),
-        static_cast<bf16*>(dqkvc), dh, partial, hpart, wpart, recompute, st);
+        static_cast<bf16*>(dqkvc), dh, partial, stats, hpart, wpart,
+        recompute, st);
   if (!dS || !dqkv || !P) return (int)cudaErrorInvalidValue;
   if (dtype == 1)
     return attn_bwd_impl<bf16>(n, B, N, D, H, x, s, lns, lnb, wqkv, bqkv,
@@ -468,9 +721,10 @@ int attn_bwd_dispatch(int dtype, int n, int B, int N, int D, int H,
 // Scratch: h, dac, dO [n,B,N,D] (T); mean, rstd [n*B*N] f32;
 // qkv, dqkvc [n,B,N,3D] (T); dh [n,B,N,D] f32; partial [n,32,3D] f32.
 // gemm_kernel path only: dS [n,B,H,N,N] (T); dqkv [n,B,N,3D] f32.
-// Hopper path only: hpart [n*B,3D] f32; wpart [S,n,D,3D] f32 for the larger
-// S*columns of the two products, when an S = ceil(B*N/rps) > 1.  Unused
-// buffers may be NULL.
+// Hopper path only: stats [n*B,H,N,3] f32 past N = 256; hpart [n*B*R,3D]
+// f32 (R = 1 up to N = 256, else ceil(N/128) query blocks); wpart
+// [S,n,D,3D] f32 for the larger S*columns of the two products, when an
+// S = ceil(B*N/rps) > 1.  Unused buffers may be NULL.
 extern "C" int fc_attn_bwd(int dtype, int n, int B, int N, int D, int H,
                            int rps_proj, int rps_qkv, const void* x,
                            const float* s, const float* lns, const float* lnb,
@@ -481,14 +735,15 @@ extern "C" int fc_attn_bwd(int dtype, int n, int B, int N, int D, int H,
                            float* dbproj, void* h, float* mean, float* rstd,
                            void* qkv, void* dac, void* dO, void* dS,
                            float* dqkv, void* dqkvc, float* dh, float* partial,
-                           float* hpart, float* wpart, cudaStream_t st) {
+                           float* stats, float* hpart, float* wpart,
+                           cudaStream_t st) {
   // the saves are only read on this path
   return attn_bwd_dispatch(dtype, n, B, N, D, H, rps_proj, rps_qkv, x, s, lns,
                            lnb, wqkv, bqkv, wproj, const_cast<void*>(P),
                            const_cast<void*>(cat), da, dx, dlns, dlnb, dwqkv,
                            dbqkv, dwproj, dbproj, h, mean, rstd, qkv, dac, dO,
-                           dS, dqkv, dqkvc, dh, partial, hpart, wpart, false,
-                           st);
+                           dS, dqkv, dqkvc, dh, partial, stats, hpart, wpart,
+                           false, st);
 }
 
 // The recompute backward (no residual, no saves): inputs x, lns, lnb, wqkv,
@@ -502,10 +757,11 @@ extern "C" int fc_attn_bwd_recompute(
     float* dlns, float* dlnb, float* dwqkv, float* dbqkv, float* dwproj,
     float* dbproj, void* h, float* mean, float* rstd, void* qkv, void* P,
     void* cat, void* dac, void* dO, void* dS, float* dqkv, void* dqkvc,
-    float* dh, float* partial, float* hpart, float* wpart, cudaStream_t st) {
+    float* dh, float* partial, float* stats, float* hpart, float* wpart,
+    cudaStream_t st) {
   return attn_bwd_dispatch(dtype, n, B, N, D, H, rps_proj, rps_qkv, x,
                            nullptr, lns, lnb, wqkv, bqkv, wproj, P, cat, da,
                            dx, dlns, dlnb, dwqkv, dbqkv, dwproj, dbproj, h,
                            mean, rstd, qkv, dac, dO, dS, dqkv, dqkvc, dh,
-                           partial, hpart, wpart, true, st);
+                           partial, stats, hpart, wpart, true, st);
 }

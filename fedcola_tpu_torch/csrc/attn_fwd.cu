@@ -14,20 +14,22 @@
 // its heads' scores in VMEM; here the pieces are launches on the caller's
 // stream and qkv and cat make one round trip through device memory.
 //
-// bf16 with head_dim 16, 32 or 64 and N <= 256 (every model on the fused
-// route) runs attn_fwd_sm90, four launches:
+// bf16 with head_dim 16, 32 or 64 (every model on the fused route), at
+// every N, runs attn_fwd_sm90, four launches:
 //   1. ln_fwd (LN1 in f32, rounded to bf16) and
 //   2. qkv = T(h . Wqkv + bqkv) on gemm_sm90.cuh's TMA + wgmma mainloop:
 //      the backward's first two launches (attn_sm90.cuh holds them for both);
 //   3. the per-head forward of attn_fwd_core.cuh in the packed layout, one
-//      block per (item, head) on mma.sync: scores and softmax in f32, P
-//      rounded after normalisation (two passes over the keys), written when
+//      block per (item, head) on mma.sync (per (item, head, 128 queries),
+//      keys streamed, past N = 256): scores and softmax in f32, P rounded
+//      after normalisation (two passes over the keys), written when
 //      saving, cat = T(P . V).  The P stores bound this step when saving;
 //   4. proj on the mainloop with the EPI_RES epilogue: acc + bproj and,
 //      with s, x + s_i * (acc + bproj) in f32, rounded once.
 // float32, and bf16 off that grid, run attn_fwd_impl: the same function on
 // common.cuh's gemm_kernel with the attention core on CUDA cores
-// (attn_core.cuh: one block per (item, head), one warp per query row).  The
+// (attn_core.cuh: one block per (item, head), one warp per query row; past
+// N = 256 one block per (item, head, 64 queries), keys streamed).  The
 // choice is made here, by dtype and shape alone (ops/fused_attention.py
 // uses_sm90 mirrors it).
 #include "attn_fwd_core.cuh"
@@ -104,7 +106,7 @@ extern "C" int fc_attn_fwd(int dtype, int n, int B, int N, int D, int H,
                            const void* bproj, void* out, void* P, void* cat,
                            void* h, float* mean, float* rstd, void* qkv,
                            int save, cudaStream_t st) {
-  if (attn_on_sm90(dtype, N, D, H))
+  if (attn_on_sm90(dtype, D, H))
     return attn_fwd_sm90(
         n, B, N, D, H, static_cast<const bf16*>(x), s, lns, lnb,
         static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),

@@ -3,17 +3,22 @@
 //     P = T(softmax_f32(S)),  O = T(P . V),  P optionally written.
 // The sibling of attn_bwd_core.cuh and in its idiom (attn_mma.cuh).  It
 // replaces the CUDA-core attn_core_fwd (attn_core.cuh) for bf16 at head_dim
-// 16, 32 or 64 and N <= 256; flash_fwd.cu runs it on unpacked [pairs, N,
+// 16, 32 or 64 and every N; flash_fwd.cu runs it on unpacked [pairs, N,
 // hd] tensors (the TPU kernel _fwd_kernel of
 // fedcola_tpu/ops/flash_attention.py), and attn_fwd_head_packed gives the
 // fused sublayer's packed qkv / cat layout with P saved (the per-head part
 // of _fwd_save_call and _fwd_call of fedcola_tpu/ops/fused_attention.py).
 //
-// One block per (head, item): Q, K and V of the head go once into shared
-// memory as padded bf16 tiles (cp.async; rows N..NP-1 zeroed, NP = N
-// rounded up to 16; 88 KB at N = 197, hd = 64),
-// flash attention's pre-scaled q is rounded there, and each warp owns
-// 16-query blocks with its Q fragments in registers.  Products are
+// Two kernels, chosen by N alone (attn_streams_keys, attn_core.cuh): up to
+// AT_RESIDENT_N = 256 keys the resident kernel below, past it the streamed
+// kernel further down (attn_fwd_head_stream_kernel), whose shared memory
+// does not grow with N.
+//
+// Resident: one block per (head, item): Q, K and V of the head go once
+// into shared memory as padded bf16 tiles (cp.async; rows N..NP-1 zeroed,
+// NP = N rounded up to 16; 88 KB at N = 197, hd = 64), flash attention's
+// pre-scaled q is rounded there, and each warp owns 16-query blocks with
+// its Q fragments in registers.  Products are
 // mma.sync.m16n8k16 fed by ldmatrix (ldmatrix.trans for V in P . V).
 //
 // Two passes over the keys in 16-wide chunks, not an online softmax: the
@@ -209,6 +214,194 @@ attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
   }
 }
 
+// The streamed forward (N > AT_RESIDENT_N): grid (H, items, ceil(N /
+// AS_QB)), AS_WARPS warps, one 16-query block each.  The block's queries
+// stay in shared memory; K (pass 1) and K and V (pass 2) stream through a
+// two-slot cp.async ring of AS_KC-key chunks, the next chunk in flight
+// while the current one is used.  Per 16-key block the arithmetic is the
+// resident kernel's, in the same order, so the two passes and the rounding
+// of P before P . V are as above.  P, when saved, is stored from the
+// fragments (pairs of keys at even N), not staged.
+template <int HD, bool SAVE>
+__global__ void __launch_bounds__(AS_WARPS * 32, 2)
+attn_fwd_head_stream_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
+                            bf16* og, bf16* P, CoreLayout L, int N, float c2,
+                            float qscale) {
+  constexpr int LD = HD + AH_PAD;
+  constexpr int KS = HD / 16;
+  constexpr int DT = HD / 8;
+  constexpr uint32_t BLK = 16 * LD * 2;     // bytes of 16 shared rows
+  constexpr uint32_t SLOT = AS_KC * LD * 2;  // bytes of a ring slot
+  extern __shared__ __align__(16) uint8_t as_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(as_raw);  // [AS_QB][LD]
+  bf16* Ks = Qs + AS_QB * LD;                  // ring [2][AS_KC][LD]
+  bf16* Vs = Ks + 2 * AS_KC * LD;              // ring [2][AS_KC][LD]
+
+  const int h = blockIdx.x, H = gridDim.x;
+  const long long item = blockIdx.y;
+  const int q0 = blockIdx.z * AS_QB, nq = min(AS_QB, N - q0);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = warp * 16 < nq;  // the warp's rows hold a query
+  const long long ib = item * L.in_item + (long long)h * HD;
+  const long long ob = item * L.out_item + (long long)h * HD;
+  const int nch = (N + AS_KC - 1) / AS_KC;
+
+  ah_load_tile<HD>(Qs, qg + ib + (long long)q0 * L.in_row, L.in_row, nq,
+                   AS_QB, tid, nthr);
+  ah_cp_wait();
+  if (qscale != 0.0f) ah_prescale_tile<HD>(Qs, qscale, nq, tid, nthr);
+  __syncthreads();
+
+  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
+  const uint32_t k_sm = ah_smem(Ks), v_sm = ah_smem(Vs);
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ah_ldsm(qa[ks], ah_smem(Qs) + warp * BLK + a_off + ks * 32);
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+  // pass 1: row max (of the raw products; scale > 0) and sum
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
+  ah_cp_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      ah_load_chunk<HD>(Ks + ((c + 1) & 1) * AS_KC * LD, kg + ib, L.in_row,
+                        (c + 1) * AS_KC, N, tid, nthr);
+      ah_cp_commit();
+      ah_cp_wait_pending<1>();
+    } else {
+      ah_cp_wait_pending<0>();
+    }
+    __syncthreads();
+    const int j0 = c * AS_KC;
+    const int nb = (min(AS_KC, N - j0) + 15) / 16;
+    const uint32_t kc = k_sm + (c & 1) * SLOT;
+    for (int jb = 0; active && jb < nb; ++jb) {
+      float s[2][4];
+      ah_scores<KS>(qa, kc + jb * BLK + b_off, s);
+      const int jj = j0 + jb * 16;
+      if (jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
+      float cm[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cm[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                      fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
+        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
+        const float mn = fmaxf(m[r], cm[r]);
+        l[r] *= exp2f((m[r] - mn) * c2);
+        m[r] = mn;
+      }
+      const float mc[2] = {m[0] * c2, m[1] * c2};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4)
+          l[c4 >> 1] += exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1]));
+    }
+    __syncthreads();
+  }
+  float il[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    il[r] = 1.0f / l[r];
+  }
+  const float mc[2] = {m[0] * c2, m[1] * c2};
+
+  // pass 2: P and O, K and V through the ring
+  float o[DT][4];
+#pragma unroll
+  for (int nt = 0; nt < DT; ++nt)
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) o[nt][c4] = 0.0f;
+  bf16* prow = SAVE ? P + (item * H + h) * (long long)N * N : nullptr;
+  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
+  ah_load_chunk<HD>(Vs, vg + ib, L.in_row, 0, N, tid, nthr);
+  ah_cp_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      const int slot = ((c + 1) & 1) * AS_KC * LD;
+      ah_load_chunk<HD>(Ks + slot, kg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
+                        nthr);
+      ah_load_chunk<HD>(Vs + slot, vg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
+                        nthr);
+      ah_cp_commit();
+      ah_cp_wait_pending<1>();
+    } else {
+      ah_cp_wait_pending<0>();
+    }
+    __syncthreads();
+    const int j0 = c * AS_KC;
+    const int nb = (min(AS_KC, N - j0) + 15) / 16;
+    const uint32_t kc = k_sm + (c & 1) * SLOT, vc = v_sm + (c & 1) * SLOT;
+    for (int jb = 0; active && jb < nb; ++jb) {
+      float s[2][4];
+      ah_scores<KS>(qa, kc + jb * BLK + b_off, s);
+      const int jj = j0 + jb * 16;
+      if (jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4)
+          s[nt][c4] = exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1])) * il[c4 >> 1];
+      uint32_t a[4];
+      ah_as_a(s, a);
+      if constexpr (SAVE) {
+        if ((N & 1) == 0) {
+          // even N: each key pair is one aligned 4-byte word of a row of P
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = r0 + 8 * (q & 1);
+            const int j = jj + (q >> 1) * 8 + 2 * t;
+            if (i < N && j < N)
+              *reinterpret_cast<uint32_t*>(prow + (long long)i * N + j) = a[q];
+          }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int c4 = 0; c4 < 4; ++c4) {
+              const int i = r0 + 8 * (c4 >> 1);
+              const int j = jj + nt * 8 + 2 * t + (c4 & 1);
+              if (i < N && j < N)
+                prow[(long long)i * N + j] = from_f<bf16>(s[nt][c4]);
+            }
+        }
+      }
+      ah_accumulate<HD>(o, a, vc + jb * BLK + a_off);
+    }
+    __syncthreads();
+  }
+  if (active) ah_store<HD>(o, 1.0f, og + ob, L.out_row, r0, N, lane, nullptr);
+}
+
+// Three tiles' worth of rows (the queries and two ring slots each of K and
+// V), whatever N.
+__host__ __device__ inline size_t attn_fwd_head_stream_smem(int hd) {
+  return (size_t)(AS_QB + 4 * AS_KC) * (hd + AH_PAD) * sizeof(bf16);
+}
+
+template <int HD, bool SAVE>
+int attn_fwd_head_stream_launch(const bf16* q, const bf16* k, const bf16* v,
+                                bf16* o, bf16* P, const CoreLayout& L,
+                                int items, int H, int N, float scale,
+                                float qscale, cudaStream_t st) {
+  auto kern = attn_fwd_head_stream_kernel<HD, SAVE>;
+  const size_t smem = attn_fwd_head_stream_smem(HD);
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  FC_CHECK();
+  kern<<<dim3(H, items, (N + AS_QB - 1) / AS_QB), AS_WARPS * 32, smem, st>>>(
+      q, k, v, o, P, L, N, scale * AH_LOG2E, qscale);
+  FC_CHECK();
+  return 0;
+}
+
 inline size_t attn_fwd_head_smem(int N, int hd) {
   const int NP = (N + 15) / 16 * 16;
   return (size_t)3 * NP * (hd + AH_PAD) * sizeof(bf16);
@@ -236,9 +429,10 @@ int attn_fwd_head_launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return 0;
 }
 
-// Whether attn_fwd_head takes the shape (bf16 only).
+// Whether attn_fwd_head takes the shape (bf16 only): every N, resident up
+// to AT_RESIDENT_N and streamed past it.
 inline bool attn_fwd_head_takes(int N, int hd) {
-  return (hd == 16 || hd == 32 || hd == 64) && N >= 1 && N <= 256;
+  return (hd == 16 || hd == 32 || hd == 64) && N >= 1;
 }
 
 // The arguments of attn_core_fwd<bf16>; cudaErrorInvalidValue where
@@ -248,10 +442,15 @@ inline int attn_fwd_head(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                          int hd, float scale, float qscale, cudaStream_t st) {
   if (!attn_fwd_head_takes(N, hd)) return (int)cudaErrorInvalidValue;
 #define FC_AF_LAUNCH(HD)                                                      \
-  return P ? attn_fwd_head_launch<HD, true>(q, k, v, o, P, L, items, H, N,   \
-                                            scale, qscale, st)               \
-           : attn_fwd_head_launch<HD, false>(q, k, v, o, P, L, items, H, N,  \
-                                             scale, qscale, st)
+  return attn_streams_keys(N)                                                 \
+      ? (P ? attn_fwd_head_stream_launch<HD, true>(                           \
+                 q, k, v, o, P, L, items, H, N, scale, qscale, st)            \
+           : attn_fwd_head_stream_launch<HD, false>(                          \
+                 q, k, v, o, P, L, items, H, N, scale, qscale, st))           \
+      : (P ? attn_fwd_head_launch<HD, true>(q, k, v, o, P, L, items, H, N,    \
+                                            scale, qscale, st)                \
+           : attn_fwd_head_launch<HD, false>(q, k, v, o, P, L, items, H, N,   \
+                                             scale, qscale, st))
   if (hd == 16) FC_AF_LAUNCH(16);
   if (hd == 32) FC_AF_LAUNCH(32);
   FC_AF_LAUNCH(64);

@@ -8,12 +8,12 @@
 namespace {
 
 // The choice of path: bf16 on the per-head tensor-core kernels' grid
-// (head_dim 16, 32 or 64, which puts D on TMA's 8-element grid too, and
-// N <= 256).
-inline bool attn_on_sm90(int dtype, int N, int D, int H) {
+// (head_dim 16, 32 or 64, which puts D on TMA's 8-element grid too), at
+// every N: the head kernels keep the keys resident up to N = 256 and
+// stream them past it.
+inline bool attn_on_sm90(int dtype, int D, int H) {
   const int hd = D / H;
-  return dtype == 1 && D % 8 == 0 && N <= 256 &&
-         (hd == 16 || hd == 32 || hd == 64);
+  return dtype == 1 && D % 8 == 0 && (hd == 16 || hd == 32 || hd == 64);
 }
 
 // h = T(LN1(x)) with its mean and rstd, then qkv = T(h . Wqkv + bqkv) on

@@ -13,11 +13,12 @@
 // products run on tensor cores.  Two paths, chosen here by dtype and shape
 // (ops/flash_attention.py uses_tensor_cores mirrors the choice):
 //
-//   bf16, hd in {16, 32, 64}, N <= 256: the per-head tensor-core backward
-//     of attn_bwd_core.cuh in its flash mode, one fused launch, one block
-//     per pair: q, k, v, do as padded bf16 tiles in shared memory
-//     (117 KB at N=197), q pre-scaled and rounded there, every product an
-//     mma.sync, no statistics through memory.
+//   bf16, hd in {16, 32, 64}: the per-head tensor-core backward of
+//     attn_bwd_core.cuh in its flash mode, one fused launch, one block per
+//     pair: q, k, v, do as padded bf16 tiles in shared memory (117 KB at
+//     N=197), q pre-scaled and rounded there, every product an mma.sync,
+//     no statistics through memory.  Past N = 256 its streamed row and
+//     column kernels, the row statistics through the scratch stats.
 //     Rounding, where it departs from the TPU kernel: _bwd_kernel keeps P
 //     and dS in f32 through every product; here they are handed on as bf16
 //     A fragments (dv = T(P)^T . do, dq = T(dS) . k, dk = T(dS)^T . qm), and
@@ -35,14 +36,19 @@
 //   * a column pass (one warp per key row, the pair's qm and do in shared
 //     memory) recomputes P and dS from those statistics in the same order
 //     of operations and reduces dk and dv over the query rows.
+//   Past N = 256 both passes stream: the row pass per 64 query rows, the
+//   keys in chunks of 32 and three passes over them (the softmax
+//   statistics, o and delta = do . o, then dS and dq); the column pass per
+//   64 keys, the query rows (qm, do and their statistics) in chunks of 32.
 // No atomics on either path; every result is reproducible run to run.
 #include "attn_bwd_core.cuh"
 
 namespace {
 
 constexpr int FB_WARPS = 8;
-constexpr int FB_MAXR = 8;    // rows per lane: N <= 256
+constexpr int FB_MAXR = 8;    // rows per lane of the resident kernels
 constexpr int FB_MAXHD = 64;  // hd <= 64
+constexpr int FB_KR = 64;     // streamed column pass: keys a block, 8 a warp
 
 template <typename T>
 __device__ __forceinline__ float prescaled(T q, float qscale) {
@@ -217,6 +223,280 @@ flash_bwd_cols_kernel(const T* qg, const T* kg, const T* vg, const T* dog,
   }
 }
 
+// The streamed row pass (N > AT_RESIDENT_N): grid (pairs, ceil(N /
+// AT_QR)), a warp per AT_QR / FB_WARPS query rows, K and V in chunks of
+// AT_KC rows, one key a lane.  Three passes over the keys: the row max and
+// sum (carried under the running max); P = exp(s - max) / sum in f32 and
+// o = P . v, so delta = do . o as the resident kernel forms it; dS = P (dp
+// - delta) and dq.  Writes the row's max, sum and delta to stats.
+template <typename T>
+__global__ void __launch_bounds__(FB_WARPS * 32)
+flash_bwd_rows_stream_kernel(const T* qg, const T* kg, const T* vg,
+                             const T* dog, T* dq, float* stats, int N, int hd,
+                             float qscale) {
+  constexpr int RPW = AT_QR / FB_WARPS;
+  extern __shared__ float smf[];
+  const int ld = hd + 1;
+  float* Qs = smf;                 // [AT_QR][hd+1] (qm)
+  float* Gs = Qs + AT_QR * ld;     // [AT_QR][hd+1] (do)
+  float* Ks = Gs + AT_QR * ld;     // [AT_KC][hd+1]
+  float* Vs = Ks + AT_KC * ld;     // [AT_KC][hd+1]
+  float* pw = Vs + AT_KC * ld;     // [warps][AT_KC]
+
+  const long long pair = blockIdx.x;
+  const long long base = pair * N * hd;
+  const int q0 = blockIdx.y * AT_QR, nq = min(AT_QR, N - q0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < nq * hd; e += blockDim.x) {
+    const int i = e / hd, d = e % hd;
+    const long long at = base + (long long)(q0 + i) * hd + d;
+    Qs[i * ld + d] = prescaled(qg[at], qscale);
+    Gs[i * ld + d] = to_f(dog[at]);
+  }
+  float m[RPW], l[RPW], a2[RPW][2];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = -INFINITY; l[r] = 0.0f; a2[r][0] = 0.0f; a2[r][1] = 0.0f;
+  }
+  float* p = pw + warp * AT_KC;
+  // a chunk of K (and V) rows into shared memory, between two barriers
+  auto load = [&](int j0, int kc, bool with_v) {
+    __syncthreads();
+    for (int e = tid; e < kc * hd; e += blockDim.x) {
+      const int j = e / hd, d = e % hd;
+      const long long at = base + (long long)(j0 + j) * hd + d;
+      Ks[j * ld + d] = to_f(kg[at]);
+      if (with_v) Vs[j * ld + d] = to_f(vg[at]);
+    }
+    __syncthreads();
+  };
+  auto score = [&](int i, int j) {
+    const float* qr = Qs + i * ld;
+    const float* kr = Ks + j * ld;
+    float a = 0.0f;
+    for (int d = 0; d < hd; ++d) a += qr[d] * kr[d];
+    return a;
+  };
+
+  // pass 1: max and sum
+  for (int j0 = 0; j0 < N; j0 += AT_KC) {
+    const int kc = min(AT_KC, N - j0);
+    load(j0, kc, false);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = warp * RPW + r;
+      if (i >= nq) continue;
+      const float s = lane < kc ? score(i, lane) : -INFINITY;
+      const float mn = fmaxf(m[r], warp_max(s));
+      const float e = lane < kc ? expf(s - mn) : 0.0f;
+      l[r] = l[r] * expf(m[r] - mn) + warp_sum(e);
+      m[r] = mn;
+    }
+  }
+  // pass 2: o = P . v (a2 holds it)
+  for (int j0 = 0; j0 < N; j0 += AT_KC) {
+    const int kc = min(AT_KC, N - j0);
+    load(j0, kc, true);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = warp * RPW + r;
+      if (i >= nq) continue;
+      if (lane < kc) p[lane] = expf(score(i, lane) - m[r]) / l[r];
+      __syncwarp();
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < hd) {
+          float o = 0.0f;
+          for (int j = 0; j < kc; ++j) o += p[j] * Vs[j * ld + d];
+          a2[r][dd] += o;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  float delta[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int i = warp * RPW + r;
+    float dl = 0.0f;
+    if (i < nq) {
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < hd) dl += Gs[i * ld + d] * a2[r][dd];
+      }
+    }
+    delta[r] = warp_sum(dl);
+    a2[r][0] = 0.0f;
+    a2[r][1] = 0.0f;
+  }
+  // pass 3: dS = P (dp - delta), dq = dS . k (a2 holds it)
+  for (int j0 = 0; j0 < N; j0 += AT_KC) {
+    const int kc = min(AT_KC, N - j0);
+    load(j0, kc, true);
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = warp * RPW + r;
+      if (i >= nq) continue;
+      if (lane < kc) {
+        const float* gr = Gs + i * ld;
+        const float* vr = Vs + lane * ld;
+        float dp = 0.0f;
+        for (int d = 0; d < hd; ++d) dp += gr[d] * vr[d];
+        const float pv = expf(score(i, lane) - m[r]) / l[r];
+        p[lane] = pv * (dp - delta[r]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < hd) {
+          float a = 0.0f;
+          for (int j = 0; j < kc; ++j) a += p[j] * Ks[j * ld + d];
+          a2[r][dd] += a;
+        }
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int i = warp * RPW + r;
+    if (i >= nq) continue;
+    const long long row = (long long)(q0 + i);
+#pragma unroll
+    for (int dd = 0; dd < 2; ++dd) {
+      const int d = lane + 32 * dd;
+      if (d < hd)
+        dq[base + row * hd + d] =
+            from_f<T>(to_f(from_f<T>(a2[r][dd])) * qscale);
+    }
+    if (lane == 0) {
+      float* st = stats + (pair * N + row) * 3;
+      st[0] = m[r];
+      st[1] = l[r];
+      st[2] = delta[r];
+    }
+  }
+}
+
+// The streamed column pass: grid (pairs, ceil(N / FB_KR)), a warp per
+// FB_KR / FB_WARPS keys of the block (their k and v rows in shared
+// memory), the query rows' qm, do and statistics in chunks of AT_KC, one
+// query a lane: P and dS recomputed as the resident column pass does,
+// dk and dv accumulated in registers.
+template <typename T>
+__global__ void __launch_bounds__(FB_WARPS * 32)
+flash_bwd_cols_stream_kernel(const T* qg, const T* kg, const T* vg,
+                             const T* dog, T* dk, T* dv, const float* stats,
+                             int N, int hd, float qscale) {
+  constexpr int RPW = FB_KR / FB_WARPS;
+  extern __shared__ float smf[];
+  const int ld = hd + 1;
+  float* Kb = smf;                 // [FB_KR][hd+1]
+  float* Vb = Kb + FB_KR * ld;     // [FB_KR][hd+1]
+  float* Qs = Vb + FB_KR * ld;     // [AT_KC][hd+1] (qm)
+  float* Gs = Qs + AT_KC * ld;     // [AT_KC][hd+1] (do)
+  float* sm = Gs + AT_KC * ld;     // [AT_KC] row max
+  float* sl = sm + AT_KC;          // [AT_KC] row sum
+  float* sd = sl + AT_KC;          // [AT_KC] row delta
+  float* pw = sd + AT_KC;          // [warps][AT_KC]
+  float* sw = pw + FB_WARPS * AT_KC;  // [warps][AT_KC]
+
+  const long long pair = blockIdx.x;
+  const long long base = pair * N * hd;
+  const int k0 = blockIdx.y * FB_KR, nk = min(FB_KR, N - k0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int e = tid; e < nk * hd; e += blockDim.x) {
+    const int j = e / hd, d = e % hd;
+    const long long at = base + (long long)(k0 + j) * hd + d;
+    Kb[j * ld + d] = to_f(kg[at]);
+    Vb[j * ld + d] = to_f(vg[at]);
+  }
+  float av[RPW][2], ak[RPW][2];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    av[r][0] = av[r][1] = 0.0f;
+    ak[r][0] = ak[r][1] = 0.0f;
+  }
+  float* p = pw + warp * AT_KC;
+  float* s = sw + warp * AT_KC;
+  for (int i0 = 0; i0 < N; i0 += AT_KC) {
+    const int qc = min(AT_KC, N - i0);
+    __syncthreads();
+    for (int e = tid; e < qc * hd; e += blockDim.x) {
+      const int i = e / hd, d = e % hd;
+      const long long at = base + (long long)(i0 + i) * hd + d;
+      Qs[i * ld + d] = prescaled(qg[at], qscale);
+      Gs[i * ld + d] = to_f(dog[at]);
+    }
+    for (int i = tid; i < qc; i += blockDim.x) {
+      const float* st = stats + (pair * N + i0 + i) * 3;
+      sm[i] = st[0];
+      sl[i] = st[1];
+      sd[i] = st[2];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int j = warp * RPW + r;
+      if (j >= nk) continue;
+      if (lane < qc) {
+        const float* qr = Qs + lane * ld;
+        const float* gr = Gs + lane * ld;
+        const float* kr = Kb + j * ld;
+        const float* vr = Vb + j * ld;
+        float sk = 0.0f, a = 0.0f;
+        for (int d = 0; d < hd; ++d) sk += qr[d] * kr[d];
+        for (int d = 0; d < hd; ++d) a += gr[d] * vr[d];
+        const float pij = expf(sk - sm[lane]) / sl[lane];
+        p[lane] = pij;
+        s[lane] = pij * (a - sd[lane]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d = lane + 32 * dd;
+        if (d < hd) {
+          float x = 0.0f, y = 0.0f;
+          for (int i = 0; i < qc; ++i) {
+            x += p[i] * Gs[i * ld + d];
+            y += s[i] * Qs[i * ld + d];
+          }
+          av[r][dd] += x;
+          ak[r][dd] += y;
+        }
+      }
+      __syncwarp();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int j = warp * RPW + r;
+    if (j >= nk) continue;
+#pragma unroll
+    for (int dd = 0; dd < 2; ++dd) {
+      const int d = lane + 32 * dd;
+      if (d < hd) {
+        const long long at = base + (long long)(k0 + j) * hd + d;
+        dv[at] = from_f<T>(av[r][dd]);
+        dk[at] = from_f<T>(ak[r][dd]);
+      }
+    }
+  }
+}
+
+__host__ __device__ inline size_t flash_bwd_rows_stream_smem(int hd) {
+  return (size_t)((2 * AT_QR + 2 * AT_KC) * (hd + 1) + FB_WARPS * AT_KC) *
+         sizeof(float);
+}
+__host__ __device__ inline size_t flash_bwd_cols_stream_smem(int hd) {
+  return (size_t)((2 * FB_KR + 2 * AT_KC) * (hd + 1) + 3 * AT_KC +
+                  2 * FB_WARPS * AT_KC) *
+         sizeof(float);
+}
+
 template <typename T>
 int flash_bwd_impl(int pairs, int N, int hd, float qscale, const void* q_,
                    const void* k_, const void* v_, const void* do_, void* dq,
@@ -225,6 +505,28 @@ int flash_bwd_impl(int pairs, int N, int hd, float qscale, const void* q_,
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   const T* dO = static_cast<const T*>(do_);
+  if (attn_streams_keys(N)) {
+    const size_t smem_r = flash_bwd_rows_stream_smem(hd);
+    cudaFuncSetAttribute(flash_bwd_rows_stream_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_r);
+    FC_CHECK();
+    flash_bwd_rows_stream_kernel<T>
+        <<<dim3(pairs, (N + AT_QR - 1) / AT_QR), FB_WARPS * 32, smem_r, st>>>(
+            q, k, v, dO, static_cast<T*>(dq), stats, N, hd, qscale);
+    FC_CHECK();
+    const size_t smem_c = flash_bwd_cols_stream_smem(hd);
+    cudaFuncSetAttribute(flash_bwd_cols_stream_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem_c);
+    FC_CHECK();
+    flash_bwd_cols_stream_kernel<T>
+        <<<dim3(pairs, (N + FB_KR - 1) / FB_KR), FB_WARPS * 32, smem_c, st>>>(
+            q, k, v, dO, static_cast<T*>(dk), static_cast<T*>(dv), stats, N,
+            hd, qscale);
+    FC_CHECK();
+    return 0;
+  }
   const int NP = (N + 31) / 32 * 32;
   const size_t smem_r = (size_t)(2 * N * (hd + 1) + 2 * FB_WARPS * FB_MAXHD +
                                  FB_WARPS * NP) * sizeof(float);
@@ -250,20 +552,22 @@ int flash_bwd_impl(int pairs, int N, int hd, float qscale, const void* q_,
 }  // namespace
 
 // q, k, v, do, dq, dk, dv [pairs, N, hd] (T), contiguous; qscale as
-// fc_flash_fwd.  N <= 256, hd <= 64.  Scratch: stats [pairs, N, 3] f32 on
-// the CUDA-core path only (the tensor-core path does not read the pointer).
+// fc_flash_fwd.  hd <= 64, any N.  Scratch: stats [pairs, N, 3] f32 on the
+// CUDA-core path and, past N = 256, on the tensor-core path (the resident
+// tensor-core kernel does not read the pointer).
 extern "C" int fc_flash_bwd(int dtype, int pairs, int N, int hd, float qscale,
                             const void* q, const void* k, const void* v,
                             const void* dout, void* dq, void* dk, void* dv,
                             float* stats, cudaStream_t st) {
-  if (dtype == 1 && (hd == 16 || hd == 32 || hd == 64) && N <= 256) {
+  if (dtype == 1 && (hd == 16 || hd == 32 || hd == 64)) {
     const long long item = (long long)N * hd;
     const HeadLayout L = {item, hd, item, hd, item, hd};
     return attn_bwd_head(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), nullptr,
         static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        nullptr, nullptr, L, pairs, 1, N, hd, 1.0f, qscale, AH_FLASH, st);
+        nullptr, nullptr, stats, L, pairs, 1, N, hd, 1.0f, qscale, AH_FLASH,
+        st);
   }
   if (dtype == 1)
     return flash_bwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, dout, dq, dk,

@@ -14,13 +14,17 @@
 // ~58 MB of q, k, v and o in bf16, so the bytes bound it once the products
 // run on tensor cores.  Two paths, chosen here by dtype and shape
 // (ops/flash_attention.py uses_tensor_cores mirrors the choice):
-//   bf16, hd in {16, 32, 64}, N <= 256: the per-head tensor-core forward of
+//   bf16, hd in {16, 32, 64}: the per-head tensor-core forward of
 //     attn_fwd_core.cuh (one block per pair, padded bf16 tiles, mma.sync,
 //     two passes over the keys so that P is rounded after normalisation as
 //     the TPU kernel rounds it);
 //   float32, and bf16 at any other head_dim: the CUDA-core attention core
 //     of attn_core.cuh (one warp per query row, K and V in shared memory as
 //     f32).
+// Each keeps the keys resident up to N = 256 and streams them past it
+// (a block per 128 or 64 queries; ops/kernels.py streams_keys).  The flash
+// route sends N > 1024 to plain attention before any launch
+// (ops/flash_attention.py), as the JAX package does.
 #include "attn_fwd_core.cuh"
 
 namespace {
@@ -38,7 +42,7 @@ int flash_fwd_impl(int pairs, int N, int hd, float qscale, const void* q,
 
 // q, k, v, o [pairs, N, hd] (T), contiguous; qscale = the softmax scale
 // hd^-0.5 as a value of T (the TPU code multiplies q by scale cast to q's
-// dtype).  N <= 256, hd <= 64.  dtype: 0 = float32, 1 = bfloat16.
+// dtype).  hd <= 64, any N.  dtype: 0 = float32, 1 = bfloat16.
 extern "C" int fc_flash_fwd(int dtype, int pairs, int N, int hd, float qscale,
                             const void* q, const void* k, const void* v,
                             void* o, cudaStream_t st) {

@@ -82,6 +82,32 @@ FEDADAM_FLAGS = _baseline("FedAdam_coco", "fedadam", _FEDCOLA_SHARING,
                           "--server_lr", "0.1")
 
 
+# The long-text line: scripts/evidence_medabstracts.sh (two MedicalAbstracts
+# text populations, fedavg, mome_small, B=96, --eval_metrics acc1 f1) with
+# whole abstracts, --seq_len 512 (the BERT vocabulary's position limit), on
+# synthetic data, cut as MAIN_PATH_FLAGS is: --Ks 4 --C 0.5 --E 1 --debug
+# --R 2 --eval_every 1, and --Cs 0.5 beside --C, since --equal_sampled
+# samples each dataset's clients by --Cs: two clients a round.  Its text
+# stacks run the attention kernels at N = 512, past the resident kernels'
+# 256: the streamed variants.
+MEDABS_LONG_FLAGS = (
+    "--exp_name", "FedAVG_med", "--algorithm", "fedavg",
+    "--shared_param", "none", "--share_scope", "dataset",
+    "--colearn_param", "none", "--seed", "1", "--multi-task",
+    "--datasets", "MedicalAbstracts", "MedicalAbstracts",
+    "--modalities", "txt", "txt", "--Ks", "4", "--test_size", "-1",
+    "--split_type", "diri", "--cncntrtn", "0.5",
+    "--model_name", "mome_small_patch16", "--seq_len", "512",
+    "--eval_type", "global", "--eval_every", "1",
+    "--eval_metrics", "acc1", "f1", "--R", "2", "--C", "0.5",
+    "--Cs", "0.5", "--E", "1",
+    "--B", "96", "--beta1", "0", "--optimizer", "AdamW", "--lr", "1e-4",
+    "--lr_decay", "0.99", "--lr_decay_step", "1",
+    "--criterion", "CrossEntropyLoss", "--equal_sampled",
+    "--eval_batch_size", "512", "--synthetic_data", "--debug",
+    "--device", "cuda")
+
+
 def fixture_flags(coco: str, cifar: str, agnews: str) -> tuple:
     """The scripts/coco.sh FedCola line with its own data flags (``COMMON``,
     scripts/coco.sh:13-21: ``--pretrained --use_bert_tokenizer`` and

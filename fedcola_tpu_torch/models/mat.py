@@ -40,8 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fedcola_tpu_torch.ops.attention import multi_head_attention
-from fedcola_tpu_torch.ops.flash_attention import (MAX_HEAD_DIM, MAX_SEQ,
-                                                   scale_as)
+from fedcola_tpu_torch.ops.flash_attention import MAX_HEAD_DIM, scale_as
 from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
 from fedcola_tpu_torch.ops.fused_mlp import (
@@ -289,19 +288,17 @@ def _effective_kernels(cfg: MATConfig, params: Params, slot: str) -> Params:
 
 def check_kernel_support(cfg: MATConfig) -> None:
     """Refuse, on the card, what no CUDA kernel of this port covers: both
-    attention routes take head_dim <= 64 and sequences of at most 256
-    tokens (the JAX package falls back to XLA past 1024; the port
-    raises)."""
+    attention routes take head_dim <= 64.  Every sequence length runs: the
+    kernels stream the keys past 256 tokens, and the flash route runs the
+    plain attention past 1024 (``ops/flash_attention.py``), as the JAX
+    package does."""
     if not cfg.use_pallas:
         return
     hd = cfg.embed_dim // cfg.num_heads
-    seqs = [cfg.num_patches + 1 if m == "img" else cfg.max_text_len
-            for m in cfg.modalities if m is not None]
-    if hd > MAX_HEAD_DIM or max(seqs) > MAX_SEQ:
+    if hd > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"embed_dim {cfg.embed_dim} / {cfg.num_heads} heads, sequences "
-            f"{seqs}: the attention kernels take head_dim <= {MAX_HEAD_DIM} "
-            f"and N <= {MAX_SEQ}")
+            f"embed_dim {cfg.embed_dim} / {cfg.num_heads} heads: the "
+            f"attention kernels take head_dim <= {MAX_HEAD_DIM}")
 
 
 def _drop_path_mask(rate: float, n: int, B: int, gen,

@@ -8,7 +8,9 @@ softmax, P cast to the activation dtype before P.v, no mask.
 Two cores, chosen as the JAX package chooses them:
 
 * ``use_pallas`` — the flash-attention kernels (``ops/flash_attention.py``,
-  plain versions on CPU tensors);
+  plain versions on CPU tensors), which themselves run
+  :func:`attention_xla` past ``MAX_FUSED_SEQ`` = 1024 tokens, as
+  ``_fa_fwd`` / ``_fa_bwd`` do;
 * otherwise :func:`attention_xla`, the port of ``_attention_xla``: plain
   tensor ops, the branch the JAX package takes for ``--no_pallas`` and for
   stacks below ``fused_attn_min_seq``.

@@ -19,9 +19,18 @@ backward P, o, delta and dS in f32, each gradient cast to its input's dtype
 and dq then multiplied by scale in q's dtype.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
-tensors it runs the plain version.  The kernels take N <= 256 and
-hd <= 64; the JAX package falls back to XLA above N = 1024 (and where one
-pair exceeds its VMEM budget), the port raises instead.
+tensors it runs the plain version.  The kernels take head_dim <= 64 and
+every N: up to N = 256 each keeps a pair's keys in shared memory, past it
+each streams them in chunks (``kernels.streams_keys``).
+
+The routing rule of the JAX package's ``_fa_fwd`` / ``_fa_bwd`` is kept:
+:func:`flash_attention` sends a sequence longer than ``MAX_FUSED_SEQ`` =
+1024 to the plain attention ``attention_xla`` (``ops/attention.py``),
+forward and backward, decided by N alone before any launch.  The JAX
+package also falls back where one pair exceeds its VMEM budget
+(``_pick_group`` returning 0); that is a fact about TPU memory, not about
+the function, and has no counterpart here: the streamed kernels' shared
+memory does not grow with N.
 
 Each entry point chooses in C between two paths
 (:func:`uses_tensor_cores` mirrors the choice): bfloat16 at head_dim 16, 32
@@ -30,8 +39,8 @@ or 64 runs per-head ``mma.sync`` kernels (``csrc/attn_fwd_core.cuh``,
 CUDA-core kernels.  The tensor-core forward keeps every rounding point
 above; the tensor-core backward hands P and dS on as bfloat16 operands of
 the dv, dq and dk products (scores, softmax, delta and the accumulators
-stay f32) and needs no scratch.  The plain versions keep the JAX
-arithmetic on both paths.
+stay f32) and needs no scratch up to N = 256.  The plain versions keep
+the JAX arithmetic on both paths.
 """
 
 from __future__ import annotations
@@ -44,17 +53,26 @@ from fedcola_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
-MAX_SEQ = 256
 MAX_HEAD_DIM = 64
 TENSOR_CORE_HEAD_DIMS = (16, 32, 64)
+# above this sequence length the flash route runs the plain attention, as
+# fedcola_tpu/ops/flash_attention.py's _fa_fwd / _fa_bwd do
+MAX_FUSED_SEQ = 1024
 
 
 def uses_tensor_cores(dtype: torch.dtype, N: int, hd: int) -> bool:
     """Whether ``fc_flash_fwd`` / ``fc_flash_bwd`` take their tensor-core
     path for this dtype and shape (the choice is made in C,
-    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``)."""
+    ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``); either path streams
+    the keys past N = 256."""
     return (dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS
-            and 1 <= N <= MAX_SEQ)
+            and N >= 1)
+
+
+def routes_to_plain(N: int) -> bool:
+    """Whether :func:`flash_attention` runs ``attention_xla`` instead of
+    the kernels: N > ``MAX_FUSED_SEQ`` (``_fa_fwd`` / ``_fa_bwd``)."""
+    return N > MAX_FUSED_SEQ
 
 
 def scale_as(dtype: torch.dtype, value: float) -> float:
@@ -94,11 +112,10 @@ def flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
 
 def _check(q: Tensor, *others: Tuple[str, Tensor]) -> Tuple[int, int, int]:
     N, hd = q.shape[-2:]
-    if N > MAX_SEQ or hd > MAX_HEAD_DIM:
+    if hd > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"flash attention kernel takes N <= {MAX_SEQ} and head_dim <= "
-            f"{MAX_HEAD_DIM} (got N={N}, head_dim={hd}); the JAX package's "
-            "XLA fallback for long sequences is not ported")
+            f"flash attention kernel takes head_dim <= {MAX_HEAD_DIM} "
+            f"(got N={N}, head_dim={hd})")
     for name, t in (("q", q),) + others:
         kernels.check(t, name, q.shape, q.dtype, q.device)
     return q.numel() // (N * hd), N, hd
@@ -117,12 +134,15 @@ def fwd_launch(q: Tensor, k: Tensor, v: Tensor, scale: float):
 
 def bwd_launch(q: Tensor, k: Tensor, v: Tensor, do: Tensor, scale: float):
     """``(entry point, arguments, (dq, dk, dv), scratch)`` of the backward
-    launch.  The scratch, the per-row softmax max, sum and delta ``[pairs,
-    N, 3]`` in f32, exists on the CUDA-core path only."""
+    launch.  The scratch, the per-row softmax statistics ``[pairs, N, 3]``
+    in f32, exists on the CUDA-core path and, where the keys stream, on
+    the tensor-core path."""
     pairs, N, hd = _check(q, ("k", k), ("v", v), ("do", do))
     outs = tuple(torch.empty_like(q) for _ in range(3))
-    stats = None if uses_tensor_cores(q.dtype, N, hd) else torch.empty(
-        (pairs, N, 3), dtype=torch.float32, device=q.device)
+    stats = None
+    if not uses_tensor_cores(q.dtype, N, hd) or kernels.streams_keys(N):
+        stats = torch.empty((pairs, N, 3), dtype=torch.float32,
+                            device=q.device)
     P_ = kernels.ptr
     return "flash_bwd", [kernels.dtype_code(q.dtype), pairs, N, hd,
                          scale_as(q.dtype, scale), P_(q), P_(k), P_(v),
@@ -168,5 +188,11 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
-    """Differentiable ``softmax(q k^T * scale) v`` over ``[..., N, hd]``."""
+    """Differentiable ``softmax(q k^T * scale) v`` over ``[..., N, hd]``:
+    kernels 11 and 12, or, past ``MAX_FUSED_SEQ``, the plain attention
+    differentiated by autograd (the JAX package's ``jax.vjp`` of
+    ``_attention_xla``)."""
+    if routes_to_plain(q.shape[-2]):
+        from fedcola_tpu_torch.ops.attention import attention_xla
+        return attention_xla(q, k, v, scale)
     return FlashAttention.apply(q, k, v, scale)

@@ -23,6 +23,10 @@ The wrappers assemble their launches in :func:`fwd_launch` and
 (:func:`uses_sm90`) the entry points run every D-wide product on the TMA +
 wgmma mainloop and the per-head forward and backward in one tensor-core
 kernel each (``csrc/attn_fwd_core.cuh``, ``csrc/attn_bwd_core.cuh``).
+The kernels take every sequence length: past N = 256
+(``kernels.streams_keys``) the per-head kernels stream the keys in chunks,
+and the Hopper backward then takes a row-statistics scratch and one
+column-sum row per 128-query block.
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version.  The plain versions round to x's dtype
@@ -183,10 +187,10 @@ def _attn_bwd(x, s, lns, wqkv, fwd, wproj, p_dv, p_ds, cat, da,
 
 def _check_fwd_args(x, s, lns, lnb, wqkv, bqkv, wproj, bproj, num_heads):
     n, B, N, D = x.shape
-    if D % num_heads or D // num_heads > 64 or N > 256 or D > 1024:
+    if D % num_heads or D // num_heads > 64 or D > 1024:
         raise NotImplementedError(
-            f"fused attention kernel takes head_dim <= 64, N <= 256 and "
-            f"D <= 1024 (got D={D}, H={num_heads}, N={N})")
+            f"fused attention kernel takes head_dim <= 64 and D <= 1024 "
+            f"(got D={D}, H={num_heads}, N={N})")
     dt, dev = x.dtype, x.device
     kernels.check(x, "x", (n, B, N, D), dt, dev)
     if s is not None:
@@ -242,10 +246,11 @@ def uses_sm90(dtype, D: int, num_heads: int, N: int) -> bool:
     """The choice ``fc_attn_fwd``, ``fc_attn_bwd`` and
     ``fc_attn_bwd_recompute`` make (``csrc/attn_sm90.cuh``): bf16 with
     head_dim 16, 32 or 64 (the tensor-core head kernels' sizes; D is then on
-    TMA's 8-element grid) and N <= 256 runs the Hopper path; float32, or any
+    TMA's 8-element grid), at every N, runs the Hopper path; float32, or any
     other head_dim, runs ``gemm_kernel`` and the CUDA-core attention core
-    and row and column passes."""
-    return (dtype == torch.bfloat16 and D % 8 == 0 and N <= 256
+    and row and column passes.  Either streams the keys past N = 256
+    (``kernels.streams_keys``)."""
+    return (dtype == torch.bfloat16 and D % 8 == 0
             and D // num_heads in (16, 32, 64))
 
 
@@ -256,13 +261,16 @@ def _bwd_buffers(x, num_heads: int, recompute: bool):
     :func:`uses_sm90`) needs none:
 
         h, mean, rstd, qkv, [P, cat,] dac, dO, dS, dqkv, dqkvc, dh,
-        partial, hpart, wpart
+        partial, stats, hpart, wpart
 
     (P and cat only when ``recompute``: the other entry point reads them.)
     The Hopper path keeps P and dS on chip and writes dq | dk | dv straight
-    as the bf16 dqkvc: it takes hpart ``[n*B, 3D]`` (dbqkv's column sums per
-    item) and wpart (the split weight-gradient partials of the larger of
-    dWproj ``[S, n, D, D]`` and dWqkv ``[S, n, D, 3D]``, when an S > 1).
+    as the bf16 dqkvc: it takes hpart ``[n*B*R, 3D]`` (dbqkv's column sums
+    per item, R = ``kernels.attn_part_rows(N)``: one, or one per 128-query
+    block when the keys stream), wpart (the split weight-gradient partials
+    of the larger of dWproj ``[S, n, D, D]`` and dWqkv ``[S, n, D, 3D]``,
+    when an S > 1) and, past N = 256, stats ``[n*B, H, N, 3]`` (the streamed
+    head kernels' row max, 1 / sum and delta).
     The ``gemm_kernel`` path takes dS (and, recomputing, P) ``[n, B, H, N,
     N]`` in x's dtype and dqkv ``[n, B, N, 3D]`` in f32."""
     n, B, N, D = x.shape
@@ -277,9 +285,12 @@ def _bwd_buffers(x, num_heads: int, recompute: bool):
             torch.empty((n, D), **f32)]
     mean = torch.empty((n * B * N,), **f32)
     qkv = torch.empty((n, B, N, 3 * D), dtype=dt, device=dev)
+    stats = None
     if uses_sm90(dt, D, H, N):
         P = dS = dqkv = wpart = None
-        hpart = torch.empty((n * B, 3 * D), **f32)
+        hpart = torch.empty((n * B * kernels.attn_part_rows(N), 3 * D), **f32)
+        if kernels.streams_keys(N):
+            stats = torch.empty((n * B, H, N, 3), **f32)
         part = max(S * cols if S > 1 else 0
                    for (S, _), cols in zip(plans, (D, 3 * D)))
         if part:
@@ -293,7 +304,8 @@ def _bwd_buffers(x, num_heads: int, recompute: bool):
     scratch = ([torch.empty_like(x), mean, torch.empty_like(mean), qkv]
                + saves + [torch.empty_like(x), torch.empty_like(x), dS, dqkv,
                           torch.empty_like(qkv), torch.empty(x.shape, **f32),
-                          torch.empty((n, 32, 3 * D), **f32), hpart, wpart])
+                          torch.empty((n, 32, 3 * D), **f32), stats, hpart,
+                          wpart])
     return (plans[0][1], plans[1][1]), outs, scratch
 
 

@@ -46,8 +46,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fc_attn_fwd": [_I] * 6 + [_P] * 15 + [_I, _P],
-    "fc_attn_bwd": [_I] * 8 + [_P] * 31,
-    "fc_attn_bwd_recompute": [_I] * 8 + [_P] * 30,
+    "fc_attn_bwd": [_I] * 8 + [_P] * 32,
+    "fc_attn_bwd_recompute": [_I] * 8 + [_P] * 31,
     "fc_mlp_fwd": [_I] * 6 + [_P] * 14,
     "fc_mlp_bwd": [_I] * 7 + [_P] * 28,
     "fc_mlp_bwd_nores": [_I] * 7 + [_P] * 27,
@@ -85,6 +85,57 @@ def plan_row_splits(rows: int, out_rows: int, out_cols: int):
     want = -(-2 * H100_SMS // tiles)
     per = -(-k_tiles // max(1, min(8, want, k_tiles // 4)))
     return -(-k_tiles // per), per * SM90_BK
+
+
+# The per-head attention kernels (csrc/attn_core.cuh, attn_fwd_core.cuh,
+# attn_bwd_core.cuh, attn_bwd.cu, flash_bwd.cu) keep a head's keys resident
+# in shared memory up to N = RESIDENT_MAX_SEQ and stream them past it.  The
+# streamed kernels' blocks and chunks, as the C side defines them: the
+# tensor-core kernels own 128 query (column pass: key) rows a block and
+# ring 64-row chunks (AS_QB, AS_KC); the CUDA-core kernels own 64 query
+# rows a block and load 32-key chunks (AT_QR, AT_KC), their column passes
+# 32 keys (AB_KR, the fused route) or 64 (FB_KR, flash).
+RESIDENT_MAX_SEQ = 256
+AS_QB, AS_KC, AH_PAD = 128, 64, 8
+AT_QR, AT_KC, AT_WARPS, AB_KR, AB_RC, FB_KR = 64, 32, 8, 32, 32, 64
+SMEM_LIMIT = 232448     # dynamic shared memory a block may take on Hopper
+
+
+def streams_keys(N: int) -> bool:
+    """Whether the attention kernels take their streamed variants at
+    sequence length N (``attn_streams_keys`` in ``csrc/attn_core.cuh``)."""
+    return N > RESIDENT_MAX_SEQ
+
+
+def attn_part_rows(N: int) -> int:
+    """Rows of the Hopper attention backward's column-sum buffer an item
+    takes: one, or one per 128-query block when the keys stream."""
+    return -(-N // AS_QB) if streams_keys(N) else 1
+
+
+def stream_smem_bytes(hd: int) -> Dict[str, int]:
+    """Dynamic shared memory of each streamed kernel at head_dim ``hd``,
+    mirrored from the ``*_stream_smem`` functions of ``csrc/``: a function
+    of hd alone, at every sequence length."""
+    bf, f = 2, 4
+    tile = lambda rows: rows * (hd + AH_PAD) * bf   # padded bf16 rows
+    core = lambda rows: rows * (hd + 1) * f         # padded f32 rows
+    return {
+        "attn_fwd_head_stream": tile(AS_QB + 4 * AS_KC),
+        "attn_bwd_head_rows_stream": tile(2 * AS_QB + 4 * AS_KC)
+        + (AS_QB // 16) * hd * f,
+        "attn_bwd_head_cols_stream": tile(2 * AS_QB + 4 * AS_KC)
+        + (2 * 3 * AS_KC + 2 * (AS_QB // 16) * hd) * f,
+        "attn_core_fwd_stream": core(AT_QR + 2 * AT_KC) + AT_WARPS * AT_KC * f,
+        "attn_bwd_rows_stream": core(2 * AT_QR + 2 * AT_KC)
+        + AT_WARPS * AT_KC * f,
+        "attn_bwd_cols_stream": (2 * AB_KR * hd + 2 * AB_RC * AB_KR
+                                 + 2 * AB_RC * hd) * f,
+        "flash_bwd_rows_stream": core(2 * AT_QR + 2 * AT_KC)
+        + AT_WARPS * AT_KC * f,
+        "flash_bwd_cols_stream": core(2 * FB_KR + 2 * AT_KC)
+        + (3 * AT_KC + 2 * AT_WARPS * AT_KC) * f,
+    }
 
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,6 @@
 """Where one FedCola round's device time goes, by kernel and by wrapper.
 
-    python -m fedcola_tpu_torch.profile_round [--tiny | main.py flags]
+    python -m fedcola_tpu_torch.profile_round [--tiny | --long | main.py flags]
 
 Runs the configured experiment for one untraced warm-up round, then traces
 the next round's update (train + aggregate) with ``torch.profiler`` and
@@ -9,7 +9,8 @@ prints the wall time, the summed device kernel time, the device idle share
 kernel wrapper (``fc_*`` ranges, one per TPU kernel of the JAX package)
 and the top kernels by device time.  Without flags it runs the main path
 of ``chip_smoke.py`` (``main.MAIN_PATH_FLAGS``); ``--tiny`` runs the same
-line at mome_tiny width (``main.MOME_TINY_FLAGS``, the flash route).
+line at mome_tiny width (``main.MOME_TINY_FLAGS``, the flash route);
+``--long`` the long-text line (``main.MEDABS_LONG_FLAGS``, N = 512).
 """
 
 from __future__ import annotations
@@ -27,10 +28,12 @@ def main(argv=None) -> int:
     from fedcola_tpu_torch.config import parse_args
     from fedcola_tpu_torch.data.loaders import load_federated_data
     from fedcola_tpu_torch.federation.server import create_server
-    from fedcola_tpu_torch.main import MAIN_PATH_FLAGS, MOME_TINY_FLAGS
+    from fedcola_tpu_torch.main import (MAIN_PATH_FLAGS, MEDABS_LONG_FLAGS,
+                                        MOME_TINY_FLAGS)
     argv = list(argv if argv is not None else sys.argv[1:])
-    if argv in ([], ["--tiny"]):
-        argv = list(MOME_TINY_FLAGS if argv else MAIN_PATH_FLAGS)
+    named = {"--tiny": MOME_TINY_FLAGS, "--long": MEDABS_LONG_FLAGS}
+    if argv == [] or (len(argv) == 1 and argv[0] in named):
+        argv = list(named[argv[0]] if argv else MAIN_PATH_FLAGS)
     with tempfile.TemporaryDirectory(prefix="fedcola_profile_") as out:
         cfg = parse_args(argv + ["--result_path", out, "--log_path", out])
         if cfg.device != "cuda":

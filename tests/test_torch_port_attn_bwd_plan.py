@@ -153,10 +153,10 @@ def test_single_range_products_take_no_partials():
                                  (256, 2), (48, 6)])
 @pytest.mark.parametrize("N", [5, 40, 197, 256])
 def test_predicate_is_the_documented_choice(dtype, D, H, N):
-    """``dtype == 1 && D % 8 == 0 && N <= 256 && hd in {16, 32, 64}``, as
-    ``attn_bwd_on_sm90`` in ``csrc/attn_bwd.cu``."""
+    """``dtype == 1 && D % 8 == 0 && hd in {16, 32, 64}``, at every N, as
+    ``attn_on_sm90`` in ``csrc/attn_sm90.cuh``."""
     hd = D // H
-    want = (kernels.dtype_code(dtype) == 1 and D % 8 == 0 and N <= 256
+    want = (kernels.dtype_code(dtype) == 1 and D % 8 == 0
             and hd in (16, 32, 64))
     assert fa.uses_sm90(dtype, D, H, N) == want
     # the documented examples: mome_small and the test models are on the

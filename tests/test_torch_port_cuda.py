@@ -23,7 +23,14 @@ GELU and residual epilogues, and that forward core) are held to their plain
 versions at n = 1 and 3 clients, D = 64 to 1024, head_dim 64, 32 and 16 and
 N = 256, 197, 40 and 1, with bitwise repeats; the two epilogues alone to a
 float32 reference at ragged M and N across a client boundary; and D = 100
-and head_dim 48 to the plain versions on the ``gemm_kernel`` path.
+and head_dim 48 to the plain versions on the ``gemm_kernel`` path.  Past
+N = 256 every attention kernel streams the keys: rows 1, 1e, 2 and 5 at
+N = 257 (head_dim 64, 32, 16), 512 and 1536 and the flash kernels at 257,
+512 and 1024 (tensor-core and CUDA-core paths) are held to the plain
+versions in float32 and bfloat16 with bitwise repeats, the flash route
+takes the plain attention at N = 1025, and ``resident_digests`` gives the
+outputs of the resident kernels (N = 256, 197, 40) for a comparison with
+another build.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -205,9 +212,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fa.attn_fwd(t["x"], t["s"], *w[:2], w[2].double(), *w[3:], H)
     with pytest.raises(NotImplementedError):
         fa.attn_fwd(t["x"], t["s"], *w, 1)        # head_dim 128 > 64
+    # N past the resident kernels' 256 is taken (the keys stream) ...
     q = torch.zeros(2, 4, 300, 64, device=dev)
-    with pytest.raises(NotImplementedError):
-        fl.flash_fwd(q, q, q, 0.125)              # N 300 > 256
+    assert torch.equal(fl.flash_fwd(q, q, q, 0.125), q)
+    x = _inputs(("x",), 300, torch.float32, dev)["x"]
+    assert fa.attn_fwd(x, None, *w, H, save=False)[0].shape == x.shape
+    # ... and head_dim past 64 is still refused
     q = torch.zeros(2, 4, 16, 96, device=dev)
     with pytest.raises(NotImplementedError):
         fl.flash_fwd(q, q, q, 0.125)              # head_dim 96 > 64
@@ -700,3 +710,126 @@ def test_forward_path_choice_by_dtype_and_shape(dev):
         assert ("attn_core_fwd_kernel" in attn) is not attn_new, (dtype, Dm)
     assert [c[2:] for c in cases] == [(True, True), (False, False),
                                       (True, False), (False, False)]
+
+
+# ------------------------------------ long sequences: the keys streamed ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,Hm", [(257, 2), (257, 4), (257, 8), (512, 2),
+                                  (1536, 2)])
+def test_streamed_attention_kernels_match_plain(dev, N, Hm, dtype):
+    """Rows 1, 1e, 2 and 5 past the resident kernels' 256 keys: N = 257
+    (the edge: one key in the last chunk, one query in the last block) at
+    head_dim 64, 32 and 16, 512 (the long line's length) and 1536; every
+    output, P, cat and every gradient against the plain versions, and a
+    second call of each in bf16 gives the first call's bits."""
+    assert kernels.streams_keys(N)
+    t = _inputs(ATTN, N, dtype, dev, seed=N + Hm)
+    w = [t[k] for k in ATTN[2:8]]
+    for s, save in ((t["s"], True), (None, False)):
+        got = fa.attn_fwd(t["x"], s, *w, Hm, save=save)
+        _agree(got, fa.attn_fwd_plain(t["x"], s, *w, Hm, save=save), dtype)
+        again = fa.attn_fwd(t["x"], s, *w, Hm, save=save)
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    _, P, cat = fa.attn_fwd_plain(t["x"], t["s"], *w, Hm)
+    for fn, plain, args in (
+            (fa.attn_bwd, fa.attn_bwd_plain,
+             (t["x"], t["s"], *w[:5], P, cat, t["do"], Hm)),
+            (fa.attn_bwd_recompute, fa.attn_bwd_recompute_plain,
+             (t["x"], *w[:5], t["do"], Hm))):
+        got = fn(*args)
+        _agree(got, plain(*args), dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, fn(*args)))
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 32),
+                                      (torch.bfloat16, 16),
+                                      (torch.bfloat16, 48),
+                                      (torch.float32, 64)])
+@pytest.mark.parametrize("N", [257, 512, 1024])
+def test_streamed_flash_kernels_match_plain(dev, N, hd, dtype):
+    """Rows 11 and 12 past 256 keys, up to the flash route's 1024: the
+    tensor-core kernels (bf16 at head_dim 64, 32, 16) and the CUDA-core
+    ones (head_dim 48, float32), forward and every gradient against the
+    plain versions, and bitwise repeats."""
+    q, k, v, do = _flash_inputs(N, hd, dtype, dev)
+    scale = hd ** -0.5
+    got = [fl.flash_fwd(q, k, v, scale)]
+    _agree(got, [fl.flash_fwd_plain(q, k, v, scale)], dtype)
+    assert torch.equal(got[0], fl.flash_fwd(q, k, v, scale))
+    got = fl.flash_bwd(q, k, v, do, scale)
+    _agree(got, fl.flash_bwd_plain(q, k, v, do, scale), dtype)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, fl.flash_bwd(q, k, v, do, scale)))
+
+
+def test_flash_route_takes_plain_attention_past_1024(dev):
+    """N = 1025 on the flash route runs ``attention_xla`` (no flash launch),
+    forward and backward, as the JAX package's ``_fa_fwd`` / ``_fa_bwd``
+    do; the fused route's kernel takes the same N."""
+    from fedcola_tpu_torch.ops.attention import attention_xla
+    q, k, v, do = _flash_inputs(1025, 64, torch.bfloat16, dev, lead=(1, 2))
+    leaves = [u.clone().requires_grad_(True) for u in (q, k, v)]
+    kernels.reset_launches()
+    o = fl.flash_attention(*leaves, 0.125)
+    grads = torch.autograd.grad(o, leaves, do)
+    assert kernels.LAUNCHES["flash_fwd"] == kernels.LAUNCHES["flash_bwd"] == 0
+    ref = attention_xla(*leaves, 0.125)
+    assert torch.equal(o, ref)
+    for a, b in zip(grads, torch.autograd.grad(ref, leaves, do)):
+        assert torch.equal(a, b)
+    t = _inputs(ATTN, 1025, torch.bfloat16, dev)
+    fa.attn_fwd(t["x"], None, *[t[k] for k in ATTN[2:8]], H, save=False)
+    assert kernels.LAUNCHES["attn_fwd"] == 1
+
+
+def resident_digests(dev):
+    """SHA-1 of every bf16 attention entry point's outputs at resident N
+    (256, 197, 40; seeded inputs)."""
+    from fedcola_tpu_torch.profile_attn_bwd import digest
+    out = {}
+    for N in (256, 197, 40):
+        t = _attn_case(N, D, H, dev, seed=N)
+        w = t["w"] + [t["bproj"]]
+        out[f"attn_fwd N={N}"] = fa.attn_fwd(t["x"], t["s"], *w, H)
+        out[f"attn_fwd eval N={N}"] = fa.attn_fwd(t["x"], None, *w, H,
+                                                  save=False)[:1]
+        for name, (got, _) in _both_attn_backwards(t, H).items():
+            out[f"{name} N={N}"] = got
+        q, k, v, do = _flash_inputs(N, 64, torch.bfloat16, dev)
+        out[f"flash_fwd N={N}"] = [fl.flash_fwd(q, k, v, 0.125)]
+        out[f"flash_bwd N={N}"] = fl.flash_bwd(q, k, v, do, 0.125)
+    return {k: digest(v) for k, v in out.items()}
+
+
+# ``resident_digests`` as the tree before the streamed kernels gave them
+# (the parent build, on an NVIDIA H100 80GB HBM3): the kernels that take
+# N <= 256 keep their code, so they keep these bits.
+RESIDENT_SHA1 = {
+    "attn_fwd N=256": "663001895dbd8701753f07c97aa4149e05e70013",
+    "attn_fwd eval N=256": "3e67a211c2367a4a7ae7a955e5131c62111cf8dc",
+    "attn_bwd N=256": "6f0dd1ceaa5de61912a524b32b7f030a0bd6ab5a",
+    "attn_bwd_recompute N=256": "445cdb0eee9cba6879b73e49d916ad55cc520ce9",
+    "flash_fwd N=256": "c00f42526b6db74cc6441d83766c30400f512b6a",
+    "flash_bwd N=256": "de2953b84ac3119da44cf8edb3425b803e2c401e",
+    "attn_fwd N=197": "19530e040ec217ea3b80678b5a05bc7b80aa49f4",
+    "attn_fwd eval N=197": "7217a08ee2a3d91acd463a3446c32c7e8aeb4001",
+    "attn_bwd N=197": "bd20ccc3d9f6abd17ac40b28306e8c6705c77a65",
+    "attn_bwd_recompute N=197": "2bfd361728ecb8f481009ab7539f8c46e1b657d5",
+    "flash_fwd N=197": "3a188169793a8f4b3eca4e021b5172041992208d",
+    "flash_bwd N=197": "41a6378870efca0f41a3ca4380773c78d3cd1433",
+    "attn_fwd N=40": "493c7deadb5be3278f0591ee2fc012d702e8f41c",
+    "attn_fwd eval N=40": "af6b2514b15ffc86a5504ae4d42d65c641a7dcc8",
+    "attn_bwd N=40": "fb557e23e5689769f817f715a9373380b097c32b",
+    "attn_bwd_recompute N=40": "d043067fe367ce695913cc1ccf61e922d41bde3e",
+    "flash_fwd N=40": "abca321f6071a69e12ff97e35665238ec9237fe3",
+    "flash_bwd N=40": "0f8eabaf7492c205ecf89ad8624dd2c5939d6351",
+}
+
+
+def test_resident_kernels_give_the_same_bits_as_before(dev):
+    """Every bf16 attention entry point at N = 256, 197 and 40 gives the
+    bits it gave before the streamed variants were added beside it."""
+    got = resident_digests(dev)
+    assert {k: v for k, v in got.items() if RESIDENT_SHA1[k] != v} == {}

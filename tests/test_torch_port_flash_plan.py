@@ -3,9 +3,9 @@
 signatures the CUDA library is bound with, on the tensor-core path and on
 the CUDA-core path, in both dtypes; ``uses_tensor_cores`` is the choice
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` document (bfloat16 at
-head_dim 16, 32 or 64, N <= 256); the tensor-core backward allocates no
-statistics scratch; CPU tensors run the plain versions and count no
-launch.  Catches an argument-list slip before a card does.
+head_dim 16, 32 or 64, any N); the resident tensor-core backward
+allocates no statistics scratch; CPU tensors run the plain versions and
+count no launch.  Catches an argument-list slip before a card does.
 """
 
 import pytest
@@ -84,14 +84,20 @@ def test_uses_tensor_cores_is_the_documented_choice(dtype, hd, N):
 
 
 def test_shapes_the_kernels_do_not_take_are_refused():
-    assert not fl.uses_tensor_cores(torch.bfloat16, 257, 64)
+    """head_dim past 64 is refused; sequences past 256 are not (the keys
+    stream: N = 300 and 2048 take the tensor-core path in bf16, with the
+    statistics scratch)."""
     assert not fl.uses_tensor_cores(torch.float16, 40, 64)
-    for N, hd in ((257, 64), (40, 96)):
-        q, k, v, do = _inputs(N, hd, torch.bfloat16, 4)
-        with pytest.raises(NotImplementedError):
-            fl.fwd_launch(q, k, v, 0.125)
-        with pytest.raises(NotImplementedError):
-            fl.bwd_launch(q, k, v, do, 0.125)
+    for N in (300, 2048):
+        assert fl.uses_tensor_cores(torch.bfloat16, N, 64)
+        q, k, v, do = _inputs(N, 64, torch.bfloat16, 4)
+        assert fl.fwd_launch(q, k, v, 0.125)[0] == "flash_fwd"
+        assert fl.bwd_launch(q, k, v, do, 0.125)[3].shape == (6, N, 3)
+    q, k, v, do = _inputs(40, 96, torch.bfloat16, 4)
+    with pytest.raises(NotImplementedError):
+        fl.fwd_launch(q, k, v, 0.125)
+    with pytest.raises(NotImplementedError):
+        fl.bwd_launch(q, k, v, do, 0.125)
     q, k, v = _inputs(40, 64, torch.bfloat16)
     with pytest.raises(TypeError):
         fl.fwd_launch(q, k.float(), v, 0.125)

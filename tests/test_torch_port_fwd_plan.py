@@ -132,7 +132,8 @@ def test_hopper_path_predicates_mirror_the_c_side(N):
     assert not fa.uses_sm90(bf, 100, 2, N)          # head_dim 50
     assert not fa.uses_sm90(bf, 96, 2, N)           # head_dim 48
     assert all(fa.uses_sm90(bf, hd * 2, 2, N) for hd in (16, 32, 64))
-    assert not fa.uses_sm90(bf, 384, 6, 257)
+    # every N: the head kernels stream the keys past 256
+    assert fa.uses_sm90(bf, 384, 6, 257) and fa.uses_sm90(bf, 384, 6, 2048)
 
 
 @pytest.mark.parametrize("product,cols", [("fc1", 1536), ("fc2", 384),

@@ -368,17 +368,21 @@ def test_stack_routing_follows_jax(case, monkeypatch):
 
 def test_kernel_support_refuses_uncovered_shapes():
     """On the card, check_kernel_support passes every registered width
-    (mome_tiny's D=192 on the flash route), --no_pallas and the remat
-    policies, and refuses head_dim > 64 (a width above 1024 at 6 heads)
-    and sequences over 256 tokens."""
+    (mome_tiny's D=192 on the flash route), --no_pallas, the remat policies
+    and sequences past 256 tokens on both routes (300, and 2048 where the
+    flash route runs the plain attention), and refuses head_dim > 64 (a
+    width above 1024 at 6 heads, or 1152 at 3)."""
     base = tmat.MATConfig(embed_dim=384, use_pallas=True, use_fused_mlp=True)
-    for ok in (base, dataclasses.replace(base, embed_dim=192, num_heads=3),
+    tiny = dataclasses.replace(base, embed_dim=192, num_heads=3)
+    for ok in (base, tiny,
                dataclasses.replace(base, embed_dim=768, num_heads=12),
                dataclasses.replace(base, use_pallas=False),
                dataclasses.replace(base, remat_policy="save_attn"),
-               dataclasses.replace(base, remat_policy="full")):
+               dataclasses.replace(base, remat_policy="full"),
+               dataclasses.replace(base, max_text_len=300),
+               dataclasses.replace(tiny, max_text_len=2048)):
         tmat.check_kernel_support(ok)
     for bad in (dataclasses.replace(base, embed_dim=1152),
-                dataclasses.replace(base, max_text_len=300)):
+                dataclasses.replace(base, embed_dim=1152, num_heads=3)):
         with pytest.raises(NotImplementedError):
             tmat.check_kernel_support(bad)

@@ -121,15 +121,33 @@ result line):
             same line (rows 11, 11e and 12 at N = 512); every attention
             launch of the phase is at N = 512, and each of rows 1, 1e, 2,
             3, 3e, 4, 5, 6, 11 and 12 must launch.
+10. mesh    the device mesh on the one card, two ranks sharing it over
+            gloo (``FEDCOLA_VIRTUAL_DEVICES=2``): [main]'s line with
+            ``--mesh_shape 2`` (spawned; both ranks start with
+            ``build/kernels/`` removed and the build must run once) and
+            with ``--mesh_shape 1 2 --mesh_axes clients data`` as two
+            ``--dist_*`` processes, each held against [main]'s losses,
+            eval results and final weights by ``MESH_BOUNDS`` (bit for
+            bit or not is printed); two planted faults, each of which the
+            gates ``FAULT_GATES`` names must reject; every rank must
+            launch rows 1-4 and the eval rows; each run's backend and
+            every rank's staged bytes, peak memory, round and eval
+            seconds and launches beside the card's name and power limit;
+            the float32 products that differ between one client and two
+            stacked; ``graft_entry.dryrun_multichip(4)`` on the card (four
+            ranks, each launching rows 1-4); every collective of the mesh
+            in a one-rank NCCL group against the identity.
 
 Phases 5 to 9 (and resident, local, augment, fixtures) each zero the launch
 counters just before and read them just after; a kernel's launches are
-those of the path that runs it.  The
+those of the path that runs it.  The [mesh] ranks are processes of their
+own, which count from zero.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
 N=197 training-shape times, under "eval" the eval-shape times of the
 kernels central eval runs, under "distill" those of kernels 1-4 at the
 distillation shape, and under "long" and "long_eval" the N = 512 times at
-the training and eval shapes, "long" with the [long] phase's launches);
+the training and eval shapes, "long" with the [long] phase's launches;
+under "mesh_launches" each [mesh] run's launches per rank);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -987,7 +1005,7 @@ def phase_main():
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    return launches, server.results
+    return launches, server.results, _global_weights(server)
 
 
 def phase_tiny():
@@ -1459,6 +1477,366 @@ def phase_long():
     return total
 
 
+# ---------------------------------------------------------------- mesh ----
+
+MESH_TRAINING_KERNELS = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+
+
+def _global_weights(server) -> dict:
+    """A server's global weights by (dataset, reference name), as its
+    ``.npz`` checkpoint holds them."""
+    from fedcola_tpu_torch.models import naming
+    return {(ds, name): naming.get_by_path(p, path).detach().float().cpu()
+            .numpy()
+            for ds, p in server.global_params.items()
+            for path, name in naming.param_names(server.model_cfgs[ds])}
+
+
+def _npz_weights(result_dir, exp_name, datasets) -> dict:
+    import numpy as np
+    out = {}
+    for ds in datasets:
+        with np.load(os.path.join(result_dir, exp_name, f"{ds}.npz")) as z:
+            out.update({(ds, k): z[k] for k in z.files
+                        if not k.startswith("__")})
+    return out
+
+
+# Planted faults, each a program that patches the mesh and runs the entry
+# point.  FAULT_FIRST_BLOCK: every rank keeps the first block of each draw
+# (a rank past the first trains its clients with another client's DropPath
+# masks), the bug the layout-free draws exist to prevent.
+# FAULT_DROP_UPLOAD: the gathered uploads hold the first client's in place
+# of every other (the other ranks' uploads dropped from aggregation).
+FAULT_FIRST_BLOCK = """
+import sys
+from fedcola_tpu_torch.parallel import mesh
+block = mesh.RankDraws.block
+def first_block(self, full):
+    k = self.clients.stop - self.clients.start
+    return block(mesh.RankDraws(self.gen, self.n, self.B, slice(0, k),
+                                self.batch), full)
+mesh.RankDraws.block = first_block
+from fedcola_tpu_torch.main import main
+main(sys.argv[1:])
+"""
+FAULT_DROP_UPLOAD = """
+import sys
+from fedcola_tpu_torch.models.mat import tree_map
+from fedcola_tpu_torch.parallel import mesh
+gather = mesh.MeshPlan.gather_clients
+def drop_uploads(self, tree, n):
+    full = gather(self, tree, n)
+    if not isinstance(tree, dict):       # the metric sums
+        return full
+    return tree_map(lambda a: a[:1].expand_as(a).clone(), full)
+mesh.MeshPlan.gather_clients = drop_uploads
+from fedcola_tpu_torch.main import main
+main(sys.argv[1:])
+"""
+
+
+def _mesh_cli(out, extra, virtual, dist=None, code=None):
+    """``python -m fedcola_tpu_torch.main`` on [main]'s line with
+    ``extra``, started with ``FEDCOLA_VIRTUAL_DEVICES=virtual``; ``dist``:
+    ``(port, process_id)`` of a two-process run; ``code``: run that
+    program (``python -c``) with the same flags instead."""
+    from fedcola_tpu_torch import main as port_main
+    cmd = [sys.executable, *(["-c", code] if code else
+                             ["-m", "fedcola_tpu_torch.main"]),
+           *port_main.MAIN_PATH_FLAGS, *extra,
+           "--result_path", os.path.join(out, "result"),
+           "--log_path", os.path.join(out, "log")]
+    if dist is not None:
+        port, pid = dist
+        cmd += ["--dist_coordinator", f"127.0.0.1:{port}",
+                "--dist_num_processes", "2", "--dist_process_id", str(pid)]
+    env = dict(os.environ, FEDCOLA_VIRTUAL_DEVICES=str(virtual))
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _mesh_finish(tag, procs, timeout=600):
+    """Wait for every process of a mesh run; when one fails (or the time
+    runs out) stop the others, which would wait on it, and raise with the
+    end of its output."""
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in procs):
+        if time.time() > deadline or any(p.poll() not in (None, 0)
+                                         for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    outs = [p.communicate()[0] for p in procs]
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[{tag}] process {i} exited with "
+                                 f"{p.returncode}:\n{o[-6000:]}")
+        for line in o.splitlines():
+            if any(k in line for k in ("[MESH]", "[KERNELS]", "] clients in")):
+                log(f"[{tag}] process {i}: {line}")
+    return outs
+
+
+def _mesh_report(tag, card, res):
+    """Print a mesh run's backend and each rank's figures, beside the
+    card; fail unless every rank launched the fused training kernels and
+    the eval forwards (more forward launches than backward ones)."""
+    m = res["mesh"]
+    log(f"[{tag}] {card}: mesh {m['mesh']}, backend {m['backend']}")
+    for r in sorted(k for k in res if k.isdigit()):
+        sections = {k: round(v, 3) for k, v in
+                    res[r]["round_sections"].items()}
+        log(f"[{tag}] {card}: round {r}: rank 0 round_sections {sections}")
+    for rk in m["ranks"]:
+        ln = rk["launches"]
+        peak = rk["peak_memory_bytes"]
+        log(f"[{tag}] {card}: rank {rk['rank']} on {rk['device']}: staged "
+            f"{rk['staged_bytes'] / 1e6:.1f} MB, peak device memory "
+            f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}"
+            f", round_seconds "
+            f"{rk['round_seconds']}, eval_seconds {rk['eval_seconds']}, "
+            f"launches { {k: ln.get(k, 0) for k in MESH_TRAINING_KERNELS} }")
+        missing = [k for k in MESH_TRAINING_KERNELS if not ln.get(k)]
+        if missing or not (ln["attn_fwd"] > ln["attn_bwd"]
+                           and ln["mlp_fwd"] > ln["mlp_bwd"]):
+            raise AssertionError(f"[{tag}] rank {rk['rank']} launches {ln}: "
+                                 f"rows 1-4 and the eval rows 1e / 3e must "
+                                 f"all launch")
+    return {rk["rank"]: {k: rk["launches"].get(k, 0)
+                         for k in MESH_TRAINING_KERNELS}
+            for rk in m["ranks"]}
+
+
+def _mesh_collectives():
+    """Each collective the mesh uses, in a one-rank NCCL group on the card,
+    against the identity, in bfloat16 and float32: the NCCL calls a
+    multi-card run makes."""
+    import torch
+    import torch.distributed as dist
+    from fedcola_tpu_torch.parallel import mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{mesh.free_port()}", world_size=1, rank=0)
+    try:
+        g = dist.group.WORLD
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((2, 48, 384), generator=gen, device="cuda"
+                            ).to(dtype)
+            w = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+            xg = x.clone().requires_grad_(True)
+            y = mesh.all_gather_grad(xg, g, dim=1)
+            y.backward(w)
+            checks = {
+                "all_gather": mesh.all_gather(x, g, dim=1),
+                "all_gather (bool)": mesh.all_gather(x > 0, g) == (x > 0),
+                "all_gather_grad": y, "all_gather_grad backward": xg.grad,
+                "all_reduce_sum": mesh.all_reduce_sum([x], g)[0],
+                "gather_stacks": mesh.gather_stacks([x], g)[0]}
+            want = {"all_gather (bool)": torch.ones_like(x, dtype=torch.bool),
+                    "all_gather_grad backward": w}
+            bad = [k for k, v in checks.items()
+                   if not torch.equal(v, want.get(k, x))]
+            log(f"[mesh] one-rank NCCL group, {dtype}: "
+                f"{len(checks)} collectives against the identity, unequal: "
+                f"{bad}")
+            if bad:
+                raise AssertionError(f"NCCL collectives {bad} are not the "
+                                     f"identity on one rank ({dtype})")
+    finally:
+        dist.destroy_process_group()
+
+
+# [mesh]'s gates against [main], set from the planted faults' readings
+# (PERF.md, Findings): the largest relative departure of a round's training
+# loss and of an eval loss, acc1 in test samples (500 a set), r@1sum in one
+# image and one caption, and per dataset the weights' RMS departure in
+# units of the line's lr (AdamW moves an element about lr a step whatever
+# its gradient's size; the departure from the initial weights is no
+# yardstick, as the aux scales' fold into the uploads dominates it).  On
+# the H100 the genuine meshes read at most 5.5e-5 / 1.5e-4 / 0.046 in
+# training loss / eval loss / weights, the faults at least 1.6e-3 / 4.2e-3
+# / 0.42; each bound sits near the geometric mean of the two (3-5x from
+# either)
+MESH_BOUNDS = {"training loss": 3e-4, "eval loss": 8e-4,
+               "acc1": 1 / 500 + 1e-9, "r@1sum": 2 / 100 + 2 / 500 + 1e-9,
+               "weights": 0.14}
+# the gates each planted fault must fail
+FAULT_GATES = {"first-block": ("training loss", "eval loss", "weights"),
+               "dropped-upload": ("training loss", "eval loss", "weights")}
+
+
+def _mesh_readings(main_results, main_weights, lr, res, weights) -> dict:
+    """How far a mesh run departs from [main]: per round its training loss
+    against [main]'s, and the readings ``MESH_BOUNDS`` gates."""
+    import numpy as np
+    rd = {"rounds": [], "training loss": 0.0, "eval loss": 0.0, "acc1": 0.0,
+          "r@1sum": 0.0, "bitwise": True}
+    for r in sorted(main_results):
+        a, b = main_results[r], res[str(r)]
+        la = a["clients_updated_summary"]["loss"]["avg"]
+        lb = b["clients_updated_summary"]["loss"]["avg"]
+        rd["rounds"].append((la, lb))
+        rd["bitwise"] &= la == lb
+        rd["training loss"] = max(rd["training loss"], abs(lb - la) / abs(la)
+                                  if np.isfinite(lb) else float("inf"))
+        for k in sorted(k for k in a if k.startswith("server_evaluated_")):
+            rd["bitwise"] &= a[k] == b[k]
+            if "metrics" in a[k]:
+                rd["acc1"] = max(rd["acc1"], abs(a[k]["metrics"]["acc1"]
+                                                 - b[k]["metrics"]["acc1"]))
+                rd["eval loss"] = max(rd["eval loss"], abs(
+                    a[k]["loss"] - b[k]["loss"]) / abs(a[k]["loss"]))
+            else:
+                key = k[len("server_evaluated_"):] + " r@1sum"
+                rd["r@1sum"] = max(rd["r@1sum"], abs(a[k][key] - b[k][key]))
+    rd["weights by dataset"] = {}
+    for ds in sorted({ds for ds, _ in main_weights}):
+        keys = [k for k in main_weights if k[0] == ds]
+        sq = sum(float(np.square(weights[k].astype(np.float64)
+                                 - main_weights[k]).sum()) for k in keys)
+        rd["weights by dataset"][ds] = \
+            (sq / sum(main_weights[k].size for k in keys)) ** 0.5 / lr
+        rd["bitwise"] &= sq == 0
+    rd["weights"] = max(rd["weights by dataset"].values())
+    return rd
+
+
+def _mesh_judge(tag, card, rd) -> list:
+    """Print a run's readings beside the card; returns the gates of
+    ``MESH_BOUNDS`` it fails."""
+    for r, (la, lb) in enumerate(rd["rounds"], 1):
+        log(f"[{tag}] {card}: round {r}: training loss {lb!r} (main {la!r})")
+    ratios = {k: f"{v:.3e}" for k, v in rd["weights by dataset"].items()}
+    log(f"[{tag}] {card}: against [main]: training loss "
+        f"{rd['training loss']:.3e}, eval loss {rd['eval loss']:.3e}, acc1 "
+        f"|d| {rd['acc1']:.4f}, r@1sum |d| {rd['r@1sum']:.4f}, weights' RMS "
+        f"departure / lr {ratios}; bit for bit with [main]: "
+        f"{rd['bitwise']}")
+    return [k for k, bound in MESH_BOUNDS.items() if not rd[k] <= bound]
+
+
+def _stacking_bits(card):
+    """Why the ``clients`` mesh is not bit for bit on the card: float32
+    products and reductions that cuBLAS / PyTorch split by the client
+    count.  Client c's rows of two stacked clients against client c
+    alone."""
+    import torch
+    from fedcola_tpu_torch.ops import losses
+    g = torch.Generator(device="cuda").manual_seed(4)
+    a = torch.randn((2, 96, 384), generator=g, device="cuda")
+    b = torch.randn((2, 384, 100), generator=g, device="cuda")
+    for name, two, fn in (
+            ("torch.bmm float32 [2, 96, 384] x [2, 384, 100] (a head)",
+             torch.bmm(a, b), lambda c: torch.bmm(a[c:c + 1], b[c:c + 1])),
+            ("clip_contrastive [2, 96, 384]",
+             losses.clip_contrastive(a, a.flip(1)),
+             lambda c: losses.clip_contrastive(a[c:c + 1],
+                                               a.flip(1)[c:c + 1]))):
+        d = max(float((two[c:c + 1] - fn(c)).abs().max()) for c in range(2))
+        log(f"[mesh] {card}: {name}: one client alone against two stacked, "
+            f"max |d| {d:.3e}")
+
+
+def phase_mesh(main_results, main_weights, card):
+    """The device mesh on the one card, ranks sharing it (gloo), each run
+    read against [main] by ``_mesh_readings`` and gated by ``MESH_BOUNDS``:
+
+    1. [main]'s line with ``--mesh_shape 2`` (a ``clients`` mesh, spawned,
+       ``FEDCOLA_VIRTUAL_DEVICES=2``), from a cold kernel build (both ranks
+       start with ``build/kernels/`` removed: one builds, under the build
+       lock, and both load it): each rank trains one of a group's two
+       clients; whether it equals [main] bit for bit is printed;
+    2. ``--mesh_shape 1 2 --mesh_axes clients data`` as two ``--dist_*``
+       processes: each rank takes 48 of every client's 96 rows;
+    3. the ``clients`` mesh again as two ``--dist_*`` processes with each
+       planted fault (``FAULT_FIRST_BLOCK``, ``FAULT_DROP_UPLOAD``): each
+       gate ``FAULT_GATES`` names must reject it;
+    4. ``graft_entry.dryrun_multichip(4)``: a 2 x 2 mesh of four ranks on
+       the card, each launching the fused training kernels;
+    5. each collective in a one-rank NCCL group, against the identity.
+
+    Prints each run's backend and every rank's figures.  Returns the
+    ranks' launches of the fused training kernels, per run."""
+    import shutil
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.graft_entry import dryrun_multichip
+    from fedcola_tpu_torch.ops import kernels
+    from fedcola_tpu_torch.parallel.mesh import free_port
+    import torch
+    torch.cuda.empty_cache()
+    datasets = sorted({ds for ds, _ in main_weights})
+    flags = port_main.MAIN_PATH_FLAGS
+    lr = float(flags[flags.index("--lr") + 1])
+    launches = {}
+
+    def read(tag, out):
+        res = json.load(open(os.path.join(out, "result", "FedCola.json")))
+        launches[tag] = _mesh_report(f"mesh-{tag}", card, res)
+        weights = _npz_weights(os.path.join(out, "result"), "FedCola",
+                               datasets)
+        return _mesh_readings(main_results, main_weights, lr, res, weights)
+
+    with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
+        shutil.rmtree(kernels.BUILD_DIR)
+        t0 = time.time()
+        outs = _mesh_finish("mesh-clients", [_mesh_cli(
+            os.path.join(out, "clients"), ["--mesh_shape", "2"], 2)])
+        wall = time.time() - t0
+        built = outs[0].count("[KERNELS] built")
+        log(f"[mesh] clients run: {wall:.1f}s wall with a cold kernel build "
+            f"(built {built} time(s); {kernels.LIB_PATH} exists: "
+            f"{kernels.LIB_PATH.exists()})")
+        if built != 1 or not kernels.LIB_PATH.exists():
+            raise AssertionError(f"[mesh] cold start: the build ran {built} "
+                                 f"times (want 1)")
+        failed = _mesh_judge("mesh-clients", card,
+                             read("clients", os.path.join(out, "clients")))
+        if failed:
+            raise AssertionError(f"[mesh] the clients mesh departs from "
+                                 f"[main] beyond {failed}")
+
+        port = free_port()
+        _mesh_finish("mesh-data", [
+            _mesh_cli(os.path.join(out, "data"),
+                      ["--mesh_shape", "1", "2", "--mesh_axes", "clients",
+                       "data"], 1, (port, pid)) for pid in range(2)])
+        failed = _mesh_judge("mesh-data", card,
+                             read("data", os.path.join(out, "data")))
+        if failed:
+            raise AssertionError(f"[mesh] the clients x data mesh departs "
+                                 f"from [main] beyond {failed}")
+
+        for fault, code in (("first-block", FAULT_FIRST_BLOCK),
+                            ("dropped-upload", FAULT_DROP_UPLOAD)):
+            port = free_port()
+            _mesh_finish(f"mesh-{fault}", [
+                _mesh_cli(os.path.join(out, fault), ["--mesh_shape", "2"], 1,
+                          (port, pid), code=code) for pid in range(2)])
+            failed = _mesh_judge(f"mesh-{fault}", card,
+                                 read(fault, os.path.join(out, fault)))
+            del launches[fault]
+            log(f"[mesh] planted fault {fault}: rejected by {failed}")
+            blind = [k for k in FAULT_GATES[fault] if k not in failed]
+            if blind:
+                raise AssertionError(
+                    f"[mesh] the {blind} gate(s) accept the planted fault "
+                    f"{fault}: they cannot tell a wrong mesh from "
+                    f"reassociation")
+    _stacking_bits(card)
+    t0 = time.time()
+    dry = dryrun_multichip(4)
+    log(f"[mesh] {card}: dryrun_multichip(4) on the card: mesh {dry['mesh']}"
+        f", backend {dry['backend']}, loss {dry['loss']!r}, "
+        f"{time.time() - t0:.1f}s; launches per rank {dry['launches']}")
+    _mesh_collectives()
+    return launches
+
+
 # ---------------------------------------------------------- loss bound ----
 
 LOSS_BOUND = 1e-3   # relative, per round
@@ -1701,13 +2079,14 @@ def main() -> int:
 
     measured = phase_kernels()
     phase_model()
-    main_launches, main_results = phase_main()
+    main_launches, main_results, main_weights = phase_main()
     paths = {"main": main_launches, "resident": phase_resident(main_results),
              "tiny": phase_tiny(), "baselines": phase_baselines()}
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
                  fixtures=phase_fixtures(), remat=phase_remat(),
                  rows=phase_rows(), long=phase_long())
+    mesh_launches = phase_mesh(main_results, main_weights, card)
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
@@ -1725,6 +2104,10 @@ def main() -> int:
         if "long" in row:
             # the long line's launches (every one at N = 512)
             row["long"]["launches"] = paths["long"][name]
+        if name in MESH_TRAINING_KERNELS:
+            # [mesh]: each run's launches per rank (eval rows included)
+            row["mesh_launches"] = {run: {r: v[name] for r, v in ranks.items()}
+                                    for run, ranks in mesh_launches.items()}
         rows.append(row)
     missing = [r["name"] for r in rows if r["launches"] == 0] + \
         [r["name"] + " (long)" for r in rows

@@ -39,7 +39,8 @@ from fedcola_tpu_torch.parallel.client_update import (GroupSpec, _take,
 def extract_features(cfg: MATConfig, spec: GroupSpec, params,
                      dataset: TaskDataset, batch_size: int = 512,
                      rng: Optional[np.random.RandomState] = None,
-                     resident: Optional[Dict[str, torch.Tensor]] = None):
+                     resident: Optional[Dict[str, torch.Tensor]] = None,
+                     plan=None):
     """Returns aligned (image_features [n_img, D], caption_features
     [n_cap, D], image_classes, caption_classes) as float32 device tensors
     and numpy class vectors.  ``resident``: the test set's staged arrays,
@@ -51,7 +52,9 @@ def extract_features(cfg: MATConfig, spec: GroupSpec, params,
     the resident plane: the text tower runs per caption row and the image
     tower once per unique ``img_store`` row instead of once per caption,
     the same features (the eval forward is per sample) for a fifth of the
-    image tower's work at five captions an image."""
+    image tower's work at five captions an image.  ``plan``: a mesh splits
+    every batch over its ranks and all-gathers the features
+    (``MeshPlan.eval_rows``), so every rank holds them all."""
     device = next(iter(params["norm"].values())).device
     order = np.arange(dataset.n)
     if rng is not None:
@@ -66,19 +69,19 @@ def extract_features(cfg: MATConfig, spec: GroupSpec, params,
         ft_all, = _run_batches(
             lambda i: _tower(cfg, spec, params, spec.txt_slot,
                              rows("txt", i)),
-            order, batch_size)
+            order, batch_size, plan)
         fi_all, = _run_batches(
             lambda i: _tower(cfg, spec, params, spec.img_slot,
                              preprocess_images(rows("img_store", i), spec,
                                                dtype)),
-            np.arange(resident["img_store"].shape[0]), batch_size)
+            np.arange(resident["img_store"].shape[0]), batch_size, plan)
         # fi_all is by store row: take each first-seen caption's store row
         img_rows = np.asarray(dataset._image_row, np.int64)[order[img_rows]]
     else:
         fi_all, ft_all = _run_batches(
             lambda i: eval_forward(cfg, spec, params, eval_batch(
                 spec, i, device, dataset, resident)),
-            order, batch_size)
+            order, batch_size, plan)
     take = lambda f, rows: f.index_select(  # noqa: E731
         0, torch.from_numpy(rows).to(device))
     return (take(fi_all, img_rows), take(ft_all, sorted_idx),
@@ -86,13 +89,14 @@ def extract_features(cfg: MATConfig, spec: GroupSpec, params,
 
 
 def _run_batches(fwd: Callable, indices: np.ndarray,
-                 batch_size: int) -> tuple:
+                 batch_size: int, plan=None) -> tuple:
     """``fwd`` (row indices -> a feature tensor or a tuple of them) over
     ``indices`` in batches; the float32 features, concatenated on the
     device."""
     outs = None
     for start in range(0, len(indices), batch_size):
-        f = fwd(indices[start:start + batch_size])
+        i = indices[start:start + batch_size]
+        f = fwd(i) if plan is None else plan.eval_rows(fwd, i)
         parts = f if isinstance(f, tuple) else (f,)
         if outs is None:
             outs = tuple([] for _ in parts)
@@ -190,9 +194,10 @@ def evaluate_n_fold(image_features, caption_features, image_classes,
 def evaluate(cfg: MATConfig, spec: GroupSpec, params, dataset: TaskDataset,
              batch_size: int = 512, n_crossfolds: int = 5,
              rng: Optional[np.random.RandomState] = None,
-             resident: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+             resident: Optional[Dict[str, torch.Tensor]] = None,
+             plan=None) -> Dict:
     imf, capf, imc, capc = extract_features(cfg, spec, params, dataset,
-                                            batch_size, rng, resident)
+                                            batch_size, rng, resident, plan)
     scores: Dict = {}
     if n_crossfolds > 0 and len(imf) >= n_crossfolds * 1000:
         scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc, n_crossfolds)

@@ -67,8 +67,8 @@ def _unsqueeze(params):
 
 
 class CreamflServer(FedAvgServer):
-    def __init__(self, cfg, data, writer=None):
-        super().__init__(cfg, data, writer)
+    def __init__(self, cfg, data, writer=None, plan=None):
+        super().__init__(cfg, data, writer, plan)
         try:
             self.mm_dataset = next(ds for ds in cfg.client_datasets
                                    if DATASET_2_MODALITY[ds] == "img+txt")

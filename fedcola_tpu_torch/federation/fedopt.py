@@ -65,8 +65,8 @@ def _fedopt_step(global_params, agg_params, m, v, lr: float, flavor: str,
 
 
 class FedOptServer(FedAvgServer):
-    def __init__(self, cfg, data, writer=None):
-        super().__init__(cfg, data, writer)
+    def __init__(self, cfg, data, writer=None, plan=None):
+        super().__init__(cfg, data, writer, plan)
         self.flavor = cfg.algorithm
         self.b1 = float(cfg.beta1)
         self.b2 = 0.99

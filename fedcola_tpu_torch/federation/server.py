@@ -24,8 +24,13 @@ and ``fediot`` (a sharing rule on this machinery) run here, with
 ``--fedavg_eval``, ``.npz`` checkpoints, per-client local evaluation
 (``--eval_type local|both``) and the reference-format ``.pt`` export of
 ``finalize``; ``create_server`` also builds the FedOpt family
-(``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).  The
-mesh is a later slice of the port.
+(``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).
+
+Under a mesh (``parallel/mesh.py``, one process per device) every rank runs
+this same program: a rank trains its block of each group's clients (and
+rows of each batch on a ``data`` axis), the uploads are all-gathered before
+the aggregation, which every rank runs on the same stack, and evaluation
+splits its batches over the ranks.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
 from fedcola_tpu_torch.models.registry import create_model
 from fedcola_tpu_torch.models.torch_io import to_torch_state_dict
 from fedcola_tpu_torch.ops.losses import clip_contrastive, cross_entropy
+from fedcola_tpu_torch.parallel.mesh import MeshPlan
 from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
                                                       build_frozen_mask,
                                                       eval_batch,
@@ -75,7 +81,7 @@ logger = logging.getLogger(__name__)
 class GroupRun:
     """One client group's local-update state within a round."""
     ds: str
-    ids: List[int]
+    ids: List[int]          # the whole group; this rank trains its block
     mcfg: MATConfig
     spec: GroupSpec
     stacked: dict
@@ -101,12 +107,17 @@ def resolve_device(cfg: ExperimentConfig) -> torch.device:
 
 class FedAvgServer:
     def __init__(self, cfg: ExperimentConfig, data: FederatedData,
-                 writer=None):
-        if cfg.mesh_shape or any(v is not None for v in (
-                cfg.dist_coordinator, cfg.dist_num_processes,
-                cfg.dist_process_id)):
-            raise NotImplementedError(
-                "mesh / multi-host runs are a later slice of the port")
+                 writer=None, plan: Optional[MeshPlan] = None):
+        """``plan``: this rank's joined mesh (``parallel.mesh.Launch.join``);
+        a configuration that asks for one starts through
+        ``fedcola_tpu_torch.main``, which starts a process per device."""
+        if plan is None and (
+                (cfg.mesh_shape and int(np.prod(cfg.mesh_shape)) > 1)
+                or cfg.dist_coordinator is not None):
+            raise ValueError(
+                "--mesh_shape / --dist_* run one process per mesh device: "
+                "start the run through fedcola_tpu_torch.main")
+        self.plan = plan or MeshPlan()
         self.cfg = cfg
         self.data = data
         self.writer = writer
@@ -126,6 +137,8 @@ class FedAvgServer:
         self._resident_bytes = 0
         self._aug_host_logged: set = set()
         self._train_dataset_cache: Dict[str, object] = {}
+        # per-rank figures of a mesh run, written into the results JSON
+        self.mesh_stats: Optional[Dict] = None
 
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model_cfgs = {}
@@ -311,11 +324,13 @@ class FedAvgServer:
 
     def _open_group(self, ds: str, ids: List[int]) -> GroupRun:
         """The round-start state of one group: the global model stacked for
-        its ``n`` clients, fresh optimizer state, the freeze mask, the
-        feeder, the on-device metric sums and the group's data plane."""
+        its ``n`` clients (under a mesh, this rank's block of them), fresh
+        optimizer state, the freeze mask, the feeder of the whole group,
+        the on-device metric sums and the group's data plane."""
         cfg, mcfg = self.cfg, self.model_cfgs[ds]
         spec, aug, data = self._group_aug_plan(ds, self._group_spec(ds))
-        n = len(ids)
+        rows = self.plan.client_rows(len(ids))
+        n = rows.stop - rows.start
         stacked = tree_map(lambda a: a.requires_grad_(True),
                            stack_clients(self.global_params[ds], n))
         feeder = GroupFeeder([self.data.client_shards[i] for i in ids],
@@ -340,17 +355,22 @@ class FedAvgServer:
             ls, cs, ns = run_chunk(g.mcfg, g.spec, self.opt_spec, g.stacked,
                                    g.opt_state, chunk, self.curr_lr,
                                    self.gen, g.frozen,
-                                   self.global_params[g.ds], data=g.data)
+                                   self.global_params[g.ds], data=g.data,
+                                   plan=self.plan)
             nsf = ns.double()
             g.acc["l"] += (ls.double() * nsf).sum(1)
             g.acc["c"] += cs.double().sum(1)
             g.acc["n"] += nsf.sum(1)
 
     def _close_group(self, g: GroupRun):
+        """The group's upload (aux folded in) and metrics; under a mesh
+        both are the whole group's, gathered from every rank's block."""
+        n = len(g.ids)
         with torch.no_grad():
-            upload = fold_aux_into_upload(
-                g.mcfg, tree_map(lambda a: a.detach(), g.stacked))
-        return upload, self._readback_group_metrics(g.acc, g.ds, g.ids)
+            upload = self.plan.gather_clients(fold_aux_into_upload(
+                g.mcfg, tree_map(lambda a: a.detach(), g.stacked)), n)
+        acc = {k: self.plan.gather_clients(v, n) for k, v in g.acc.items()}
+        return upload, self._readback_group_metrics(acc, g.ds, g.ids)
 
     def _readback_group_metrics(self, acc, ds: str, ids: List[int]):
         loss_sums, cor, cnt = (acc[k].cpu().numpy() for k in ("l", "c", "n"))
@@ -474,6 +494,7 @@ class FedAvgServer:
                 self.global_params = exchange_aux_weights(
                     self.global_params, self.model_cfgs,
                     {ds: DATASET_2_MODALITY[ds] for ds in self.global_params})
+            self.plan.check_replicated(self.global_params)
             # reads every leaf back: the section holds its device work
             self._assert_global_finite()
 
@@ -512,7 +533,8 @@ class FedAvgServer:
                 res = retrieval.evaluate(
                     mcfg, spec, params, test, batch_size=B,
                     rng=np.random.RandomState(self.cfg.seed + self.round),
-                    resident=self._resident_eval_data(ds, spec))
+                    resident=self._resident_eval_data(ds, spec),
+                    plan=self.plan)
                 r1sum = 0.0
                 payload = {}
                 for split_key, prefix in (("n_fold", "1k"), (None, "5k")):
@@ -541,11 +563,14 @@ class FedAvgServer:
                 mm.track(float(cross_entropy(logits, y)), logits.numpy(),
                          y.numpy())
 
+            def fwd(i):
+                return eval_forward(mcfg, spec, params, eval_batch(
+                    spec, i, self.device, test, resident))
+
             window = DispatchWindow(drain_one)
             for start in range(0, test.n, B):
                 idx = np.arange(start, min(start + B, test.n))
-                batch = eval_batch(spec, idx, self.device, test, resident)
-                window.push(eval_forward(mcfg, spec, params, batch), idx)
+                window.push(self.plan.eval_rows(fwd, idx), idx)
             window.flush()
             mm.aggregate(test.n)
             result = mm.results
@@ -631,7 +656,7 @@ class FedAvgServer:
                     val[c, s, :len(sel)] = True
             ls, cs, ns = (a.cpu().numpy() for a in local_eval(
                 self.model_cfgs[ds], spec, self.global_params[ds], idx, val,
-                resident))
+                resident, self.plan))
             for j in range(len(gids)):
                 losses.append(float(ls[j] / max(ns[j], 1.0)))
                 sizes.append(len(tidxs[j]))
@@ -690,13 +715,16 @@ class FedAvgServer:
                 mm.track(float(cross_entropy(logits, y)), logits.numpy(),
                          y.numpy())
 
+        def fwd(i):
+            return eval_forward(mcfg, spec, params, eval_batch(
+                spec, i, self.device, d, resident))
+
         window = DispatchWindow(drain_one)
         tidx = shard.test_indices
         for s in range(0, len(tidx), B):
             sel = tidx[s:s + B]
-            batch = eval_batch(spec, pad_batch_indices(sel, B), self.device,
-                               d, resident)
-            window.push(eval_forward(mcfg, spec, params, batch), sel)
+            window.push(self.plan.eval_rows(fwd, pad_batch_indices(sel, B)),
+                        sel)
         window.flush()
         mm.aggregate(len(tidx))
         return (mm.results["loss"], mm.results.get("metrics", {}),
@@ -775,11 +803,12 @@ class FedAvgServer:
         cfg = self.cfg
         os.makedirs(cfg.result_path, exist_ok=True)
         from fedcola_tpu_torch.utils.logging import json_sanitize
+        out = {str(k): v for k, v in self.results.items()}
+        if self.mesh_stats is not None:
+            out["mesh"] = self.mesh_stats
         with open(os.path.join(cfg.result_path, f"{cfg.exp_name}.json"),
                   "w", encoding="utf8") as f:
-            json.dump(json_sanitize({str(k): v
-                                     for k, v in self.results.items()}), f,
-                      indent=4, default=float)
+            json.dump(json_sanitize(out), f, indent=4, default=float)
         ckpt_dir = os.path.join(cfg.result_path, cfg.exp_name)
         self.save_checkpoint(ckpt_dir)
         # reference-format final checkpoints: a state dict per dataset under
@@ -815,13 +844,14 @@ SERVER_REGISTRY = {
 }
 
 
-def create_server(cfg: ExperimentConfig, data: FederatedData, writer=None):
+def create_server(cfg: ExperimentConfig, data: FederatedData, writer=None,
+                  plan: Optional[MeshPlan] = None):
     if cfg.algorithm in SERVER_REGISTRY:
-        return SERVER_REGISTRY[cfg.algorithm](cfg, data, writer)
+        return SERVER_REGISTRY[cfg.algorithm](cfg, data, writer, plan)
     if cfg.algorithm == "creamfl":
         from fedcola_tpu_torch.federation.creamfl import CreamflServer
-        return CreamflServer(cfg, data, writer)
+        return CreamflServer(cfg, data, writer, plan)
     if cfg.algorithm in ("fedavgm", "fedadam", "fedyogi", "fedadagrad"):
         from fedcola_tpu_torch.federation.fedopt import FedOptServer
-        return FedOptServer(cfg, data, writer)
+        return FedOptServer(cfg, data, writer, plan)
     raise ValueError(f"unknown algorithm {cfg.algorithm!r}")

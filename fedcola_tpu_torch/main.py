@@ -6,16 +6,27 @@
 R rounds of ``server.update()``, ``server.evaluate`` every ``eval_every``
 rounds and after the last, then the results JSON and the final ``.npz``
 checkpoint and one reference-format ``<ds>.pt`` state dict per dataset
-under ``<result_path>/<exp_name>/``.  ``--checkpoint_every N`` also saves
+under ``<result_path>/<exp_name>/``; ``--wandb`` logs the metrics to wandb
+too when it is installed.  ``--checkpoint_every N`` also saves
 every N rounds to ``<result_path>/<exp_name>/ckpt``; a run that finds that
 directory resumes from it.  ``--profile_every N`` traces the update of
 every N-th round (``<log_path>/trace_round<r>/trace.json``).  Runs on the
 card unless ``--device cpu`` is given.
+
+``--mesh_shape`` / ``--mesh_axes`` (``parallel/mesh.py``) start one rank
+per mesh device on this host and return when all have ended; with
+``--dist_coordinator host:port --dist_num_processes P --dist_process_id i``
+each of P processes runs the ranks of its own devices.  On one card or the
+CPU, ``FEDCOLA_VIRTUAL_DEVICES=k`` presents k devices:
+
+    FEDCOLA_VIRTUAL_DEVICES=4 python -m fedcola_tpu_torch.main --device cpu \\
+        --mesh_shape 2 2 --mesh_axes clients data <flags>
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import sys
 import time
@@ -120,10 +131,24 @@ def fixture_flags(coco: str, cifar: str, agnews: str) -> tuple:
                            "--data_paths", cifar, agnews, coco, coco)
 
 
-class JsonlWriter:
-    """Per-round metrics as JSON lines under ``--result_path``."""
+class WandbWriter:
+    """Per-round metrics as JSON lines under ``--result_path``, and with
+    ``--wandb`` to wandb as well (root ``main.py`` ``WandbWriter``,
+    reference main.py:305): when wandb cannot be imported or started, the
+    JSON lines alone."""
 
     def __init__(self, cfg):
+        self._wandb = None
+        if cfg.wandb:
+            try:
+                import wandb
+                wandb.init(project="fedcola_tpu", name=cfg.exp_name,
+                           config=None)
+                self._wandb = wandb
+            except Exception as e:  # noqa: BLE001 — the JSONL still records
+                logging.getLogger("fedcola_tpu_torch").warning(
+                    "--wandb: wandb unavailable (%s: %s); metrics go to the "
+                    "JSONL only", type(e).__name__, e)
         os.makedirs(cfg.result_path, exist_ok=True)
         self._f = open(os.path.join(cfg.result_path,
                                     f"{cfg.exp_name}_metrics.jsonl"), "a")
@@ -133,40 +158,83 @@ class JsonlWriter:
         self._f.write(json.dumps({"round": step, **{
             k: json_sanitize(float(v)) for k, v in payload.items()}}) + "\n")
         self._f.flush()
+        if self._wandb:
+            self._wandb.log(payload, step=step)
 
     def finish(self):
         self._f.close()
+        if self._wandb:
+            self._wandb.finish()
 
 
 def main(argv=None):
-    """Run the configured rounds; returns the server (its ``results`` hold
-    every round's metrics)."""
+    """Run the configured rounds.  Returns the server (its ``results`` hold
+    every round's metrics) of a one-device run or of a process that is one
+    mesh rank; a process that starts several ranks returns None when they
+    have all ended (rank 0 writes the results, checkpoints and exports)."""
+    import torch
     from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.federation.server import resolve_device
+    from fedcola_tpu_torch.parallel.mesh import plan_launch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = parse_args(argv)
+    launch = plan_launch(cfg, resolve_device(cfg).type)
+    if launch is None:
+        return _run(cfg, argv)
+    if launch.local == 1:
+        return _rank(0, argv, launch)
+    # one process per local mesh device; CUDA needs spawn, not fork.  A
+    # rank that fails stops the others and raises here.
+    torch.multiprocessing.start_processes(
+        _rank, args=(argv, launch), nprocs=launch.local,
+        start_method="spawn")
+    return None
+
+
+def _rank(local_index: int, argv, launch):
+    """One mesh rank: join the process group, run, leave it."""
+    import torch
+    from fedcola_tpu_torch.config import parse_args
+    cfg = parse_args(argv)
+    if launch.device_type == "cpu":
+        # the host's cores, shared among its ranks
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // launch.local))
+    plan = launch.join(local_index)
+    try:
+        return _run(cfg, argv, plan)
+    finally:
+        plan.close()
+
+
+def _run(cfg, argv, plan=None):
     from fedcola_tpu_torch.data.loaders import load_federated_data
-    from fedcola_tpu_torch.federation.server import (create_server,
-                                                     resolve_device)
+    from fedcola_tpu_torch.federation.server import create_server
     from fedcola_tpu_torch.utils.logging import set_logger
     from fedcola_tpu_torch.utils.profiling import round_trace
     from fedcola_tpu_torch.utils.seeding import set_seed
 
-    cfg = parse_args(argv)
-    resolve_device(cfg)
-    if cfg.wandb:
-        raise NotImplementedError("--wandb is not ported; metrics go to "
-                                  "<result_path>/<exp_name>_metrics.jsonl")
+    rank = plan.rank if plan is not None else 0
+    multi = plan is not None and plan.is_multiprocess
     os.makedirs(cfg.log_path, exist_ok=True)
     logger = set_logger(os.path.join(
-        cfg.log_path, f"{cfg.exp_name}_{time.strftime('%y%m%d_%H%M%S')}.log"))
-    logger.info("fedcola_tpu_torch starting: %s",
-                " ".join(sys.argv[1:] if argv is None else argv))
+        cfg.log_path, f"{cfg.exp_name}_{time.strftime('%y%m%d_%H%M%S')}"
+        f"{f'_rank{rank}' if rank else ''}.log"),
+        tag=f"[rank {rank}] " if multi else "")
+    logger.info("fedcola_tpu_torch starting: %s", " ".join(argv))
+    if plan is not None:
+        logger.info("[MESH] %s", plan.describe())
     set_seed(cfg.seed)
 
     data = load_federated_data(cfg, np.random.RandomState(cfg.seed))
-    server = create_server(cfg, data, JsonlWriter(cfg))
+    server = create_server(cfg, data, WandbWriter(cfg) if rank == 0 else None,
+                           plan)
     ckpt_dir = os.path.join(cfg.result_path, cfg.exp_name, "ckpt")
     if os.path.isdir(ckpt_dir):
         server.load_checkpoint(ckpt_dir)
         logger.info("resumed from checkpoint at round %d", server.round)
+    if plan is not None:
+        plan.check_same_round(server.round, ckpt_dir)
     for r in range(server.round + 1, cfg.R + 1):
         server.round = r
         with round_trace(cfg.profile_every > 0 and r % cfg.profile_every == 0,
@@ -174,10 +242,37 @@ def main(argv=None):
             server.update()
         if (cfg.eval_every > 0 and r % cfg.eval_every == 0) or r == cfg.R:
             server.evaluate([])
-        if cfg.checkpoint_every and r % cfg.checkpoint_every == 0:
+        if cfg.checkpoint_every and r % cfg.checkpoint_every == 0 \
+                and rank == 0:
             server.save_checkpoint(ckpt_dir)
-    server.finalize()
+    if multi:
+        stats = plan.gather_object(_rank_stats(server))
+        server.mesh_stats = {"mesh": plan.mesh_dict,
+                             "backend": plan.backend, "ranks": stats}
+    if rank == 0:
+        server.finalize()
     return server
+
+
+def _rank_stats(server) -> dict:
+    """What one rank of a mesh run did: its device, staged bytes, peak
+    device memory, round and eval seconds, and kernel launches."""
+    import torch
+    from fedcola_tpu_torch.ops import kernels
+    cuda = server.device.type == "cuda"
+    rounds = sorted(r for r in server.results if isinstance(r, int))
+    return {
+        "rank": server.plan.rank,
+        "device": f"cuda:{torch.cuda.current_device()}" if cuda else "cpu",
+        "staged_bytes": server._resident_bytes,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()
+        if cuda else None,
+        "round_seconds": [server.results[r].get("round_seconds")
+                          for r in rounds],
+        "eval_seconds": [server.results[r].get("eval_seconds")
+                         for r in rounds],
+        "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+    }
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from fedcola_tpu_torch.ops.attention import multi_head_attention
+from fedcola_tpu_torch.parallel.mesh import RankDraws
 from fedcola_tpu_torch.ops.flash_attention import MAX_HEAD_DIM, scale_as
 from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
@@ -301,10 +302,10 @@ def check_kernel_support(cfg: MATConfig) -> None:
             f"attention kernels take head_dim <= {MAX_HEAD_DIM}")
 
 
-def _drop_path_mask(rate: float, n: int, B: int, gen,
+def _drop_path_mask(rate: float, n: int, B: int, draws: RankDraws,
                     device) -> torch.Tensor:
     """Per-sample keep mask ``[n, B]``: uniform < 1 - rate."""
-    return torch.rand((n, B), generator=gen, device=device) < 1.0 - rate
+    return draws.rand((n, B), device) < 1.0 - rate
 
 
 def _keep_inv(rate: float, dtype) -> float:
@@ -438,8 +439,7 @@ def _embed_image(cfg: MATConfig, emb: Params, x: torch.Tensor, train: bool,
     cls = emb["cls"].to(dtype)[:, None, 0].expand(n, B, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=2) + emb["pos"].to(dtype)[:, None, 0]
     if train and cfg.drop_rate > 0:
-        keep = torch.rand(x.shape, generator=gen, device=x.device) \
-            >= cfg.drop_rate
+        keep = gen.rand(x.shape, x.device) >= cfg.drop_rate
         x = torch.where(keep, x / (1 - cfg.drop_rate), torch.zeros_like(x))
     return x
 
@@ -460,8 +460,7 @@ def _embed_text(cfg: MATConfig, emb: Params, ids: torch.Tensor, train: bool,
 def mat_apply_stacked(cfg: MATConfig, params: Params,
                       inputs: Sequence[Optional[torch.Tensor]],
                       feat_out: bool = False, train: bool = False,
-                      gen: Optional[torch.Generator] = None,
-                      seq_feat_out: bool = False):
+                      gen=None, seq_feat_out: bool = False):
     """Forward of a client-stacked tree (reference mome.py:881-922).
 
     ``inputs`` is slot-aligned: image slots take ``[n, B, H, W, C]`` floats,
@@ -472,9 +471,16 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
     ``seq_feat_out`` returns the rtv head's literal output instead: the
     whole sequence after the final LayerNorm, every token L2-normalised,
     ``[n, B, N, D]`` float32 (mome.py:651-659).  Its one consumer is
-    CreamFL's distillation, which sums it over tokens."""
+    CreamFL's distillation, which sums it over tokens.
+
+    ``gen``: a training forward's DropPath / dropout draws, a
+    ``torch.Generator`` (whole ``[n, B, ...]`` tensors) or a mesh rank's
+    ``RankDraws`` (its block of the whole group's)."""
     if train and gen is None:
         raise ValueError("training forward needs a torch.Generator")
+    if train and not isinstance(gen, RankDraws):
+        n, B = next(a for a in inputs if a is not None).shape[:2]
+        gen = RankDraws.whole(gen, n, B)
     outs: List[Optional[torch.Tensor]] = [None] * len(cfg.modalities)
     for i, modality in enumerate(cfg.modalities):
         if modality is None or inputs[i] is None:

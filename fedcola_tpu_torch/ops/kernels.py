@@ -3,7 +3,9 @@
 The sources compile with ``nvcc`` for ``sm_90a`` (one process per source,
 all started together) and link into ``build/kernels/libfedcola_kernels.so``
 at the repo root, which is loaded with ``ctypes``.  The build happens on
-first use and again whenever a source is newer than the library.  Each C
+first use and again whenever a source is newer than the library, under a
+file lock (``build/kernels/build.lock``), so processes that start at once
+(the ranks of a mesh) build it once and load the same file.  Each C
 entry point launches a fixed sequence of the package's own kernels on the
 stream it is given and returns the first CUDA error (0 when none);
 :func:`launch` raises on anything else.
@@ -14,7 +16,10 @@ Every entry point corresponds to one TPU kernel of the JAX package;
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import logging
 import os
 import shutil
 import subprocess
@@ -24,6 +29,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[2]
@@ -166,11 +173,28 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
-def build() -> float:
-    """Compile every source in parallel and link the library; returns the
-    seconds taken."""
-    nvcc = _nvcc()
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across processes while held (``flock``; the kernel drops
+    it when its holder exits, however it exits)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build() -> float:
+    """Compile every source in parallel and link the library, under the
+    build lock; returns the seconds taken."""
+    with _build_lock():
+        return _compile()
+
+
+def _compile() -> float:
+    nvcc = _nvcc()
     t0 = time.time()
     procs = []
     for src in SOURCES:
@@ -196,13 +220,25 @@ def build() -> float:
     return time.time() - t0
 
 
+def ensure_built() -> bool:
+    """Build the library unless it is up to date, under the build lock
+    (a process that waited on it finds the library built); True when this
+    call built it."""
+    with _build_lock():
+        if not _stale():
+            return False
+        secs = _compile()
+    logger.info("[KERNELS] built %d sources into %s in %.1fs", len(SOURCES),
+                LIB_PATH, secs)
+    return True
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     with _lock:
         if _lib is None:
-            if _stale():
-                build()
+            ensure_built()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from fedcola_tpu_torch.models.mat import (DTYPES, MATConfig, mat_apply,
                                           mat_apply_stacked, tree_leaves)
 from fedcola_tpu_torch.ops import losses
+from fedcola_tpu_torch.parallel.mesh import MeshPlan, RankDraws
 from fedcola_tpu_torch.parallel.optim import OptimizerSpec, opt_update
 
 
@@ -266,27 +267,44 @@ def _mm_criterion(name: str):
 
 
 def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen,
-                global_params=None):
+                global_params=None, data_plan=None):
     """Per-client losses ``[n]`` and (correct, n_valid) counts for one step
     of a client-stacked group (reference fedavgclient.py:81-95); FedProx
     adds the proximal term against the round's global model
-    (fedproxclient.py:64-67)."""
+    (fedproxclient.py:64-67).
+
+    ``data_plan``: the mesh plan when the batch is split over its data
+    ranks.  The outputs, targets and mask are then gathered over them with
+    the outputs' gradient, so the loss and counts are the whole batch's on
+    every data rank, and the sum of the ranks' gradients is the whole
+    batch's gradient."""
     dtype = DTYPES[cfg.compute_dtype]
     valid = batch["valid"]
     ins, out_slot = _route_inputs(cfg, spec, batch, dtype)
     if out_slot is not None:
         logits = mat_apply_stacked(cfg, params, ins, train=True,
                                    gen=gen)[out_slot]
-        loss = _cls_criterion(spec.criterion)(logits, batch["y"], valid)
-        correct = ((logits.argmax(-1) == batch["y"]) & valid).sum(-1)
+        y = batch["y"]
+        if data_plan is not None:
+            logits, y, valid = map(data_plan.gather_batch, (logits, y, valid))
+        loss = _cls_criterion(spec.criterion)(logits, y, valid)
+        correct = ((logits.argmax(-1) == y) & valid).sum(-1)
     else:
         feats = mat_apply_stacked(cfg, params, ins, feat_out=True,
                                   train=True, gen=gen)
-        loss = _mm_criterion(spec.criterion)(feats[spec.img_slot],
-                                             feats[spec.txt_slot], valid)
+        fi, ft = feats[spec.img_slot], feats[spec.txt_slot]
+        if data_plan is not None:
+            fi, ft, valid = map(data_plan.gather_batch, (fi, ft, valid))
+        loss = _mm_criterion(spec.criterion)(fi, ft, valid)
         correct = torch.zeros_like(loss, dtype=torch.int64)
     if spec.algorithm == "fedprox" and spec.mu > 0:
-        loss = loss + losses.fedprox_term(params, global_params, spec.mu)
+        prox = losses.fedprox_term(params, global_params, spec.mu)
+        if data_plan is not None:
+            # every data rank adds the term and their gradients are summed:
+            # each carries 1/d of its gradient, at the full value
+            s = 1.0 / data_plan.data_axis
+            prox = prox * s + (prox * (1.0 - s)).detach()
+        loss = loss + prox
     return loss, (correct, valid.sum(-1))
 
 
@@ -319,7 +337,7 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
               opt_state, chunk: Dict[str, np.ndarray], lr: float, gen,
               frozen=None, global_params=None,
-              data: Optional[Dict[str, torch.Tensor]] = None):
+              data: Optional[Dict[str, torch.Tensor]] = None, plan=None):
     """Run one chunk of local steps for a client-stacked group, updating
     ``params`` and ``opt_state`` in place.  Host-fed, the chunk holds the
     gathered ``[n, S, B, ...]`` batches; on the resident plane (``data``:
@@ -328,9 +346,20 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
     ``step_valid [n, S]``.  ``global_params``: the round's global model,
     which the FedProx term reads.  Returns per-step device tensors (loss,
     correct, n_valid), each ``[n, S]``; steps no client runs are
-    skipped."""
+    skipped.
+
+    ``plan`` (``parallel.mesh.MeshPlan``): the chunk is the whole group's,
+    ``params`` / ``opt_state`` this rank's block of clients; the rank runs
+    its clients and batch rows of every step some client of the group
+    runs, draws from ``gen`` as one process would, and returns its
+    clients' rows."""
     device = tree_leaves(params)[0].device
     sv_all = chunk["step_valid"]
+    plan = plan or MeshPlan()
+    n, B = chunk["valid"].shape[0], chunk["valid"].shape[2]
+    gen = plan.draws(gen, n, B)
+    data_plan = plan if plan.splits_batch(B) else None
+    chunk = plan.local_chunk(chunk)
     if data is not None:
         # the whole chunk's index maps in one copy
         on_dev = to_device_batch(chunk, device)
@@ -341,43 +370,58 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
         if data is None:
             batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
                                      if k != "step_valid"}, device)
-            sv = torch.from_numpy(sv_all[:, s].copy()).to(device)
+            sv = torch.from_numpy(chunk["step_valid"][:, s].copy()).to(device)
         else:
             batch = resident_gather(spec, data, on_dev["idx"][:, s],
                                     on_dev["valid"][:, s])
             sv = on_dev["step_valid"][:, s]
             if spec.device_aug:
-                x = batch["x"]
-                x = device_augment(x.reshape((-1,) + tuple(x.shape[2:])),
-                                   gen, spec.aug_crop, spec.aug_randhf,
-                                   spec.aug_randvf, resize=spec.aug_resize)
-                batch["x"] = x.reshape(tuple(sv.shape) + (-1,)
-                                       + tuple(x.shape[1:]))
+                batch["x"] = _augment_stacked(spec, batch["x"], gen)
         loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen,
-                                               global_params)
-        descend(opt, params, opt_state, loss, lr, frozen, sv)
+                                               global_params, data_plan)
+        descend(opt, params, opt_state, loss, lr, frozen, sv, data_plan)
         ls.append(loss.detach())
         cs.append(correct)
         ns.append(n_valid)
     if not ls:
-        z = torch.zeros((sv_all.shape[0], 0), device=device)
+        z = torch.zeros((chunk["step_valid"].shape[0], 0), device=device)
         return z, z, z
     return (torch.stack(ls, 1), torch.stack(cs, 1), torch.stack(ns, 1))
 
 
+def _augment_stacked(spec: GroupSpec, x: torch.Tensor,
+                     draws: RankDraws) -> torch.Tensor:
+    """Device augmentation of a stacked ``[n, B, H, W, C]`` batch: the
+    per-sample draws are made for the whole group's flattened batch, of
+    which this rank's block is applied."""
+    lead = tuple(x.shape[:2])
+    flat = x.reshape((-1,) + tuple(x.shape[2:]))
+    full = draw_augment(draws.n * draws.B, tuple(flat.shape[1:3]),
+                        spec.aug_crop, spec.aug_randhf, spec.aug_randvf,
+                        spec.aug_resize, draws.gen)
+    mine = AugDraws(*(None if t is None else
+                      draws.block(t.reshape(draws.n, draws.B)).reshape(-1)
+                      for t in (full.ys, full.xs, full.hflip, full.vflip)))
+    out = apply_augment(flat, mine, spec.aug_crop, spec.aug_resize)
+    return out.reshape(lead + tuple(out.shape[1:]))
+
+
 def descend(opt: OptimizerSpec, params, opt_state, loss: torch.Tensor,
-            lr: float, frozen=None, step_valid=None) -> None:
+            lr: float, frozen=None, step_valid=None, data_plan=None) -> None:
     """One optimizer step, in place, on the gradient of ``loss.sum()`` (the
     clients' losses are independent).  A leaf the loss does not reach gets
     a zero gradient, which still decays its moments: freeze it in
-    ``frozen`` to skip it as torch skips a parameter whose grad is None."""
+    ``frozen`` to skip it as torch skips a parameter whose grad is None.
+    ``data_plan``: the gradients are summed over the mesh's data ranks
+    first (before clipping and the update)."""
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-    grad_tree = _unflatten_like(params, [
-        torch.zeros_like(p) if g is None else g
-        for p, g in zip(leaves, grads)])
-    opt_update(opt, params, grad_tree, opt_state, lr, frozen=frozen,
-               step_valid=step_valid)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    if data_plan is not None:
+        grads = data_plan.sum_over_data(grads)
+    opt_update(opt, params, _unflatten_like(params, grads), opt_state, lr,
+               frozen=frozen, step_valid=step_valid)
 
 
 def _unflatten_like(tree, flat):
@@ -409,7 +453,7 @@ def eval_forward(cfg: MATConfig, spec: GroupSpec, params,
 @torch.no_grad()
 def local_eval(cfg: MATConfig, spec: GroupSpec, params,
                idx: np.ndarray, valid: np.ndarray,
-               data: Dict[str, torch.Tensor]):
+               data: Dict[str, torch.Tensor], plan=None):
     """Per-client holdout evaluation of one global model on the resident
     plane: ``idx`` / ``valid [n, S, B]`` index the staged train arrays.
     Every step is one eval forward over all ``n`` clients' rows (the
@@ -418,24 +462,32 @@ def local_eval(cfg: MATConfig, spec: GroupSpec, params,
     the training criterion), the group's contrastive criterion on each
     client's slice for img+txt.  Returns float64 device tensors ``[n]``:
     the loss·count sums, correct counts and valid counts (the
-    ``MetricManager.track`` weighting, src/utils.py:339,347)."""
+    ``MetricManager.track`` weighting, src/utils.py:339,347).  ``plan``: a
+    mesh splits each step's rows over its ranks (``MeshPlan.eval_rows``)."""
     device = tree_leaves(params)[0].device
     n = idx.shape[0]
     on_dev = to_device_batch({"idx": idx, "valid": valid}, device)
     ls, cs, ns = (torch.zeros(n, dtype=torch.float64, device=device)
                   for _ in range(3))
+
+    def rows_forward(rows):
+        return eval_forward(cfg, spec, params, resident_gather(
+            spec, data, torch.as_tensor(rows, device=device)))
+
     for s in range(idx.shape[1]):
         if not valid[:, s].any():
             continue
         i, v = on_dev["idx"][:, s], on_dev["valid"][:, s]
-        batch = resident_gather(spec, data, i.reshape(-1))
-        out = eval_forward(cfg, spec, params, batch)
+        if plan is None:
+            out = rows_forward(i.reshape(-1))
+        else:
+            out = plan.eval_rows(rows_forward, idx[:, s].reshape(-1))
         if spec.modality == "img+txt":
             fi, ft = (f.reshape(i.shape + f.shape[1:]) for f in out)
             loss = _mm_criterion(spec.criterion)(fi, ft, v)
         else:
             logits = out.reshape(i.shape + out.shape[1:])
-            y = batch["y"].reshape(i.shape)
+            y = _take(data["tgt"], i)
             loss = losses.cross_entropy(logits, y, v)
             cs += ((logits.argmax(-1) == y) & v).sum(-1)
         nv = v.sum(-1).double()

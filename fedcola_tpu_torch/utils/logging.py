@@ -26,9 +26,11 @@ def json_sanitize(obj):
     return obj
 
 
-def set_logger(path: str | None = None, level=logging.INFO) -> logging.Logger:
+def set_logger(path: str | None = None, level=logging.INFO,
+               tag: str = "") -> logging.Logger:
+    """``tag`` prefixes every record (a mesh rank's ``[rank r] ``)."""
     fmt = logging.Formatter(
-        "%(asctime)s [%(levelname)s] %(message)s", "%m/%d %H:%M:%S")
+        f"%(asctime)s [%(levelname)s] {tag}%(message)s", "%m/%d %H:%M:%S")
     root = logging.getLogger("fedcola_tpu_torch")
     root.setLevel(level)
     # repeated calls (tests, resume re-init) must not leak the previous

@@ -44,7 +44,8 @@ result line):
             dtypes; the fused rows at N = 1536 (n=2, B=4) and the flash
             rows at N = 1024 (n=2, B=8); bf16 at N = 512 timed; the route at
             N = 1025 (flash: ``attention_xla``, no launch; fused: its
-            kernel).
+            kernel).  Rows 3e and 6 also at a [tp] rank's shape (hidden
+            768 of 1536, a zero b2), both dtypes, bf16 N=197 timed.
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -137,17 +138,29 @@ result line):
             stacked; ``graft_entry.dryrun_multichip(4)`` on the card (four
             ranks, each launching rows 1-4); every collective of the mesh
             in a one-rank NCCL group against the identity.
+11. tp      the ``model`` axis (Megatron tensor parallelism): [main]'s
+            line with ``--mesh_shape 1 2 --mesh_axes clients model`` as two
+            ``--dist_*`` processes sharing the card over gloo, each rank on
+            3 of the 6 heads (rows 11 / 12) and 768 of the 1536 hidden
+            columns (rows 3e / 6), held against [main] by ``MESH_BOUNDS``;
+            every rank must launch rows 11, 12, 3e, 6 and the eval row 1e,
+            and neither fused training backward (rows 2, 4); the planted
+            fault ``FAULT_SKIP_ENTER``, which the gates ``FAULT_GATES``
+            names must reject; ``graft_entry.dryrun_multichip(8)`` on the
+            card (2 x 2 x 2 clients x data x model, eight ranks).
 
 Phases 5 to 9 (and resident, local, augment, fixtures) each zero the launch
 counters just before and read them just after; a kernel's launches are
-those of the path that runs it.  The [mesh] ranks are processes of their
-own, which count from zero.  The
+those of the path that runs it.  The [mesh] and [tp] ranks are processes
+of their own, which count from zero.  The
 second-to-last line is a JSON object with one entry per kernel (the bf16
 N=197 training-shape times, under "eval" the eval-shape times of the
 kernels central eval runs, under "distill" those of kernels 1-4 at the
 distillation shape, and under "long" and "long_eval" the N = 512 times at
 the training and eval shapes, "long" with the [long] phase's launches;
-under "mesh_launches" each [mesh] run's launches per rank);
+under "tp" rows 3e / 6 at a [tp] rank's shape; under "mesh_launches"
+each [mesh] run's launches per rank, under "tp_launches" the [tp] run's
+launches of rows 11, 12, 3e and 6 per rank);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -349,8 +362,8 @@ def _attn_inputs(n, B, N, dtype, dev):
         "da": ((n, B, N, D), 1.0, "a")}, dtype, dev)
 
 
-def _mlp_inputs(n, B, N, dtype, dev):
-    D, Fh = 384, 4 * 384
+def _mlp_inputs(n, B, N, dtype, dev, Fh=4 * 384):
+    D = 384
     return _tensors(23 + N + B, {
         "x": ((n, B, N, D), 1.0, "a"), "s": ((n, B), 0, "s"),
         "lns": ((n, D), 0, "g"), "lnb": ((n, D), 0.1, "b"),
@@ -569,6 +582,50 @@ def check_remat(N, dtype, dev, timing, n=2, B=96):
     return res
 
 
+# [tp]'s hidden width a rank: mome_small's 1536 over a model axis of 2
+TP_HIDDEN = 768
+
+
+def check_tp_mlp(N, dtype, dev, timing, n=2, B=96):
+    """Kernels 3e and 6 at [tp]'s shape: one model rank's MLP of
+    mome_small (n=2, B=96, D=384, hidden ``TP_HIDDEN``) with the zero b2
+    the Megatron route gives it (``models/mat.py`` ``mlp_partial``)."""
+    import torch
+    from fedcola_tpu_torch.ops import fused_mlp as fm
+    D = 384
+    t = _mlp_inputs(n, B, N, dtype, dev, Fh=TP_HIDDEN)
+    t["b2"] = torch.zeros_like(t["b2"])
+    w = [t[k] for k in ("lns", "lnb", "w1", "b1", "w2", "b2")]
+    got = fm.mlp_fwd(t["x"], None, *w)
+    res = {"mlp_fwd": {"max_abs_err": _compare(
+        [got], [fm.mlp_fwd_plain(t["x"], None, *w)], dtype, ("out",))}}
+    _same_bits(fm.mlp_fwd, (t["x"], None, *w), [got], "mlp_fwd (tp)")
+    args6 = (t["x"], None, *w[:5], t["do"])
+    got6 = fm.mlp_bwd(*args6)
+    res["mlp_bwd_nores"] = {"max_abs_err": _compare(
+        got6, fm.mlp_bwd_plain(*args6), dtype,
+        ("dx", "dlns", "dlnb", "dw1", "db1", "dw2", "db2"))}
+    _same_bits(fm.mlp_bwd, args6, got6, "mlp_bwd_nores (tp)")
+    if not timing:
+        return res
+    M = B * N
+    with torch.no_grad():
+        res["mlp_fwd"].update(
+            ms=time_ms(lambda: fm.mlp_fwd(t["x"], None, *w)),
+            plain_ms=time_ms(lambda: fm.mlp_fwd_plain(t["x"], None, *w)),
+            library_ms=time_ms(lambda: lib_mlp(t["x"], None, *w)),
+            flops=n * 4.0 * M * D * TP_HIDDEN,
+            bytes=_nbytes(t["x"], *w, got))
+    res["mlp_bwd_nores"].update(
+        ms=time_ms(lambda: fm.mlp_bwd(*args6)),
+        plain_ms=time_ms(lambda: fm.mlp_bwd_plain(*args6)),
+        library_ms=_lib_grad_timer(lib_mlp, t, ("lns", "lnb", "w1", "b1",
+                                                "w2", "b2"), t["do"]),
+        flops=n * 10.0 * M * D * TP_HIDDEN,
+        bytes=_nbytes(t["x"], *w[:5], t["do"], *got6))
+    return res
+
+
 def check_rows(N, dtype, dev, timing):
     """Rows 7-10, the rows-mode MLP, at the training batch flattened: n=2
     clients, rows = 96*N (18,912 and 3,840), D=384, F=1536."""
@@ -761,7 +818,7 @@ def phase_kernels():
     gives it.  Returns, per kernel, the bf16 N=197 training-shape
     measurements (the image stack, the main path's largest shape), the
     bf16 N=197 eval-shape ones under "eval", the distillation-shape ones
-    under "distill", the bf16 N=512 ones (the long-text line, the keys
+    under "distill", [tp]'s rank shape under "tp", the bf16 N=512 ones (the long-text line, the keys
     streamed) under "long" and "long_eval", and the worst absolute error
     of all its comparisons."""
     import functools
@@ -786,18 +843,19 @@ def phase_kernels():
                     ("rows", check_rows), ("eval", check_eval),
                     ("distill", functools.partial(check_attention,
                                                   **distill)),
-                    ("distill", functools.partial(check_mlp, **distill))):
+                    ("distill", functools.partial(check_mlp, **distill)),
+                    ("tp", check_tp_mlp)):
                 key = None
                 if N == 197:
                     key = ((lambda k, s=shape: f"{k}:{s}")
-                           if shape in ("eval", "distill") else str)
+                           if shape in ("eval", "distill", "tp") else str)
                 record(check(N, dtype, dev, timing), shape, dtype, N, timing,
                        key)
                 torch.cuda.empty_cache()
     check_long_kernels(dev, record)
     for name in worst:
         measured[name]["max_abs_err"] = worst[name]
-        for shape in ("eval", "distill", "long", "long_eval"):
+        for shape in ("eval", "distill", "long", "long_eval", "tp"):
             if f"{name}:{shape}" in measured:
                 measured[name][shape] = measured.pop(f"{name}:{shape}")
     return measured
@@ -1480,6 +1538,8 @@ def phase_long():
 # ---------------------------------------------------------------- mesh ----
 
 MESH_TRAINING_KERNELS = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+# the Megatron route's kernels on the model axis: rows 11, 12, 3e, 6
+TP_KERNELS = ("flash_fwd", "flash_bwd", "mlp_fwd", "mlp_bwd_nores")
 
 
 def _global_weights(server) -> dict:
@@ -1536,6 +1596,31 @@ main(sys.argv[1:])
 """
 
 
+# FAULT_SKIP_ENTER: the backward all-reduce of Megatron's f skipped on the
+# attention input (the LayerNorm'd residual stream): each model rank then
+# back-propagates only its own heads' part of the attention's gradient into
+# LN1 and the layers below.  The ranks' replicated leaves drift apart, so
+# the check that catches that at the upload is switched off, as it would be
+# by a fault that also broke it; the gates must still see the fault.
+FAULT_SKIP_ENTER = """
+import sys
+from fedcola_tpu_torch.models import mat
+from fedcola_tpu_torch.parallel import mesh
+layer_norm, enter = mat._layer_norm, mesh.TensorParallel.enter
+def tagged(*a):
+    y = layer_norm(*a)
+    y.fault_ln = True
+    return y
+def skip_on_ln(self, x):
+    return x if getattr(x, "fault_ln", False) else enter(self, x)
+mat._layer_norm = tagged
+mesh.TensorParallel.enter = skip_on_ln
+mesh.MeshPlan.check_replicated = lambda *a, **k: None
+from fedcola_tpu_torch.main import main
+main(sys.argv[1:])
+"""
+
+
 def _mesh_cli(out, extra, virtual, dist=None, code=None):
     """``python -m fedcola_tpu_torch.main`` on [main]'s line with
     ``extra``, started with ``FEDCOLA_VIRTUAL_DEVICES=virtual``; ``dist``:
@@ -1581,10 +1666,14 @@ def _mesh_finish(tag, procs, timeout=600):
     return outs
 
 
-def _mesh_report(tag, card, res):
+def _mesh_report(tag, card, res, tp=False):
     """Print a mesh run's backend and each rank's figures, beside the
     card; fail unless every rank launched the fused training kernels and
-    the eval forwards (more forward launches than backward ones)."""
+    the eval forwards (more forward launches than backward ones).  With
+    ``tp`` (a ``model`` axis): unless every rank launched the Megatron
+    route's rows 11, 12, 3e and 6 and the eval row 1e, and neither fused
+    training backward (rows 2, 4)."""
+    want = TP_KERNELS if tp else MESH_TRAINING_KERNELS
     m = res["mesh"]
     log(f"[{tag}] {card}: mesh {m['mesh']}, backend {m['backend']}")
     for r in sorted(k for k in res if k.isdigit()):
@@ -1599,15 +1688,22 @@ def _mesh_report(tag, card, res):
             f"{'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}"
             f", round_seconds "
             f"{rk['round_seconds']}, eval_seconds {rk['eval_seconds']}, "
-            f"launches { {k: ln.get(k, 0) for k in MESH_TRAINING_KERNELS} }")
-        missing = [k for k in MESH_TRAINING_KERNELS if not ln.get(k)]
-        if missing or not (ln["attn_fwd"] > ln["attn_bwd"]
-                           and ln["mlp_fwd"] > ln["mlp_bwd"]):
-            raise AssertionError(f"[{tag}] rank {rk['rank']} launches {ln}: "
-                                 f"rows 1-4 and the eval rows 1e / 3e must "
-                                 f"all launch")
-    return {rk["rank"]: {k: rk["launches"].get(k, 0)
-                         for k in MESH_TRAINING_KERNELS}
+            f"launches { {k: ln.get(k, 0) for k in want} }"
+            + (f", eval row 1e {ln.get('attn_fwd', 0)}" if tp else ""))
+        missing = [k for k in want if not ln.get(k)]
+        if tp:
+            wrong = missing or ln.get("attn_bwd") or ln.get("mlp_bwd") \
+                or not ln.get("attn_fwd")
+        else:
+            wrong = missing or not (ln["attn_fwd"] > ln["attn_bwd"]
+                                    and ln["mlp_fwd"] > ln["mlp_bwd"])
+        if wrong:
+            raise AssertionError(
+                f"[{tag}] rank {rk['rank']} launches {ln}: " +
+                ("rows 11, 12, 3e, 6 and the eval row 1e must launch, rows "
+                 "2 and 4 not" if tp else
+                 "rows 1-4 and the eval rows 1e / 3e must all launch"))
+    return {rk["rank"]: {k: rk["launches"].get(k, 0) for k in want}
             for rk in m["ranks"]}
 
 
@@ -1665,9 +1761,13 @@ def _mesh_collectives():
 MESH_BOUNDS = {"training loss": 3e-4, "eval loss": 8e-4,
                "acc1": 1 / 500 + 1e-9, "r@1sum": 2 / 100 + 2 / 500 + 1e-9,
                "weights": 0.14}
-# the gates each planted fault must fail
+# the gates each planted fault must fail.  skipped-enter leaves every
+# forward right and bends only the gradients: a rehearsal of phase_tp on
+# the CPU at test size moved the training loss and the weights past their
+# bounds but not the eval loss (PERF.md, Findings)
 FAULT_GATES = {"first-block": ("training loss", "eval loss", "weights"),
-               "dropped-upload": ("training loss", "eval loss", "weights")}
+               "dropped-upload": ("training loss", "eval loss", "weights"),
+               "skipped-enter": ("training loss", "weights")}
 
 
 def _mesh_readings(main_results, main_weights, lr, res, weights) -> dict:
@@ -1834,6 +1934,78 @@ def phase_mesh(main_results, main_weights, card):
         f", backend {dry['backend']}, loss {dry['loss']!r}, "
         f"{time.time() - t0:.1f}s; launches per rank {dry['launches']}")
     _mesh_collectives()
+    return launches
+
+
+# ------------------------------------------------------------------ tp ----
+
+TP_MESH = ("--mesh_shape", "1", "2", "--mesh_axes", "clients", "model")
+
+
+def phase_tp(main_results, main_weights, card):
+    """The ``model`` axis on the one card: [main]'s line with
+    ``TP_MESH`` as two ``--dist_*`` processes sharing the card over gloo
+    (NCCL cannot put two ranks on one card).  Each rank trains both
+    clients of every group on 3 of the 6 heads (rows 11 / 12) and 768 of
+    the 1536 hidden columns (rows 3e / 6), the replicated activations
+    joined by an all-reduce a sublayer; evaluation runs whole (rows 1e,
+    3e).
+
+    1. the run, read against [main] by ``_mesh_readings`` and gated by
+       ``MESH_BOUNDS``; every rank must launch rows 11, 12, 3e, 6 and 1e,
+       and neither fused training backward;
+    2. the planted fault ``FAULT_SKIP_ENTER``, which each gate
+       ``FAULT_GATES`` names must reject;
+    3. ``graft_entry.dryrun_multichip(8)``: the JAX dry run's 2 x 2 x 2
+       ``clients x data x model`` mesh, eight ranks on the card.
+
+    Prints every rank's figures beside the card; returns the run's
+    launches of rows 11, 12, 3e and 6 per rank."""
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.graft_entry import dryrun_multichip
+    from fedcola_tpu_torch.parallel.mesh import free_port
+    import torch
+    torch.cuda.empty_cache()
+    datasets = sorted({ds for ds, _ in main_weights})
+    flags = port_main.MAIN_PATH_FLAGS
+    lr = float(flags[flags.index("--lr") + 1])
+    launches = None
+    with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
+        for fault, code in ((None, None), ("skipped-enter",
+                                           FAULT_SKIP_ENTER)):
+            tag = "tp" if fault is None else f"tp-{fault}"
+            run = os.path.join(out, tag)
+            port, t0 = free_port(), time.time()
+            _mesh_finish(tag, [_mesh_cli(run, TP_MESH, 1, (port, pid),
+                                         code=code) for pid in range(2)])
+            log(f"[{tag}] {card}: {time.time() - t0:.1f}s wall")
+            res = json.load(open(os.path.join(run, "result",
+                                              "FedCola.json")))
+            ranks = _mesh_report(tag, card, res, tp=True)
+            failed = _mesh_judge(tag, card, _mesh_readings(
+                main_results, main_weights, lr, res, _npz_weights(
+                    os.path.join(run, "result"), "FedCola", datasets)))
+            if fault is None:
+                launches = ranks
+                if failed:
+                    raise AssertionError(f"[tp] the clients x model mesh "
+                                         f"departs from [main] beyond "
+                                         f"{failed}")
+                continue
+            log(f"[tp] planted fault {fault}: rejected by {failed}")
+            blind = [k for k in FAULT_GATES[fault] if k not in failed]
+            if blind:
+                raise AssertionError(
+                    f"[tp] the {blind} gate(s) accept the planted fault "
+                    f"{fault}: they cannot tell a wrong model axis from "
+                    f"reassociation")
+    t0 = time.time()
+    dry = dryrun_multichip(8)
+    log(f"[tp] {card}: dryrun_multichip(8) on the card: mesh {dry['mesh']}, "
+        f"backend {dry['backend']}, loss {dry['loss']!r}, "
+        f"{time.time() - t0:.1f}s; launches per rank {dry['launches']}")
+    if dry["mesh"] != {"clients": 2, "data": 2, "model": 2}:
+        raise AssertionError(f"[tp] dry run mesh {dry['mesh']}")
     return launches
 
 
@@ -2087,6 +2259,7 @@ def main() -> int:
                  fixtures=phase_fixtures(), remat=phase_remat(),
                  rows=phase_rows(), long=phase_long())
     mesh_launches = phase_mesh(main_results, main_weights, card)
+    tp_launches = phase_tp(main_results, main_weights, card)
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
@@ -2095,10 +2268,11 @@ def main() -> int:
                "replaces": replaces, "launches": paths[path][name],
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
-        for shape in ("eval", "distill", "long", "long_eval"):
+        for shape in ("eval", "distill", "long", "long_eval", "tp"):
             if shape in m:
                 # the same entry point at central evaluation's, CreamFL
-                # distillation's or the long line's shape (N = 512)
+                # distillation's, the long line's (N = 512) or a [tp]
+                # rank's shape
                 row[shape] = {k: m[shape][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if "long" in row:
@@ -2108,6 +2282,9 @@ def main() -> int:
             # [mesh]: each run's launches per rank (eval rows included)
             row["mesh_launches"] = {run: {r: v[name] for r, v in ranks.items()}
                                     for run, ranks in mesh_launches.items()}
+        if name in TP_KERNELS:
+            # [tp]: each rank's launches (mlp_fwd with the eval row 3e)
+            row["tp_launches"] = {r: v[name] for r, v in tp_launches.items()}
         rows.append(row)
     missing = [r["name"] for r in rows if r["launches"] == 0] + \
         [r["name"] + " (long)" for r in rows

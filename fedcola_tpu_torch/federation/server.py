@@ -27,10 +27,13 @@ and ``fediot`` (a sharing rule on this machinery) run here, with
 (``federation/fedopt.py``) and CreamFL (``federation/creamfl.py``).
 
 Under a mesh (``parallel/mesh.py``, one process per device) every rank runs
-this same program: a rank trains its block of each group's clients (and
-rows of each batch on a ``data`` axis), the uploads are all-gathered before
-the aggregation, which every rank runs on the same stack, and evaluation
-splits its batches over the ranks.
+this same program: a rank trains its block of each group's clients (rows
+of each batch on a ``data`` axis, its shard of the ruled leaves on a
+``model`` axis), the uploads are all-gathered before the aggregation,
+which every rank runs on the same stack, and evaluation splits its
+batches over the ranks.  The global models stay whole and replicated on
+every rank; the ``model`` axis cuts them when a group update starts and
+puts them back at its upload.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
 from fedcola_tpu_torch.models.registry import create_model
 from fedcola_tpu_torch.models.torch_io import to_torch_state_dict
 from fedcola_tpu_torch.ops.losses import clip_contrastive, cross_entropy
-from fedcola_tpu_torch.parallel.mesh import MeshPlan
+from fedcola_tpu_torch.parallel.mesh import MeshPlan, TensorParallel
 from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
                                                       build_frozen_mask,
                                                       eval_batch,
@@ -90,6 +93,10 @@ class GroupRun:
     feeder: GroupFeeder
     acc: Dict[str, torch.Tensor]
     data: Optional[Dict[str, torch.Tensor]]   # staged arrays, or host-fed
+    # the mesh's model axis (None without it) and the round's global model
+    # as the group's FedProx term reads it (the rank's cut under the axis)
+    tp: Optional[TensorParallel] = None
+    global_params: Optional[dict] = None
 
 
 def resolve_device(cfg: ExperimentConfig) -> torch.device:
@@ -143,10 +150,16 @@ class FedAvgServer:
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model_cfgs = {}
         self.global_params = {}
+        # each model's share of the ``model`` axis (None without it)
+        self.model_tps: Dict[str, Optional[TensorParallel]] = {}
         for ds in cfg.client_datasets:
             mcfg, params = create_model(cfg.model_name, cfg, ds, init_gen)
             if self.device.type == "cuda":
                 check_kernel_support(mcfg)
+            tp = self.model_tps[ds] = self.plan.tensor_parallel(mcfg)
+            if tp is not None:
+                logger.info("[MESH] model axis %d, %s: %s", tp.size, ds,
+                            tp.describe(mcfg))
             self.model_cfgs[ds] = mcfg
             self.global_params[ds] = tree_map(lambda a: a.to(self.device),
                                               params)
@@ -324,15 +337,21 @@ class FedAvgServer:
 
     def _open_group(self, ds: str, ids: List[int]) -> GroupRun:
         """The round-start state of one group: the global model stacked for
-        its ``n`` clients (under a mesh, this rank's block of them), fresh
-        optimizer state, the freeze mask, the feeder of the whole group,
-        the on-device metric sums and the group's data plane."""
+        its ``n`` clients (under a mesh, this rank's block of them; on a
+        ``model`` axis, its shard of that), fresh optimizer state, the
+        freeze mask, the feeder of the whole group, the on-device metric
+        sums and the group's data plane."""
         cfg, mcfg = self.cfg, self.model_cfgs[ds]
         spec, aug, data = self._group_aug_plan(ds, self._group_spec(ds))
         rows = self.plan.client_rows(len(ids))
         n = rows.stop - rows.start
-        stacked = tree_map(lambda a: a.requires_grad_(True),
-                           stack_clients(self.global_params[ds], n))
+        stacked = stack_clients(self.global_params[ds], n)
+        global_params = self.global_params[ds]
+        tp = self.model_tps[ds]
+        if tp is not None:
+            stacked = tp.cut(stacked)
+            global_params = tp.cut(global_params, lead=0)
+        stacked = tree_map(lambda a: a.requires_grad_(True), stacked)
         feeder = GroupFeeder([self.data.client_shards[i] for i in ids],
                              cfg.B, spec.modality,
                              chunk_steps=cfg.train_chunk_steps,
@@ -346,7 +365,7 @@ class FedAvgServer:
             feeder=feeder,
             acc={k: torch.zeros(n, dtype=torch.float64, device=self.device)
                  for k in ("l", "c", "n")},
-            data=data)
+            data=data, tp=tp, global_params=global_params)
 
     def _train_chunks(self, g: GroupRun, chunks) -> None:
         """Local steps over a group's chunks; the metric sums stay on the
@@ -354,9 +373,8 @@ class FedAvgServer:
         for chunk in Prefetcher(chunks):
             ls, cs, ns = run_chunk(g.mcfg, g.spec, self.opt_spec, g.stacked,
                                    g.opt_state, chunk, self.curr_lr,
-                                   self.gen, g.frozen,
-                                   self.global_params[g.ds], data=g.data,
-                                   plan=self.plan)
+                                   self.gen, g.frozen, g.global_params,
+                                   data=g.data, plan=self.plan, tp=g.tp)
             nsf = ns.double()
             g.acc["l"] += (ls.double() * nsf).sum(1)
             g.acc["c"] += cs.double().sum(1)
@@ -364,11 +382,19 @@ class FedAvgServer:
 
     def _close_group(self, g: GroupRun):
         """The group's upload (aux folded in) and metrics; under a mesh
-        both are the whole group's, gathered from every rank's block."""
+        both are the whole group's, gathered from every rank's block (on a
+        ``model`` axis, once the model ranks' copies of the replicated
+        leaves are checked equal and the shards all-gathered)."""
         n = len(g.ids)
         with torch.no_grad():
-            upload = self.plan.gather_clients(fold_aux_into_upload(
-                g.mcfg, tree_map(lambda a: a.detach(), g.stacked)), n)
+            trained = tree_map(lambda a: a.detach(), g.stacked)
+            if g.tp is not None:
+                self.plan.check_replicated(
+                    {f"{g.ds} client block": g.tp.replicated(trained)},
+                    g.tp.group)
+                trained = g.tp.join(trained)
+            upload = self.plan.gather_clients(
+                fold_aux_into_upload(g.mcfg, trained), n)
         acc = {k: self.plan.gather_clients(v, n) for k, v in g.acc.items()}
         return upload, self._readback_group_metrics(acc, g.ds, g.ids)
 

@@ -48,21 +48,25 @@ def _to(tree, device):
 
 
 TRAINING_KERNELS = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
+# the Megatron route's kernels (rows 11, 12, 3e, 6)
+TP_KERNELS = ("flash_fwd", "flash_bwd", "mlp_fwd", "mlp_bwd_nores")
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
     """One resident group update of a small img+txt model (D=128, depth 2,
     2 heads: the fused route's smallest width) over an ``n_devices`` mesh,
-    one rank per mesh device: ``clients x data`` = ``[n/2, 2]`` for even
-    ``n >= 4``, else ``[n]`` clients (the JAX dry run's ``model`` axis is
-    not ported).  On the card (the default) the ranks share the visible
-    cards (``FEDCOLA_VIRTUAL_DEVICES``), train in bfloat16 and every rank
-    must launch the four fused training kernels; with ``device="cpu"``
-    they are virtual CPU devices running the kernels' plain versions in
-    float32.  Each rank trains its clients of the group and its half of
-    every batch, gathered from a deduplicated image store.  Prints the
-    mesh, the backend and the loss; returns them with each rank's
-    launches."""
+    one rank per mesh device, in the JAX dry run's layouts: ``clients x
+    data x model`` = ``[n/4, 2, 2]`` for ``n >= 8`` divisible by 4,
+    ``clients x data`` = ``[n/2, 2]`` for other even ``n >= 4``, else
+    ``[n]`` clients.  On the card (the default) the ranks share the
+    visible cards (``FEDCOLA_VIRTUAL_DEVICES``), train in bfloat16 and
+    every rank must launch the four fused training kernels (on a ``model``
+    axis, the Megatron route's flash and no-residual MLP kernels); with
+    ``device="cpu"`` they are virtual CPU devices running the kernels'
+    plain versions in float32.  Each rank trains its clients of the group,
+    its half of every batch, on a ``model`` axis its head and half of the
+    MLP, gathered from a deduplicated image store.  Prints the mesh, the
+    backend and the loss; returns them with each rank's launches."""
     import torch
     from fedcola_tpu_torch.parallel.mesh import (Launch, MeshPlan,
                                                  VIRTUAL_DEVICES_ENV,
@@ -76,7 +80,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
         cards = torch.cuda.device_count()
     else:
         cards = 1
-    if n_devices >= 4 and n_devices % 2 == 0:
+    if n_devices >= 8 and n_devices % 4 == 0:
+        shape, axes = [n_devices // 4, 2, 2], ["clients", "data", "model"]
+    elif n_devices >= 4 and n_devices % 2 == 0:
         shape, axes = [n_devices // 2, 2], ["clients", "data"]
     else:
         shape, axes = [n_devices], ["clients"]
@@ -99,11 +105,12 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> dict:
     ranks = sorted((out.get() for _ in range(plan.n_devices)),
                    key=lambda r: r["rank"])
     if device == "cuda":
+        want = TP_KERNELS if plan.model_axis > 1 else TRAINING_KERNELS
         idle = [r["rank"] for r in ranks
-                if not all(r["launches"].get(k) for k in TRAINING_KERNELS)]
+                if not all(r["launches"].get(k) for k in want)]
         if idle:
             raise RuntimeError(f"dryrun_multichip: ranks {idle} did not "
-                               f"launch every fused training kernel: "
+                               f"launch every training kernel of {want}: "
                                f"{[r['launches'] for r in ranks]}")
     result = {"mesh": plan.mesh_dict, "backend": ranks[0]["backend"],
               "device": device, "loss": ranks[0]["loss"],
@@ -146,6 +153,9 @@ def _dryrun_rank(local_index: int, launch, out) -> None:
         rows = plan.client_rows(n_clients)
         stacked = tree_map(lambda a: a.to(dev),
                            stack_clients(params, rows.stop - rows.start))
+        tp = plan.tensor_parallel(cfg)
+        if tp is not None:
+            stacked = tp.cut(stacked)
         for leaf in tree_leaves(stacked):
             leaf.requires_grad_(True)
         opt_state = init_opt_state(opt, stacked, rows.stop - rows.start)
@@ -170,7 +180,7 @@ def _dryrun_rank(local_index: int, launch, out) -> None:
         kernels.reset_launches()
         loss, _, _ = run_chunk(cfg, spec, opt, stacked, opt_state, chunk,
                                1e-4, torch.Generator(dev).manual_seed(1),
-                               data=data, plan=plan)
+                               data=data, plan=plan, tp=tp)
         loss = plan.to_host(loss, n_clients)
         if not np.isfinite(loss).all():
             raise FloatingPointError(f"dry run: non-finite loss {loss}")

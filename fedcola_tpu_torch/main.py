@@ -21,6 +21,9 @@ CPU, ``FEDCOLA_VIRTUAL_DEVICES=k`` presents k devices:
 
     FEDCOLA_VIRTUAL_DEVICES=4 python -m fedcola_tpu_torch.main --device cpu \\
         --mesh_shape 2 2 --mesh_axes clients data <flags>
+
+``--mesh_axes clients model`` (or a third axis) adds Megatron tensor
+parallelism inside each client's group update.
 """
 
 from __future__ import annotations
@@ -224,6 +227,15 @@ def _run(cfg, argv, plan=None):
     logger.info("fedcola_tpu_torch starting: %s", " ".join(argv))
     if plan is not None:
         logger.info("[MESH] %s", plan.describe())
+        if plan.model_axis > 1:
+            logger.info(
+                "[MESH] model axis %d: Megatron tensor parallelism in the "
+                "group updates; a sharded attention runs the rank's heads "
+                "through the flash kernels (rows 11 / 12), a sharded MLP "
+                "its hidden columns through the no-residual item kernels "
+                "(rows 3e / 6; the plain MLP off the 128 grid), one "
+                "all-reduce a sublayer; evaluation with whole weights",
+                plan.model_axis)
     set_seed(cfg.seed)
 
     data = load_federated_data(cfg, np.random.RandomState(cfg.seed))

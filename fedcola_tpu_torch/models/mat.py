@@ -26,6 +26,14 @@ DropPath draws come from a ``torch.Generator`` before any checkpointed
 region, so a recompute sees the same draws.  Numerics follow the
 reference: f32 attention scores and softmax, exact-erf GELU, LayerNorm eps
 1e-5 in blocks, 1e-6 for the final norm and 1e-12 for the text embedding.
+
+Under the mesh's ``model`` axis (``parallel/mesh.py`` ``TensorParallel``)
+a training forward takes the Megatron route on the rank's shards: each
+sharded attention sublayer runs its heads through the flash kernels (11 /
+12) and each sharded MLP its hidden columns through the no-residual item
+kernels (3e / 6), joined by one all-reduce a sublayer (the JAX package
+runs no kernel under the axis; the fused attention sublayers do not run
+here either).
 """
 
 from __future__ import annotations
@@ -39,8 +47,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from fedcola_tpu_torch.ops.attention import multi_head_attention
-from fedcola_tpu_torch.parallel.mesh import RankDraws
+from fedcola_tpu_torch.ops.attention import (attention_heads,
+                                             multi_head_attention)
+from fedcola_tpu_torch.parallel.mesh import RankDraws, TensorParallel
 from fedcola_tpu_torch.ops.flash_attention import MAX_HEAD_DIM, scale_as
 from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
@@ -363,14 +372,54 @@ def _ckpt(fn, x):
     return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
 
 
+def _tp_layer(cfg: MATConfig, tp: TensorParallel, h, flash: bool, ln1,
+              attn_w, ln2, mlp_w, masks, inv, train: bool):
+    """One layer on the rank's shards (Megatron): a sharded sublayer is
+    ``enter`` (f), the rank's partial (its heads through the flash route;
+    its hidden columns through the no-residual item MLP, or the plain MLP
+    off the 128 grid, with a zero b2), ``reduce`` (g), then its output
+    bias once; a replicated one runs whole.  Training checkpoints each
+    partial ('kernel' and 'full' act as 'save_attn': the layer input and
+    the all-reduced attention output are kept); every forward collective
+    stays outside the checkpointed regions, so a recompute replays none
+    (``enter`` is the identity forward)."""
+    def ckpt(fn, x):
+        return _ckpt(fn, x) if train else fn(x)
+
+    def attn_part(x):
+        xn = tp.enter(_layer_norm(x, ln1[0], ln1[1], 1e-5))
+        return attention_heads(xn, *attn_w[:3], cfg.num_heads // tp.size,
+                               use_pallas=flash).reshape(x.shape)
+
+    def mlp_part(x):
+        w = (*mlp_w[:3], torch.zeros_like(mlp_w[3]))
+        if cfg.fused_mlp_ok:
+            return fused_mlp_sublayer_items(tp.enter(x), *ln2, *w)
+        return _mlp_plain(tp.enter(x), ln2, w)
+
+    attn_whole, mlp_join, _ = _sublayers(cfg, False, cfg.fused_mlp_ok, flash,
+                                         ln1, attn_w, ln2, mlp_w, masks, inv)
+    a = tp.reduce(ckpt(attn_part, h)) + attn_w[3][:, None, None, :] \
+        if tp.attn else ckpt(attn_whole, h)
+    h = h + _drop_path(a, masks[0], inv)
+    if not tp.mlp:
+        return mlp_join(h) if cfg.fused_mlp_ok else ckpt(mlp_join, h)
+    # the item kernels save only their inputs already
+    m = mlp_part(h) if cfg.fused_mlp_ok else ckpt(mlp_part, h)
+    return h + _drop_path(tp.reduce(m) + mlp_w[3][:, None, None, :],
+                          masks[1], inv)
+
+
 def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
-               gen) -> torch.Tensor:
+               gen, tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """The ``depth`` blocks over x ``[n, B, N, D]`` (a Python loop), routed
-    as the JAX ``_run_stack`` (mat.py:427-591)."""
+    as the JAX ``_run_stack`` (mat.py:427-591); ``tp``: the rank's shards
+    of the ``model`` axis, each layer on :func:`_tp_layer`."""
     n, B, N = x.shape[:3]
     dt = x.dtype
     use_dp = train and cfg.drop_path_rate > 0
-    fused_attn_here = cfg.fused_attn_ok and N >= cfg.fused_attn_min_seq
+    fused_attn_here = (cfg.fused_attn_ok and N >= cfg.fused_attn_min_seq
+                       and tp is None)
     flash = cfg.use_pallas and N >= cfg.fused_attn_min_seq
     policy = cfg.remat_policy
     if policy == "kernel" and not (fused_attn_here and cfg.fused_mlp_ok):
@@ -398,6 +447,10 @@ def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
             h = fused_mlp_residual_sublayer_items(h, s_m, *ln2, *mlp_w)
             continue
         inv = _keep_inv(rate, dt) if use_dp else None
+        if tp is not None:
+            h = _tp_layer(cfg, tp, h, flash, ln1, attn_w, ln2, mlp_w, masks,
+                          inv, train)
+            continue
         attn, mlp_join, whole = _sublayers(
             cfg, fused_attn_here, cfg.fused_mlp_ok, flash, ln1, attn_w, ln2,
             mlp_w, masks, inv)
@@ -444,13 +497,31 @@ def _embed_image(cfg: MATConfig, emb: Params, x: torch.Tensor, train: bool,
     return x
 
 
+def _word_partial(word: torch.Tensor, ids: torch.Tensor, index: int
+                  ) -> torch.Tensor:
+    """A model rank's part of the word lookup: ``word`` ``[n, V/size, D]``
+    its rows ``index * V/size ...``; ids outside them give zero rows, so
+    the sum over the model ranks is the whole lookup."""
+    n, per = word.shape[:2]
+    local = ids.long() - index * per
+    inside = (local >= 0) & (local < per)
+    rows = torch.arange(n, device=ids.device)[:, None, None]
+    x = word[rows, local.clamp(0, per - 1)]
+    return torch.where(inside[..., None], x, torch.zeros_like(x))
+
+
 def _embed_text(cfg: MATConfig, emb: Params, ids: torch.Tensor, train: bool,
-                gen) -> torch.Tensor:
-    """BertEmbeddings: word + position + token-type(0), LayerNorm eps 1e-12."""
+                gen, tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """BertEmbeddings: word + position + token-type(0), LayerNorm eps 1e-12.
+    With a vocabulary-sharded ``tp`` the lookup is the sum of the model
+    ranks' :func:`_word_partial`."""
     dtype = DTYPES[cfg.compute_dtype]
     n, B, L = ids.shape
-    rows = torch.arange(n, device=ids.device)[:, None, None]
-    x = emb["word"][rows, ids.long()]
+    if tp is not None and tp.word:
+        x = tp.reduce(_word_partial(emb["word"], ids, tp.index))
+    else:
+        rows = torch.arange(n, device=ids.device)[:, None, None]
+        x = emb["word"][rows, ids.long()]
     x = x + emb["posemb"][:, None, :L]
     x = x + emb["toktype"][:, None, None, 0]
     x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"], 1e-12)
@@ -460,7 +531,8 @@ def _embed_text(cfg: MATConfig, emb: Params, ids: torch.Tensor, train: bool,
 def mat_apply_stacked(cfg: MATConfig, params: Params,
                       inputs: Sequence[Optional[torch.Tensor]],
                       feat_out: bool = False, train: bool = False,
-                      gen=None, seq_feat_out: bool = False):
+                      gen=None, seq_feat_out: bool = False,
+                      tp: Optional[TensorParallel] = None):
     """Forward of a client-stacked tree (reference mome.py:881-922).
 
     ``inputs`` is slot-aligned: image slots take ``[n, B, H, W, C]`` floats,
@@ -475,7 +547,10 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
 
     ``gen``: a training forward's DropPath / dropout draws, a
     ``torch.Generator`` (whole ``[n, B, ...]`` tensors) or a mesh rank's
-    ``RankDraws`` (its block of the whole group's)."""
+    ``RankDraws`` (its block of the whole group's).
+
+    ``tp``: ``params`` is a model rank's cut (``TensorParallel.cut``) and
+    the forward runs on the Megatron route."""
     if train and gen is None:
         raise ValueError("training forward needs a torch.Generator")
     if train and not isinstance(gen, RankDraws):
@@ -489,8 +564,10 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
         if modality == "img":
             h = _embed_image(cfg, params["emb"][s], inputs[i], train, gen)
         else:
-            h = _embed_text(cfg, params["emb"][s], inputs[i], train, gen)
-        h = _run_stack(cfg, _effective_kernels(cfg, params, s), h, train, gen)
+            h = _embed_text(cfg, params["emb"][s], inputs[i], train, gen,
+                            tp)
+        h = _run_stack(cfg, _effective_kernels(cfg, params, s), h, train, gen,
+                       tp)
         h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"],
                         1e-6)
         if seq_feat_out:

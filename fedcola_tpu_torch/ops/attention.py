@@ -36,22 +36,36 @@ def attention_xla(q: Tensor, k: Tensor, v: Tensor, scale: float) -> Tensor:
     return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
+def attention_heads(x: Tensor, qkv_kernel: Tensor, qkv_bias: Tensor,
+                    proj_kernel: Tensor, num_heads: int,
+                    use_pallas: bool = True) -> Tensor:
+    """The attention sublayer up to the output projection, without its
+    bias: ``[n, B*N, proj_kernel.shape[-1]]``.  x ``[n, B, N, D]``;
+    qkv_kernel ``[n, D, 3I]`` (q | k | v on the out axis, each ``I =
+    num_heads * hd`` wide), qkv_bias ``[n, 3I]``, proj_kernel ``[n, I,
+    ...]``.  Under tensor parallelism these are one rank's heads (``I =
+    D / size``) and the result its partial of the projection."""
+    n, B, N, D = x.shape
+    inner = qkv_kernel.shape[-1] // 3
+    hd = inner // num_heads
+    dt = x.dtype
+    qkv = torch.matmul(x.reshape(n, B * N, D), qkv_kernel.to(dt)) \
+        + qkv_bias.to(dt)[:, None, :]
+    # [n, B*N, 3I] -> 3 x [n, B, H, N, hd]
+    qkv = qkv.reshape(n, B, N, 3, num_heads, hd).permute(3, 0, 1, 4, 2, 5)
+    q, k, v = (t.contiguous() for t in qkv)
+    core = flash_attention if use_pallas else attention_xla
+    out = core(q, k, v, hd ** -0.5)
+    out = out.transpose(2, 3).reshape(n, B * N, inner)
+    return torch.matmul(out, proj_kernel.to(dt))
+
+
 def multi_head_attention(x: Tensor, qkv_kernel: Tensor, qkv_bias: Tensor,
                          proj_kernel: Tensor, proj_bias: Tensor,
                          num_heads: int, use_pallas: bool = True) -> Tensor:
     """x ``[n, B, N, D]``; qkv_kernel ``[n, D, 3D]`` (q | k | v on the out
     axis), qkv_bias ``[n, 3D]``, proj_kernel ``[n, D, D]``, proj_bias
     ``[n, D]``; matmul operands in x's dtype."""
-    n, B, N, D = x.shape
-    hd = D // num_heads
-    dt = x.dtype
-    qkv = torch.matmul(x.reshape(n, B * N, D), qkv_kernel.to(dt)) \
-        + qkv_bias.to(dt)[:, None, :]
-    # [n, B*N, 3D] -> 3 x [n, B, H, N, hd]
-    qkv = qkv.reshape(n, B, N, 3, num_heads, hd).permute(3, 0, 1, 4, 2, 5)
-    q, k, v = (t.contiguous() for t in qkv)
-    core = flash_attention if use_pallas else attention_xla
-    out = core(q, k, v, hd ** -0.5)
-    out = out.transpose(2, 3).reshape(n, B * N, D)
-    return (torch.matmul(out, proj_kernel.to(dt))
-            + proj_bias.to(dt)[:, None, :]).reshape(n, B, N, D)
+    out = attention_heads(x, qkv_kernel, qkv_bias, proj_kernel, num_heads,
+                          use_pallas)
+    return (out + proj_bias.to(x.dtype)[:, None, :]).reshape(x.shape)

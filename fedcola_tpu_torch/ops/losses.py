@@ -146,33 +146,46 @@ def mc_soft_contrastive(img_emb: torch.Tensor, txt_emb: torch.Tensor,
     return 2.0 * nll.sum((-2, -1))
 
 
-def _norm_sum(w: torch.Tensor, g: torch.Tensor,
-              per_layer: bool) -> torch.Tensor:
+def _norm_sum(w: torch.Tensor, g: torch.Tensor, per_layer: bool,
+              reduce=None) -> torch.Tensor:
     """Per client, the sum of L2 norms of ``w - g``: ``w`` is client-stacked
     ``[n, ...]``, ``g`` the global leaf; with ``per_layer`` the axis after
     the client axis is the layer stack and each layer slice is one norm.
-    torch's norm backward is 0 at zero distance (the first local step);
-    the where-guard keeps that subgradient instead of NaN."""
+    ``reduce``: ``w`` and ``g`` are a model rank's shards, and the square
+    sums are summed over the model ranks before the root.  torch's norm
+    backward is 0 at zero distance (the first local step); the where-guard
+    keeps that subgradient instead of NaN."""
     d = w.float() - g.float()
     n = d.shape[0]
     sq = d.reshape(n, d.shape[1], -1).square().sum(-1) if per_layer \
         else d.reshape(n, -1).square().sum(-1)
+    if reduce is not None:
+        sq = reduce(sq)
     norm = torch.sqrt(torch.where(sq > 0, sq, torch.ones_like(sq)))
     out = torch.where(sq > 0, norm, torch.zeros_like(norm))
     return out.sum(-1) if per_layer else out
 
 
-def fedprox_term(params, global_params, mu: float) -> torch.Tensor:
+def fedprox_term(params, global_params, mu: float, tp=None) -> torch.Tensor:
     """``mu * 0.5 * sum`` of per-named-parameter L2 *norms* (not squared
     norms) of the distance to the round's global model, one value per
     client ``[n]`` of a client-stacked tree (reference
     fedproxclient.py:64-67; the fork departs from the FedProx paper's
     squared norm, and parity follows the code).  A torch named parameter is
     one layer's tensor, so the depth-stacked ``blk`` / ``aux`` leaves give
-    one norm per layer slice."""
-    def walk(p, g, per_layer):
+    one norm per layer slice.  ``tp`` (``parallel.mesh.TensorParallel``):
+    both trees are a model rank's cut, and a sharded leaf's norm is taken
+    of its square sum over the model ranks; a replicated leaf whose
+    gradient ``descend`` sums over them (``TensorParallel.sums_grad``)
+    gets its term's gradient on model rank 0 only."""
+    def walk(p, g, per_layer, name=None):
         if isinstance(p, dict):
-            return sum(walk(p[k], g[k], per_layer or k in ("blk", "aux"))
+            return sum(walk(p[k], g[k], per_layer or k in ("blk", "aux"), k)
                        for k in sorted(p))
-        return _norm_sum(p, g, per_layer)
+        sharded = tp is not None and tp.dim(name) is not None
+        if tp is not None and tp.index and tp.sums_grad(name):
+            # descend sums this leaf's gradient over the model ranks, and
+            # every rank holds it whole: rank 0 alone gives its gradient
+            p = p.detach()
+        return _norm_sum(p, g, per_layer, tp.reduce if sharded else None)
     return mu * 0.5 * walk(params, global_params, False)

@@ -267,7 +267,7 @@ def _mm_criterion(name: str):
 
 
 def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen,
-                global_params=None, data_plan=None):
+                global_params=None, data_plan=None, tp=None):
     """Per-client losses ``[n]`` and (correct, n_valid) counts for one step
     of a client-stacked group (reference fedavgclient.py:81-95); FedProx
     adds the proximal term against the round's global model
@@ -277,13 +277,15 @@ def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen,
     ranks.  The outputs, targets and mask are then gathered over them with
     the outputs' gradient, so the loss and counts are the whole batch's on
     every data rank, and the sum of the ranks' gradients is the whole
-    batch's gradient."""
+    batch's gradient.  ``tp`` (``parallel.mesh.TensorParallel``):
+    ``params`` and ``global_params`` are the model rank's cut, and the
+    forward and the FedProx term run on its shards."""
     dtype = DTYPES[cfg.compute_dtype]
     valid = batch["valid"]
     ins, out_slot = _route_inputs(cfg, spec, batch, dtype)
     if out_slot is not None:
         logits = mat_apply_stacked(cfg, params, ins, train=True,
-                                   gen=gen)[out_slot]
+                                   gen=gen, tp=tp)[out_slot]
         y = batch["y"]
         if data_plan is not None:
             logits, y, valid = map(data_plan.gather_batch, (logits, y, valid))
@@ -291,14 +293,14 @@ def _local_loss(cfg: MATConfig, spec: GroupSpec, params, batch, gen,
         correct = ((logits.argmax(-1) == y) & valid).sum(-1)
     else:
         feats = mat_apply_stacked(cfg, params, ins, feat_out=True,
-                                  train=True, gen=gen)
+                                  train=True, gen=gen, tp=tp)
         fi, ft = feats[spec.img_slot], feats[spec.txt_slot]
         if data_plan is not None:
             fi, ft, valid = map(data_plan.gather_batch, (fi, ft, valid))
         loss = _mm_criterion(spec.criterion)(fi, ft, valid)
         correct = torch.zeros_like(loss, dtype=torch.int64)
     if spec.algorithm == "fedprox" and spec.mu > 0:
-        prox = losses.fedprox_term(params, global_params, spec.mu)
+        prox = losses.fedprox_term(params, global_params, spec.mu, tp)
         if data_plan is not None:
             # every data rank adds the term and their gradients are summed:
             # each carries 1/d of its gradient, at the full value
@@ -337,7 +339,8 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
               opt_state, chunk: Dict[str, np.ndarray], lr: float, gen,
               frozen=None, global_params=None,
-              data: Optional[Dict[str, torch.Tensor]] = None, plan=None):
+              data: Optional[Dict[str, torch.Tensor]] = None, plan=None,
+              tp=None):
     """Run one chunk of local steps for a client-stacked group, updating
     ``params`` and ``opt_state`` in place.  Host-fed, the chunk holds the
     gathered ``[n, S, B, ...]`` batches; on the resident plane (``data``:
@@ -349,10 +352,12 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
     skipped.
 
     ``plan`` (``parallel.mesh.MeshPlan``): the chunk is the whole group's,
-    ``params`` / ``opt_state`` this rank's block of clients; the rank runs
-    its clients and batch rows of every step some client of the group
-    runs, draws from ``gen`` as one process would, and returns its
-    clients' rows."""
+    ``params`` / ``opt_state`` this rank's block of clients (on a ``model``
+    axis, ``tp``'s ``TensorParallel.cut`` of them, and of
+    ``global_params`` too);
+    the rank runs its clients and batch rows of every step some client of
+    the group runs, draws from ``gen`` as one process would, and returns
+    its clients' rows."""
     device = tree_leaves(params)[0].device
     sv_all = chunk["step_valid"]
     plan = plan or MeshPlan()
@@ -378,8 +383,8 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
             if spec.device_aug:
                 batch["x"] = _augment_stacked(spec, batch["x"], gen)
         loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen,
-                                               global_params, data_plan)
-        descend(opt, params, opt_state, loss, lr, frozen, sv, data_plan)
+                                               global_params, data_plan, tp)
+        descend(opt, params, opt_state, loss, lr, frozen, sv, data_plan, tp)
         ls.append(loss.detach())
         cs.append(correct)
         ns.append(n_valid)
@@ -407,21 +412,26 @@ def _augment_stacked(spec: GroupSpec, x: torch.Tensor,
 
 
 def descend(opt: OptimizerSpec, params, opt_state, loss: torch.Tensor,
-            lr: float, frozen=None, step_valid=None, data_plan=None) -> None:
+            lr: float, frozen=None, step_valid=None, data_plan=None,
+            tp=None) -> None:
     """One optimizer step, in place, on the gradient of ``loss.sum()`` (the
     clients' losses are independent).  A leaf the loss does not reach gets
     a zero gradient, which still decays its moments: freeze it in
     ``frozen`` to skip it as torch skips a parameter whose grad is None.
     ``data_plan``: the gradients are summed over the mesh's data ranks
-    first (before clipping and the update)."""
+    first (before clipping and the update).  ``tp``: ``params`` is a model
+    rank's cut; the replicated leaves' partial gradients are summed over
+    the model ranks, and clipping counts the shards' square sums."""
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     if data_plan is not None:
         grads = data_plan.sum_over_data(grads)
+    if tp is not None:
+        grads = tp.sum_partial_grads(params, grads)
     opt_update(opt, params, _unflatten_like(params, grads), opt_state, lr,
-               frozen=frozen, step_valid=step_valid)
+               frozen=frozen, step_valid=step_valid, tp=tp)
 
 
 def _unflatten_like(tree, flat):

@@ -1,5 +1,5 @@
-"""Device mesh of the PyTorch port: the ``(clients, data)`` layout of
-``fedcola_tpu/parallel/mesh.py`` on ``torch.distributed``.
+"""Device mesh of the PyTorch port: the ``(clients, data, model)`` layout
+of ``fedcola_tpu/parallel/mesh.py`` on ``torch.distributed``.
 
 The JAX package drives a ``jax.sharding.Mesh`` from one process; here the
 same layout is one process per mesh device, every rank running the same
@@ -16,8 +16,16 @@ deterministic host program (as the JAX package's processes do under
   criterion, so masked means divide by the whole batch's valid count and
   the contrastive losses see every pair, and the parameter gradients are
   summed over the data ranks before the optimizer step;
+* ``model`` (optional) — Megatron tensor parallelism inside a client's
+  group update (:class:`TensorParallel`): each rank holds its shard of the
+  ruled leaves (``_TP_RULES``: qkv and fc1 by output column, proj and fc2
+  by input row, the word table by vocabulary row), cut when the group
+  update starts and all-gathered at the upload; the model ranks of one
+  client block and batch rows compute the same replicated activations,
+  joined by one all-reduce a sharded sublayer;
 * evaluation splits each eval batch over every rank and all-gathers the
-  logits and features.
+  logits and features (with whole weights, as the JAX package shards eval
+  batches over the flattened mesh).
 
 Randomness does not depend on the layout: every rank draws the whole
 group's tensors from the same generator and keeps its block
@@ -29,8 +37,8 @@ mesh devices (the counterpart of XLA's
 ``--xla_force_host_platform_device_count``).
 
 Ranks whose cards are all distinct talk over NCCL; ranks that share a card
-or run on the CPU over gloo.  The ``model`` axis (tensor parallelism) and
-CreamFL under a mesh are not ported (ROADMAP.md A3, A4).
+or run on the CPU over gloo.  CreamFL under a mesh is not ported
+(ROADMAP.md A4).
 """
 
 from __future__ import annotations
@@ -130,11 +138,11 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor],
     return out
 
 
-def gather_stacks(tensors: Sequence[torch.Tensor],
-                  group) -> List[torch.Tensor]:
-    """Each tensor's concatenation along dim 0 over ``group``: one
-    all-gather per dtype of the flattened tensors."""
-    out = list(tensors)
+def gather_parts(tensors: Sequence[torch.Tensor],
+                 group) -> List[List[torch.Tensor]]:
+    """Every rank's copy of each tensor (equal shapes), in rank order of
+    ``group``: one all-gather per dtype of the flattened tensors."""
+    out: List[List[torch.Tensor]] = [[] for _ in tensors]
     size = dist.get_world_size(group)
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
@@ -142,8 +150,14 @@ def gather_stacks(tensors: Sequence[torch.Tensor],
         dist.all_gather(parts, flat, group=group)
         split = [p.split([tensors[i].numel() for i in idx]) for p in parts]
         for j, i in enumerate(idx):
-            out[i] = torch.cat([s[j].view_as(tensors[i]) for s in split])
+            out[i] = [s[j].view_as(tensors[i]) for s in split]
     return out
+
+
+def gather_stacks(tensors: Sequence[torch.Tensor],
+                  group) -> List[torch.Tensor]:
+    """Each tensor's concatenation along dim 0 over ``group``."""
+    return [torch.cat(p) for p in gather_parts(tensors, group)]
 
 
 # ----------------------------------------------------------------- draws --
@@ -183,16 +197,206 @@ class RankDraws:
         return out
 
 
+# ------------------------------------------------------- tensor parallel --
+
+# The Megatron layout of the MAT leaves on the ``model`` axis (the JAX
+# ``MeshPlan._TP_RULES``), on client-stacked ``[n, depth, ...]`` trees: the
+# dimension a leaf is cut along and the sublayer it belongs to.  qkv and
+# fc1 are column-parallel, proj and fc2 row-parallel, each aux copy is cut
+# as its kernel, the word table by vocabulary row; every other leaf (the
+# LayerNorms, proj_bias, fc2_bias, the aux scales, the heads) is
+# replicated.
+_TP_RULES = {
+    "qkv_kernel": (3, "attn"), "qkv_bias": (2, "attn"),
+    "qkv_aux": (3, "attn"), "proj_kernel": (2, "attn"),
+    "proj_aux": (2, "attn"),
+    "fc1_kernel": (3, "mlp"), "fc1_bias": (2, "mlp"), "fc1_aux": (3, "mlp"),
+    "fc2_kernel": (2, "mlp"), "fc2_aux": (2, "mlp"),
+    "word": (1, "word"),
+}
+# Replicated leaves whose gradient each model rank holds only its shard's
+# part of, by the sharded sublayer they feed: the aux scales (folded into
+# the sharded kernels) and LN2 (inside the MLP sublayer, which takes the
+# residual stream through ``enter``).
+_PARTIAL_GRADS = {"attn": ("qkv_scale", "proj_scale"),
+                  "mlp": ("fc1_scale", "fc2_scale", "norm2_scale",
+                          "norm2_bias")}
+# q, k and v each span every head: a rank takes its heads of each, three
+# strided pieces (the JAX spec cuts the 3D columns contiguously and XLA
+# reshards; the attention kernels need q, k and v of the same heads)
+_HEAD_ALIGNED = ("qkv_kernel", "qkv_bias", "qkv_aux")
+
+
+def _named_leaves(tree, name: Optional[str] = None
+                  ) -> List[Tuple[Optional[str], torch.Tensor]]:
+    """``(key, leaf)`` pairs in sorted-key order (``tree_leaves``'s)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _named_leaves(tree[k], k)]
+    return [(name, tree)]
+
+
+def _cut_leaf(name: str, x: torch.Tensor, dim: int, size: int,
+              index: int) -> torch.Tensor:
+    if name in _HEAD_ALIGNED:
+        return x.unflatten(dim, (3, size, -1)).select(dim + 1, index) \
+            .flatten(dim, dim + 1)
+    per = x.shape[dim] // size
+    return x.narrow(dim, index * per, per)
+
+
+def _merge_leaf(name: str, parts: Sequence[torch.Tensor],
+                dim: int) -> torch.Tensor:
+    """The whole leaf from every rank's cut, in rank order."""
+    if name in _HEAD_ALIGNED:
+        return torch.stack([p.unflatten(dim, (3, -1)) for p in parts],
+                           dim + 1).flatten(dim, dim + 2)
+    return torch.cat(list(parts), dim)
+
+
+class _Enter(torch.autograd.Function):
+    """Megatron's ``f``: identity forward; backward, the sum over the
+    model ranks of the gradient (each rank's shard contributes its
+    part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum([grad], ctx.group)[0], None
+
+
+class _Reduce(torch.autograd.Function):
+    """Megatron's ``g``: the sum over the model ranks of their partial
+    outputs; backward, identity (every rank computes the same function of
+    the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum([x], group)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """One rank's share of the ``model`` axis for one model configuration.
+    A sublayer is sharded when its width divides the axis: the attention
+    by head (``H % size == 0``; each rank runs its ``H / size`` heads), the
+    MLP by hidden column (``F % size == 0``), the word table by vocabulary
+    row (``V % size == 0``); otherwise its leaves stay whole on every model
+    rank.  ``group``: the model ranks of this rank's client block and batch
+    rows, ``index`` this rank's place among them."""
+    size: int
+    index: int
+    group: object
+    attn: bool
+    mlp: bool
+    word: bool
+
+    @staticmethod
+    def build(cfg, size: int, index: int, group) -> "TensorParallel":
+        return TensorParallel(size, index, group,
+                              cfg.num_heads % size == 0,
+                              cfg.hidden_dim % size == 0,
+                              cfg.vocab_size % size == 0)
+
+    def describe(self, cfg) -> str:
+        def say(on, what, whole):
+            return what if on else f"{whole} replicated"
+        return ", ".join((
+            say(self.attn, f"attention by head ({cfg.num_heads // self.size}"
+                f" of {cfg.num_heads} a rank)",
+                f"attention ({cfg.num_heads} heads)"),
+            say(self.mlp, f"MLP hidden {cfg.hidden_dim // self.size} of "
+                f"{cfg.hidden_dim} a rank", f"MLP ({cfg.hidden_dim})"),
+            say(self.word, f"word table {cfg.vocab_size // self.size} of "
+                f"{cfg.vocab_size} rows a rank",
+                f"word table ({cfg.vocab_size} rows)")))
+
+    def dim(self, name: Optional[str]) -> Optional[int]:
+        """The dimension a leaf of a stacked tree is cut along, or None
+        when it is replicated."""
+        rule = _TP_RULES.get(name)
+        if rule is None or not getattr(self, rule[1]):
+            return None
+        return rule[0]
+
+    def cut(self, tree, lead: int = 1):
+        """This rank's shard of every sharded leaf of a client-stacked tree
+        (``lead=1``) or of an unstacked one (``lead=0``), each a new
+        contiguous tensor; replicated leaves as they are."""
+        def walk(t, name):
+            if isinstance(t, dict):
+                return {k: walk(v, k) for k, v in t.items()}
+            d = self.dim(name)
+            if d is None:
+                return t
+            return _cut_leaf(name, t, d - 1 + lead, self.size, self.index
+                             ).clone(memory_format=torch.contiguous_format)
+        return walk(tree, None)
+
+    def join(self, tree):
+        """The whole client-stacked tree on every model rank, from each
+        rank's shards (one all-gather per dtype)."""
+        named = _named_leaves(tree)
+        idx = [i for i, (k, _) in enumerate(named) if self.dim(k) is not None]
+        leaves = [t for _, t in named]
+        for i, parts in zip(idx, gather_parts([leaves[i] for i in idx],
+                                              self.group)):
+            leaves[i] = _merge_leaf(named[i][0], parts, self.dim(named[i][0]))
+        return _rebuild(tree, iter(leaves))
+
+    def replicated(self, tree):
+        """The tree less its sharded leaves: what every model rank holds
+        whole."""
+        return {k: self.replicated(v) if isinstance(v, dict) else v
+                for k, v in tree.items()
+                if isinstance(v, dict) or self.dim(k) is None}
+
+    def sums_grad(self, name: Optional[str]) -> bool:
+        """Whether a replicated leaf feeds a sharded sublayer, so that a
+        model rank's gradient of it is a partial sum (``_PARTIAL_GRADS``)."""
+        return any(getattr(self, part) and name in ns
+                   for part, ns in _PARTIAL_GRADS.items())
+
+    def sum_partial_grads(self, tree, grads: List[torch.Tensor]
+                          ) -> List[torch.Tensor]:
+        """``grads`` (in ``tree_leaves`` order of ``tree``) with the
+        gradients of the replicated leaves that feed a sharded sublayer
+        (``_PARTIAL_GRADS``) summed over the model ranks."""
+        idx = [i for i, (k, _) in enumerate(_named_leaves(tree))
+               if self.sums_grad(k)]
+        out = list(grads)
+        for i, g in zip(idx, all_reduce_sum([grads[i] for i in idx],
+                                            self.group) if idx else []):
+            out[i] = g
+        return out
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``f`` on the input of a sharded sublayer."""
+        return _Enter.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's ``g``: the sum of the model ranks' partials."""
+        return _Reduce.apply(x, self.group)
+
+
 # ------------------------------------------------------------------ plan --
 
 @dataclass(frozen=True)
 class _Groups:
     world: object          # every rank: evaluation, replication
-    clients: object        # the ranks of this rank's data index
-    data: object           # the ranks of this rank's clients index
+    clients: object        # the ranks of this rank's data and model index
+    data: object           # the ranks of this rank's clients and model index
     backend: str
     why: str               # the backend's reason, for the log
     device: str
+    model: object = None   # the ranks of this rank's clients and data index
 
 
 @dataclass(frozen=True)
@@ -201,7 +405,8 @@ class MeshPlan:
     the evaluators and the dry run use.  ``shape`` None: no mesh, and every
     method is the single-device identity.  A plan with a mesh is joined to
     its process group by :meth:`Launch.join`; ``rank`` orders the devices
-    clients-major, as ``np.reshape`` lays out the JAX mesh."""
+    clients-major, as ``np.reshape`` lays out the JAX mesh ``[c, d, m]``:
+    ``rank = (ci * d + di) * m + mi``."""
 
     shape: Optional[Tuple[int, ...]] = None
     axes: Tuple[str, ...] = ()
@@ -229,11 +434,6 @@ class MeshPlan:
                                      f"valid: {VALID_AXES}")
             if "clients" not in axes:
                 raise ValueError("mesh_axes must include 'clients'")
-            if "model" in axes:
-                raise NotImplementedError(
-                    "the 'model' (tensor-parallel) mesh axis is not ported "
-                    "to fedcola_tpu_torch yet (ROADMAP.md A3); use "
-                    "'clients' and 'data'")
             n = int(np.prod(mesh_shape))
             if n > n_visible:
                 raise ValueError(f"mesh_shape {list(mesh_shape)} needs {n} "
@@ -269,8 +469,8 @@ class MeshPlan:
 
     @property
     def model_axis(self) -> int:
-        """Tensor-parallel axis size: always 1 (``build`` refuses it)."""
-        return 1
+        """Tensor-parallel axis size (1 = TP off)."""
+        return self._axis("model")
 
     @property
     def mesh_dict(self) -> Dict[str, int]:
@@ -305,7 +505,7 @@ class MeshPlan:
         """This rank's block of a group's ``n`` stacked clients, in the
         padded stack's coordinates (it may reach past ``n``)."""
         per = self.pad_clients(n) // self.clients_axis
-        ci = self.rank // self.data_axis
+        ci = self.rank // (self.data_axis * self.model_axis)
         return slice(ci * per, (ci + 1) * per)
 
     def splits_batch(self, B: int) -> bool:
@@ -317,7 +517,7 @@ class MeshPlan:
         if not self.splits_batch(B):
             return slice(0, B)
         per = B // self.data_axis
-        di = self.rank % self.data_axis
+        di = self.rank // self.model_axis % self.data_axis
         return slice(di * per, (di + 1) * per)
 
     def local_chunk(self, chunk: Dict[str, np.ndarray]
@@ -342,8 +542,19 @@ class MeshPlan:
     def draws(self, gen: torch.Generator, n: int, B: int) -> RankDraws:
         """What a rank's group update draws from ``gen``: the whole
         group's tensors, of which it keeps its block (without a mesh, all
-        of them)."""
+        of them).  The model ranks of one block keep the same one, so the
+        replicated activations see the same DropPath and dropout."""
         return RankDraws(gen, n, B, self.client_rows(n), self.batch_rows(B))
+
+    def tensor_parallel(self, cfg) -> Optional[TensorParallel]:
+        """This rank's share of the ``model`` axis for a model
+        configuration (``models.mat.MATConfig``); None without the axis."""
+        if self.model_axis == 1:
+            return None
+        return TensorParallel.build(cfg, self.model_axis,
+                                    self.rank % self.model_axis,
+                                    self.groups.model if self.groups
+                                    else None)
 
     # -------------------------------------------------------- collectives --
     def gather_clients(self, tree, n: int):
@@ -388,19 +599,20 @@ class MeshPlan:
         return tuple(map(gather, out)) if isinstance(out, tuple) \
             else gather(out)
 
-    def check_replicated(self, trees: Dict[str, object]) -> None:
+    def check_replicated(self, trees: Dict[str, object],
+                         group=None) -> None:
         """Fail when the ranks' copies of replicated state differ (the JAX
         ``ensure_addressable`` makes them one array; here every rank
         computes them from the same gathered uploads, so they never
         should): one exact digest per tree, the 64-bit sum of its bits,
-        all-gathered."""
+        all-gathered over ``group`` (every rank by default)."""
         if self.shape is None:
             return
         from fedcola_tpu_torch.models.mat import tree_leaves
         names = sorted(trees)
         digest = torch.stack([sum(_bit_sum(t) for t in tree_leaves(trees[k]))
                               for k in names])
-        every = all_gather(digest[None], self.groups.world)
+        every = all_gather(digest[None], group or self.groups.world)
         bad = [k for j, k in enumerate(names)
                if not bool((every[:, j] == every[0, j]).all())]
         if bad:
@@ -466,7 +678,8 @@ class Launch:
     def join(self, local_index: int) -> MeshPlan:
         """Join rank ``first_rank + local_index`` to the process group: pick
         its device (card ``local_index mod cards``), choose the backend and
-        build the clients and data groups.  Returns the joined plan."""
+        build the clients, data and model groups.  Returns the joined
+        plan."""
         rank = self.first_rank + local_index
         if self.device_type == "cuda":
             card = local_index % torch.cuda.device_count()
@@ -485,29 +698,29 @@ class Launch:
         nccl = self.device_type == "cuda" and len(set(ids)) == self.world
         backend = "nccl" if nccl else "gloo"
         plan = self.plan
-        c, d = plan.clients_axis, plan.data_axis
+        c, d, m = plan.clients_axis, plan.data_axis, plan.model_axis
+        at = np.arange(c * d * m).reshape(c, d, m)   # rank of (ci, di, mi)
 
-        def group(ranks):
-            return dist.new_group(ranks, backend=backend, timeout=TIMEOUT)
-
-        world = group(list(range(self.world))) if nccl else dist.group.WORLD
-        clients = data = None
-        # every rank creates every group, in the same order
-        for di in range(d):
-            g = group([ci * d + di for ci in range(c)])
-            if rank % d == di:
-                clients = g
-        for ci in range(c):
-            g = group([ci * d + di for di in range(d)])
-            if rank // d == ci:
-                data = g
+        world = dist.new_group(list(range(self.world)), backend=backend,
+                               timeout=TIMEOUT) if nccl else dist.group.WORLD
+        groups = []
+        # every rank creates every group, in the same order: along each
+        # axis, the ranks that share the other two indices
+        for axis in range(3):
+            lines = np.moveaxis(at, axis, -1).reshape(-1, at.shape[axis])
+            for ranks in lines.tolist():
+                g = dist.new_group(ranks, backend=backend, timeout=TIMEOUT)
+                if rank in ranks:
+                    groups.append(g)
+        clients, data, model = groups
         why = ("one card per rank" if nccl else
                "ranks on the CPU" if self.device_type == "cpu"
                else "ranks share a card")
         device = f"cuda:{torch.cuda.current_device()}" \
             if self.device_type == "cuda" else "cpu"
         return MeshPlan(plan.shape, plan.axes, rank,
-                        _Groups(world, clients, data, backend, why, device))
+                        _Groups(world, clients, data, backend, why, device,
+                                model))
 
 
 def plan_launch(cfg, device_type: str) -> Optional[Launch]:

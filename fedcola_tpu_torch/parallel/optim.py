@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from fedcola_tpu_torch.models.mat import tree_map
+from fedcola_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -79,23 +80,38 @@ def _bcast(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
-def clip_global_norm(grads, max_norm: float, frozen=None):
+def clip_global_norm(grads, max_norm: float, frozen=None, tp=None):
     """``clip_grad_norm_`` per client: each client's grads scale by
-    max_norm / (its total L2 norm + 1e-6) when that is below 1."""
+    max_norm / (its total L2 norm + 1e-6) when that is below 1.  ``tp``
+    (``parallel.mesh.TensorParallel``): the grads are a model rank's cut;
+    the sharded leaves' square sums are summed over the model ranks, the
+    replicated leaves counted once."""
     leaves = [(p, g) for p, g in _flat(grads)
               if frozen is None or not _get(frozen, p)]
     n = leaves[0][1].shape[0]
-    total = sum(g.float().reshape(n, -1).square().sum(1) for _, g in leaves)
+
+    def sq(g):
+        return g.float().reshape(n, -1).square().sum(1)
+
+    sharded = [tp is not None and tp.dim(p[-1]) is not None
+               for p, _ in leaves]
+    total = sum(sq(g) for (_, g), s in zip(leaves, sharded) if not s)
+    if any(sharded):
+        total = total + all_reduce_sum(
+            [sum(sq(g) for (_, g), s in zip(leaves, sharded) if s)],
+            tp.group)[0]
     coef = torch.clamp(max_norm / (total.sqrt() + 1e-6), max=1.0)
     return tree_map(lambda g: g * _bcast(coef, g).to(g.dtype), grads)
 
 
 @torch.no_grad()
 def opt_update(spec: OptimizerSpec, params, grads, state, lr: float,
-               frozen=None, step_valid: Optional[torch.Tensor] = None):
-    """One optimizer step, in place; returns (params, state)."""
+               frozen=None, step_valid: Optional[torch.Tensor] = None,
+               tp=None):
+    """One optimizer step, in place; returns (params, state).  ``tp``: the
+    trees are a model rank's cut (see :func:`clip_global_norm`)."""
     if spec.max_grad_norm > 0:
-        grads = clip_global_norm(grads, spec.max_grad_norm, frozen)
+        grads = clip_global_norm(grads, spec.max_grad_norm, frozen, tp)
     for path, p in _flat(params):
         if frozen is not None and _get(frozen, path):
             continue

@@ -5,22 +5,26 @@ dropout 0, SGD, ``--eval_type both --test_size 0.2``), two rounds.
 
 * Against the JAX package: from the JAX server's initial weights (a
   round-0 port checkpoint, which the entry point resumes from), a 4-rank
-  ``clients`` mesh and a 2 x 2 ``clients x data`` mesh run through
+  ``clients`` mesh, a 2 x 2 ``clients x data`` mesh and a 2 x 2 ``clients
+  x model`` mesh (Megatron tensor parallelism) run through
   ``python -m fedcola_tpu_torch.main`` match the in-process JAX
   single-device run: round losses and the clients' holdout losses within
   1e-5 relative, acc1 (central and holdout) and r@1sum equal, every leaf
   within atol 1e-4 / rtol 1e-3.
-* Layout invariance in the port: the 1-rank run and both mesh runs agree
+* Layout invariance in the port: the 1-rank run and every mesh run agree
   on every leaf at rtol 2e-5 / atol 2e-6 (``tests/test_mesh.py``'s
   tolerance under SGD), losses within 1e-4, acc1 equal.
 * The same at ``--dropout 0.1`` with ``--crop`` / ``--randhf`` (the draws
   do not depend on the layout): the 4-rank run equals the 1-rank run bit
-  for bit, the 2 x 2 run within 2e-5 / 2e-6.
+  for bit, the 2 x 2 runs within 2e-5 / 2e-6.
+* FedProx on the 2 x 2 ``clients x model`` mesh against its 1-rank run at
+  rtol 2e-5 / atol 2e-6.
 * ``--wandb`` under a mesh: only rank 0 writes (a stub ``wandb`` on the
   ranks' path records its calls).
-* ``MeshPlan``'s rules (``tests/test_mesh.py``), the refusals (the
-  ``model`` axis, CreamFL under a mesh, a mesh configuration without a
-  joined plan), the rank's block of a chunk and of a draw.
+* ``MeshPlan``'s rules (``tests/test_mesh.py``), the ``model`` axis
+  accepted and its rank layout, the refusals (CreamFL under a mesh, a mesh
+  configuration without a joined plan), the rank's block of a chunk and of
+  a draw.
 """
 
 import json
@@ -54,7 +58,13 @@ SGD = ["--optimizer", "SGD", "--lr", "1e-2", "--eval_type", "both",
        "--test_size", "0.2"]
 MESHES = {"clients4": ["--mesh_shape", "4"],
           "clients2xdata2": ["--mesh_shape", "2", "2",
-                             "--mesh_axes", "clients", "data"]}
+                             "--mesh_axes", "clients", "data"],
+          "clients2xmodel2": ["--mesh_shape", "2", "2",
+                              "--mesh_axes", "clients", "model"]}
+# the line under FedProx at the largest mu of the FedProx paper's grid: the
+# proximal term's gradient of the replicated leaves whose gradients the
+# model ranks sum must count once
+PROX = ["--algorithm", "fedprox", "--mu", "1"]
 
 WANDB_STUB = '''
 import json, os
@@ -112,6 +122,12 @@ def runs(tmp_path_factory):
              *mesh, *extra, "--device", "cpu", *_out(root / tag)],
             cwd=REPO, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
+    procs["prox_clients2xmodel2"] = subprocess.Popen(
+        [sys.executable, "-m", "fedcola_tpu_torch.main", *FEDCOLA, *SGD,
+         *PROX, *MESHES["clients2xmodel2"], "--device", "cpu",
+         *_out(root / "prox_clients2xmodel2")],
+        cwd=REPO, env=dict(os.environ, FEDCOLA_VIRTUAL_DEVICES="4"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for r in (1, 2):
         jserver.round = r
         jserver.update()
@@ -121,6 +137,10 @@ def runs(tmp_path_factory):
                    _jax_leaves(jserver)),
            "one": ({r: one.results[r] for r in (1, 2)},
                    _npz_leaves(root / "one"))}
+    prox = tmain.main(FEDCOLA + SGD + PROX + ["--device", "cpu"]
+                      + _out(root / "prox_one"))
+    out["prox_one"] = ({r: prox.results[r] for r in (1, 2)},
+                       _npz_leaves(root / "prox_one"))
     for tag, p in procs.items():
         log = p.communicate(timeout=300)[0]
         assert p.returncode == 0, f"{tag} failed:\n{log[-4000:]}"
@@ -196,6 +216,21 @@ def test_mesh_run_matches_one_rank(runs, mesh):
                                    atol=2e-6, err_msg=str(k))
 
 
+def test_fedprox_model_axis_run_matches_one_rank(runs):
+    """FedProx on a 2 x 2 ``clients x model`` mesh equals its 1-rank run
+    at the mesh tolerance."""
+    ores, oleaves = runs["prox_one"]
+    res, leaves = runs["prox_clients2xmodel2"]
+    for r in (1, 2):
+        assert abs(_loss(res, r) - _loss(ores, r)) < 1e-4
+        assert abs(_local_loss(res, r) - _local_loss(ores, r)) < 1e-4
+        assert _evals(res, r) == _evals(ores, r), r
+    assert set(leaves) == set(oleaves)
+    for k in oleaves:
+        np.testing.assert_allclose(leaves[k], oleaves[k], rtol=2e-5,
+                                   atol=2e-6, err_msg=str(k))
+
+
 # DropPath / dropout at 0.1 (the [main] line's) and the resident plane's
 # device augmentation: every rank draws the whole group's tensors and keeps
 # its block, so the draws do not depend on the layout
@@ -236,8 +271,8 @@ def test_mesh_run_with_dropout_and_augmentation_matches_one_rank(draw_runs,
                                                                  mesh):
     """At ``--dropout 0.1`` with ``--crop`` / ``--randhf`` the 4-rank and
     2 x 2 runs equal the 1-rank run: the clients mesh bit for bit (on the
-    CPU one client alone gives the bits of the stack), the data mesh
-    within its reassociated gradient sums (rtol 2e-5 / atol 2e-6)."""
+    CPU one client alone gives the bits of the stack), the data and model
+    meshes within their reassociated sums (rtol 2e-5 / atol 2e-6)."""
     ores, oleaves = draw_runs["one"]
     res, leaves = draw_runs[mesh]
     for r in (1, 2):
@@ -264,7 +299,8 @@ def test_mesh_run_records_its_ranks(runs):
     """The results JSON of a mesh run names its layout and backend and
     holds each rank's figures; every rank staged the datasets."""
     for tag, shape in (("clients4", {"clients": 4}),
-                       ("clients2xdata2", {"clients": 2, "data": 2})):
+                       ("clients2xdata2", {"clients": 2, "data": 2}),
+                       ("clients2xmodel2", {"clients": 2, "model": 2})):
         m = runs[tag + "_mesh"]
         assert m["mesh"] == shape and m["backend"] == "gloo"
         assert [s["rank"] for s in m["ranks"]] == [0, 1, 2, 3]
@@ -317,10 +353,12 @@ def test_meshplan_validation():
 
 
 def test_model_axis_and_creamfl_under_a_mesh_are_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        MeshPlan.build([2, 2], ["clients", "model"], n_visible=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        MeshPlan.build([2, 2, 2], n_visible=8)
+    """The ``model`` axis builds (it is ported); CreamFL under a mesh is
+    still refused by name."""
+    assert MeshPlan.build([2, 2], ["clients", "model"],
+                          n_visible=4).model_axis == 2
+    assert MeshPlan.build([2, 2, 2], n_visible=8).mesh_dict == \
+        {"clients": 2, "data": 2, "model": 2}
     monkeypatch.setenv("FEDCOLA_VIRTUAL_DEVICES", "2")
     cfg = tconfig.parse_args(["--algorithm", "creamfl", "--device", "cpu",
                               "--mesh_shape", "2"])
@@ -374,6 +412,27 @@ def test_rank_blocks_of_a_chunk():
     assert not local["step_valid"][1].any() and not local["valid"][1].any()
     assert local["step_valid"].shape == (2, S)
     assert MeshPlan((3,), ("clients",)).pad_eval_batch(7) == 9
+
+
+def test_three_axis_rank_layout():
+    """``rank = (ci * d + di) * m + mi``, as ``np.reshape`` lays out
+    ``[c, d, m]``: a rank's clients block, batch rows and model index; the
+    model ranks of one block and rows keep the same draws."""
+    from fedcola_tpu_torch.models.mat import MATConfig
+    cfg = MATConfig(embed_dim=16, num_heads=2, vocab_size=40)
+    n, B = 3, 4
+    for rank in range(8):
+        p = MeshPlan((2, 2, 2), ("clients", "data", "model"), rank=rank)
+        ci, di, mi = np.unravel_index(rank, (2, 2, 2))
+        assert p.client_rows(n) == slice(2 * ci, 2 * ci + 2)
+        assert p.batch_rows(B) == slice(2 * di, 2 * di + 2)
+        tp = p.tensor_parallel(cfg)
+        assert (tp.size, tp.index) == (2, mi)
+        d = p.draws(torch.Generator().manual_seed(7), n, B)
+        peer = MeshPlan(p.shape, p.axes, rank=rank ^ 1)   # other model index
+        e = peer.draws(torch.Generator().manual_seed(7), n, B)
+        assert torch.equal(d.rand((2, 2, 5), "cpu"), e.rand((2, 2, 5), "cpu"))
+    assert MeshPlan((2, 2), ("clients", "data")).tensor_parallel(cfg) is None
 
 
 def test_rank_draws_are_blocks_of_the_whole_draw():

@@ -12,7 +12,9 @@ lock, on the CPU.
 * A resume where the processes see checkpoints of different rounds fails
   in every process.
 * ``dryrun_multichip(4, device="cpu")`` runs one resident group update on
-  a 2 x 2 mesh of virtual CPU devices (the card is its default); ``entry(device="cpu")`` runs the flagship
+  a 2 x 2 mesh of virtual CPU devices (the card is its default), and
+  ``dryrun_multichip(8, device="cpu")`` on the JAX dry run's 2 x 2 x 2
+  ``clients x data x model`` mesh; ``entry(device="cpu")`` runs the flagship
   forward through the plain kernels, with the output shapes of the JAX
   ``entry()``.
 * ``--wandb`` without wandb writes the same metrics JSONL as a run
@@ -160,6 +162,17 @@ def test_dryrun_multichip_on_four_virtual_devices(capfd):
     # back to the CPU
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dryrun_multichip(4)
+
+
+def test_dryrun_multichip_on_eight_virtual_devices_adds_the_model_axis(
+        capfd):
+    from fedcola_tpu_torch.graft_entry import dryrun_multichip
+    result = dryrun_multichip(8, device="cpu")
+    assert result["mesh"] == {"clients": 2, "data": 2, "model": 2}
+    assert result["backend"] == "gloo" and np.isfinite(result["loss"])
+    assert sorted(result["launches"]) == list(range(8))
+    assert "mesh={'clients': 2, 'data': 2, 'model': 2} on cpu" in \
+        capfd.readouterr().out
 
 
 def test_entry_runs_on_the_cpu_with_the_jax_shapes():

@@ -148,19 +148,31 @@ result line):
             fault ``FAULT_SKIP_ENTER``, which the gates ``FAULT_GATES``
             names must reject; ``graft_entry.dryrun_multichip(8)`` on the
             card (2 x 2 x 2 clients x data x model, eight ranks).
+12. creamfl-mesh  CreamFL under the mesh: [baselines]' CreamFL line
+            (``main.CREAMFL_FLAGS``) with ``--mesh_shape 2`` (spawned) and
+            ``--mesh_shape 1 2 --mesh_axes clients data`` (two ``--dist_*``
+            processes: 48 of 96 task rows, 64 of 128 public rows a rank),
+            each held against [baselines]' one-device CreamFL run by
+            ``MESH_BOUNDS``; the planted fault ``FAULT_OWN_FEATURES``, which
+            the gates ``FAULT_GATES`` names must reject, and its readings
+            with the replication check off; every rank must launch rows
+            1-4 and the eval rows; every rank's figures as in [mesh].
 
-Phases 5 to 9 (and resident, local, augment, fixtures) each zero the launch
-counters just before and read them just after; a kernel's launches are
-those of the path that runs it.  The [mesh] and [tp] ranks are processes
-of their own, which count from zero.  The
-second-to-last line is a JSON object with one entry per kernel (the bf16
-N=197 training-shape times, under "eval" the eval-shape times of the
-kernels central eval runs, under "distill" those of kernels 1-4 at the
-distillation shape, and under "long" and "long_eval" the N = 512 times at
-the training and eval shapes, "long" with the [long] phase's launches;
-under "tp" rows 3e / 6 at a [tp] rank's shape; under "mesh_launches"
-each [mesh] run's launches per rank, under "tp_launches" the [tp] run's
-launches of rows 11, 12, 3e and 6 per rank);
+The CPU sides of the loss bounds run in one background process from the
+script's start (``CpuBounds``; they need no card) and are collected where
+each bound is read.  Phases 5 to 9 (and resident, local, augment,
+fixtures) each zero the launch counters just before and read them just
+after; a kernel's launches are those of the path that runs it.  The
+[mesh], [tp] and [creamfl-mesh] ranks are processes of their own, which
+count from zero.  The second-to-last line is a JSON object with one entry
+per kernel (the bf16 N=197 training-shape times, under "eval" the
+eval-shape times of the kernels central eval runs, under "distill" those
+of kernels 1-4 at the distillation shape, and under "long" and
+"long_eval" the N = 512 times at the training and eval shapes, "long"
+with the [long] phase's launches; under "tp" rows 3e / 6 at a [tp] rank's
+shape; under "mesh_launches" each [mesh] run's launches per rank, under
+"creamfl_mesh_launches" each genuine [creamfl-mesh] run's, under
+"tp_launches" the [tp] run's launches of rows 11, 12, 3e and 6 per rank);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -1080,19 +1092,26 @@ def phase_tiny():
     return launches
 
 
+def _creamfl_bound_flags():
+    """[baselines]' CreamFL bound: 20 public pairs on both devices (the CPU
+    side over 500 pairs at depth 12 would take minutes), in one batch: each
+    public and distillation step is one more AdamW step whose rounding the
+    round-2 loss carries, and five a pass (batches of 4) took it past the
+    bound."""
+    from fedcola_tpu_torch import main as port_main
+    return port_main.CREAMFL_FLAGS + ("--num_pub_samples", "20",
+                                      "--pub_batch_size", "20")
+
+
 def phase_baselines():
     """The coco.sh baselines beside FedCola (FedIoT, FedProx, CreamFL) and
     the FedAdam line, each through the four fused training kernels; the
     loss bound of the FedProx and the CreamFL line.  Returns the launch
-    counts of the four runs together."""
+    counts of the four runs together, and the CreamFL run's results and
+    final weights ([creamfl-mesh] reads its runs against them)."""
     from fedcola_tpu_torch import main as port_main
     loss_bound("fedprox", port_main.FEDPROX_FLAGS)
-    # 20 public pairs on both devices (the CPU side over 500 pairs at
-    # depth 12 would take minutes), in one batch: each public and
-    # distillation step is one more AdamW step whose rounding the round-2
-    # loss carries, and five a pass (batches of 4) took it past the bound
-    loss_bound("creamfl", port_main.CREAMFL_FLAGS + (
-        "--num_pub_samples", "20", "--pub_batch_size", "20"))
+    loss_bound("creamfl", _creamfl_bound_flags())
     total = {}
     for tag, flags in (("fediot", port_main.FEDIOT_FLAGS),
                        ("fedprox", port_main.FEDPROX_FLAGS),
@@ -1103,11 +1122,13 @@ def phase_baselines():
                    if launches[k] == 0]
         if missing:
             raise AssertionError(f"{tag} never launched {missing}")
-        if tag == "creamfl" and server._pub_host_logged:
-            raise AssertionError("creamfl: the public set was host-fed")
+        if tag == "creamfl":
+            if server._pub_host_logged:
+                raise AssertionError("creamfl: the public set was host-fed")
+            creamfl = (server.results, _global_weights(server))
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, creamfl
 
 
 # ------------------------------------------------------ resident plane ----
@@ -1301,6 +1322,32 @@ FIXTURE_AGNEWS = (4800, 1000)
 FIXTURE_TRAINING_KERNELS = ("attn_fwd", "attn_bwd", "mlp_fwd", "mlp_bwd")
 
 
+def _write_fixture_line(d):
+    """The fixtures and the ViT-small checkpoint of [fixtures] under ``d``
+    (seeded writers: the same bytes wherever they are written) and the
+    coco.sh line on them; ``FEDCOLA_PRETRAIN_<SRC>`` set to the checkpoint.
+    Returns the flags, the checkpoint, that variable's name and the
+    seconds writing took (data, checkpoint)."""
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.data import fixtures
+    from fedcola_tpu_torch.models.pretrained import write_timm_vit_checkpoint
+    from fedcola_tpu_torch.models.registry import MODEL_SIZES
+    t0 = time.time()
+    coco = fixtures.coco_fixture(os.path.join(d, "coco"), *FIXTURE_COCO)
+    cifar = fixtures.cifar100_fixture(os.path.join(d, "cifar"),
+                                      *FIXTURE_CIFAR)
+    agnews = fixtures.agnews_fixture(os.path.join(d, "agnews"),
+                                     *FIXTURE_AGNEWS)
+    t_data = time.time() - t0
+    D, depth, _, src, px = MODEL_SIZES["mome_small_patch16"]
+    ckpt = write_timm_vit_checkpoint(
+        os.path.join(d, f"{src}.npz"), D, depth, img_size=px, seed=5)
+    env = f"FEDCOLA_PRETRAIN_{src.upper()}"
+    os.environ[env] = ckpt
+    return (port_main.fixture_flags(coco, cifar, agnews), ckpt, env, t_data,
+            time.time() - t0 - t_data)
+
+
 def phase_fixtures():
     """The coco.sh FedCola line with its own data flags
     (``main.fixture_flags``: ``--pretrained --use_bert_tokenizer`` and
@@ -1317,32 +1364,17 @@ def phase_fixtures():
     names the kernel wrappers' ``fc_*`` ranges."""
     import numpy as np
     import torch
-    from fedcola_tpu_torch import main as port_main
     from fedcola_tpu_torch.config import parse_args
-    from fedcola_tpu_torch.data import fixtures
     from fedcola_tpu_torch.data.loaders import load_federated_data
     from fedcola_tpu_torch.models.mat import tree_leaves, tree_map
-    from fedcola_tpu_torch.models.pretrained import write_timm_vit_checkpoint
     from fedcola_tpu_torch.models.registry import MODEL_SIZES, create_model
     from fedcola_tpu_torch.models.torch_io import (from_torch_state_dict,
                                                    to_torch_state_dict)
     from fedcola_tpu_torch.native import tokenizer_fast
     with tempfile.TemporaryDirectory(prefix="fedcola_fixtures_") as d:
-        t0 = time.time()
-        coco = fixtures.coco_fixture(os.path.join(d, "coco"), *FIXTURE_COCO)
-        cifar = fixtures.cifar100_fixture(os.path.join(d, "cifar"),
-                                          *FIXTURE_CIFAR)
-        agnews = fixtures.agnews_fixture(os.path.join(d, "agnews"),
-                                         *FIXTURE_AGNEWS)
-        t_data = time.time() - t0
-        D, depth, _, src, px = MODEL_SIZES["mome_small_patch16"]
-        ckpt = write_timm_vit_checkpoint(
-            os.path.join(d, f"{src}.npz"), D, depth, img_size=px, seed=5)
-        t_ckpt = time.time() - t0 - t_data
-        env = f"FEDCOLA_PRETRAIN_{src.upper()}"
-        os.environ[env] = ckpt
+        flags, ckpt, env, t_data, t_ckpt = _write_fixture_line(d)
+        depth = MODEL_SIZES["mome_small_patch16"][1]
         try:
-            flags = port_main.fixture_flags(coco, cifar, agnews)
             cfg = parse_args(list(flags))
             rows0 = tokenizer_fast.NATIVE_ROWS
             t0 = time.time()
@@ -1621,15 +1653,43 @@ main(sys.argv[1:])
 """
 
 
-def _mesh_cli(out, extra, virtual, dist=None, code=None):
-    """``python -m fedcola_tpu_torch.main`` on [main]'s line with
-    ``extra``, started with ``FEDCOLA_VIRTUAL_DEVICES=virtual``; ``dist``:
-    ``(port, process_id)`` of a two-process run; ``code``: run that
-    program (``python -c``) with the same flags instead."""
+# FAULT_OWN_FEATURES: each rank aggregates only its own block's public
+# features (CreamFL under a mesh): every other client's features stand in
+# for one of the rank's own, so the contrastive weighting and the
+# distillation see the rank's clients alone, and the ranks' global models
+# drift apart.  NO_REPLICATION_CHECK, put before it, switches off the check
+# that catches that at the round's end (as FAULT_SKIP_ENTER does), to read
+# what the other gates see.
+FAULT_OWN_FEATURES = """
+import sys
+from fedcola_tpu_torch.federation import creamfl
+extract = creamfl.CreamflServer._extract_pub_features
+def own_features(self, g):
+    extract(self, g)
+    own = g.ids[self.plan.client_rows(len(g.ids))]
+    for j, cid in enumerate(g.ids):
+        if own and cid not in own:
+            self._pub_feats[cid] = self._pub_feats[own[j % len(own)]]
+creamfl.CreamflServer._extract_pub_features = own_features
+from fedcola_tpu_torch.main import main
+main(sys.argv[1:])
+"""
+NO_REPLICATION_CHECK = """
+from fedcola_tpu_torch.parallel import mesh
+mesh.MeshPlan.check_replicated = lambda *a, **k: None
+"""
+
+
+def _mesh_cli(out, extra, virtual, dist=None, code=None, flags=None):
+    """``python -m fedcola_tpu_torch.main`` on ``flags`` ([main]'s line by
+    default) with ``extra``, started with ``FEDCOLA_VIRTUAL_DEVICES=
+    virtual``; ``dist``: ``(port, process_id)`` of a two-process run;
+    ``code``: run that program (``python -c``) with the same flags
+    instead."""
     from fedcola_tpu_torch import main as port_main
     cmd = [sys.executable, *(["-c", code] if code else
                              ["-m", "fedcola_tpu_torch.main"]),
-           *port_main.MAIN_PATH_FLAGS, *extra,
+           *(flags or port_main.MAIN_PATH_FLAGS), *extra,
            "--result_path", os.path.join(out, "result"),
            "--log_path", os.path.join(out, "log")]
     if dist is not None:
@@ -1642,10 +1702,10 @@ def _mesh_cli(out, extra, virtual, dist=None, code=None):
                             cwd=os.path.dirname(os.path.abspath(__file__)))
 
 
-def _mesh_finish(tag, procs, timeout=600):
+def _mesh_finish(tag, procs, timeout=600, check=True):
     """Wait for every process of a mesh run; when one fails (or the time
     runs out) stop the others, which would wait on it, and raise with the
-    end of its output."""
+    end of its output (with ``check`` off, return the outputs)."""
     deadline = time.time() + timeout
     while any(p.poll() is None for p in procs):
         if time.time() > deadline or any(p.poll() not in (None, 0)
@@ -1657,7 +1717,7 @@ def _mesh_finish(tag, procs, timeout=600):
             p.kill()
     outs = [p.communicate()[0] for p in procs]
     for i, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
+        if p.returncode != 0 and check:
             raise AssertionError(f"[{tag}] process {i} exited with "
                                  f"{p.returncode}:\n{o[-6000:]}")
         for line in o.splitlines():
@@ -1767,7 +1827,18 @@ MESH_BOUNDS = {"training loss": 3e-4, "eval loss": 8e-4,
 # bounds but not the eval loss (PERF.md, Findings)
 FAULT_GATES = {"first-block": ("training loss", "eval loss", "weights"),
                "dropped-upload": ("training loss", "eval loss", "weights"),
-               "skipped-enter": ("training loss", "weights")}
+               "skipped-enter": ("training loss", "weights"),
+               # own-features: "replicated" is the check at the end of
+               # every CreamFL round under a mesh (the ranks' global models
+               # the same bits).  With it off, a rehearsal of
+               # phase_creamfl_mesh on the CPU at test size moved only the
+               # training loss past its bound; at mome_small the
+               # distillation (--kd_weight 1e-7) moves the Coco model by
+               # far less than the layout's noise, so no MESH_BOUNDS gate
+               # is required of it (PERF.md, Findings)
+               "own-features": ("replicated",)}
+# what the replication check says when it stops a run
+REPLICATED_GATE = "mesh ranks hold different copies of"
 
 
 def _mesh_readings(main_results, main_weights, lr, res, weights) -> dict:
@@ -1937,6 +2008,99 @@ def phase_mesh(main_results, main_weights, card):
     return launches
 
 
+# --------------------------------------------------------- creamfl-mesh ----
+
+def phase_creamfl_mesh(cream_results, cream_weights, card):
+    """CreamFL under the mesh on the one card, ranks sharing it over gloo:
+    [baselines]' CreamFL line (``main.CREAMFL_FLAGS``: mome_small, B=96,
+    500 public pairs in batches of 128 staged on the card), each run read
+    against [baselines]' one-device CreamFL run by ``_mesh_readings`` and
+    gated by ``MESH_BOUNDS`` (in units of the line's lr):
+
+    1. ``--mesh_shape 2``, spawned: each rank trains one client of each
+       group and all-gathers the public features;
+    2. ``--mesh_shape 1 2 --mesh_axes clients data`` as two ``--dist_*``
+       processes: 48 of every client's 96 task rows and 64 of every 128
+       public rows a rank;
+    3. the planted fault ``FAULT_OWN_FEATURES`` on the clients mesh (two
+       ``--dist_*`` processes), which the gates ``FAULT_GATES`` names must
+       reject; then the same fault with the replication check off (as the
+       fault program of [tp] runs), its readings printed beside the gates.
+
+    Every rank must launch rows 1-4 and the eval rows 1e / 3e.  Prints
+    each run's backend and every rank's staged bytes, peak memory, round
+    (with its pub_logit / train / aggregate / distill sections) and eval
+    seconds and launches, and whether it equals the one-device run bit for
+    bit.  Returns the genuine runs' launches of rows 1-4 per rank."""
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.parallel.mesh import free_port
+    import torch
+    torch.cuda.empty_cache()
+    flags = port_main.CREAMFL_FLAGS
+    exp = flags[flags.index("--exp_name") + 1]
+    lr = float(flags[flags.index("--lr") + 1])
+    datasets = sorted({ds for ds, _ in cream_weights})
+    launches = {}
+    t_phase = time.time()
+
+    def run(tag, extra, virtual, dist, code=None, check=True):
+        out = os.path.join(d, tag)
+        t0 = time.time()
+        if dist:
+            port = free_port()
+            procs = [_mesh_cli(out, extra, virtual, (port, pid), code, flags)
+                     for pid in range(2)]
+        else:
+            procs = [_mesh_cli(out, extra, virtual, code=code, flags=flags)]
+        outs = _mesh_finish(f"creamfl-mesh-{tag}", procs, check=check)
+        log(f"[creamfl-mesh] {tag}: {time.time() - t0:.1f}s wall")
+        return out, procs, outs
+
+    def read(tag, out):
+        res = json.load(open(os.path.join(out, "result", f"{exp}.json")))
+        ranks = _mesh_report(f"creamfl-mesh-{tag}", card, res)
+        rd = _mesh_readings(cream_results, cream_weights, lr, res,
+                            _npz_weights(os.path.join(out, "result"), exp,
+                                         datasets))
+        return ranks, _mesh_judge(f"creamfl-mesh-{tag}", card, rd)
+
+    with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as d:
+        for tag, extra, virtual, dist in (
+                ("clients", ["--mesh_shape", "2"], 2, False),
+                ("data", ["--mesh_shape", "1", "2", "--mesh_axes",
+                          "clients", "data"], 1, True)):
+            out, _, _ = run(tag, extra, virtual, dist)
+            launches[tag], failed = read(tag, out)
+            if failed:
+                raise AssertionError(f"[creamfl-mesh] the {tag} mesh departs "
+                                     f"from [baselines]' CreamFL run beyond "
+                                     f"{failed}")
+        fault = "own-features"
+        _, procs, outs = run(fault, ["--mesh_shape", "2"], 1, True,
+                             FAULT_OWN_FEATURES, check=False)
+        failed = ["replicated"] if any(
+            p.returncode != 0 and REPLICATED_GATE in o
+            for p, o in zip(procs, outs)) else []
+        if not failed:
+            failed = read(fault, os.path.join(d, fault))[1]
+        stop = next((line for o in outs for line in o.splitlines()
+                     if REPLICATED_GATE in line), "no replication error")
+        log(f"[creamfl-mesh] planted fault {fault}: rejected by {failed} "
+            f"({stop.strip()[:300]})")
+        blind = [k for k in FAULT_GATES[fault] if k not in failed]
+        if blind:
+            raise AssertionError(
+                f"[creamfl-mesh] the {blind} gate(s) accept the planted "
+                f"fault {fault}")
+        out, _, _ = run(fault + "-unchecked", ["--mesh_shape", "2"], 1, True,
+                        NO_REPLICATION_CHECK + FAULT_OWN_FEATURES)
+        _, unchecked = read(fault + "-unchecked", out)
+        log(f"[creamfl-mesh] planted fault {fault} with the replication "
+            f"check off: MESH_BOUNDS gates tripped {unchecked}")
+    log(f"[creamfl-mesh] {card}: phase {time.time() - t_phase:.1f}s wall")
+    return launches
+
+
 # ------------------------------------------------------------------ tp ----
 
 TP_MESH = ("--mesh_shape", "1", "2", "--mesh_axes", "clients", "model")
@@ -2044,6 +2208,92 @@ def _training_losses(flags, device: str, out: str):
     return losses, time.time() - t0
 
 
+def _bound_lines(d):
+    """Each ``loss_bound``'s tag and line, in the order the phases read
+    them; the fixtures line on [fixtures]' files, written under ``d`` when
+    it is reached."""
+    from fedcola_tpu_torch import main as port_main
+    yield "main", port_main.MAIN_PATH_FLAGS
+    yield "tiny", port_main.MOME_TINY_FLAGS
+    yield "fedprox", port_main.FEDPROX_FLAGS
+    yield "creamfl", _creamfl_bound_flags()
+    yield "fixtures", _write_fixture_line(d)[0]
+    yield "long", port_main.MEDABS_LONG_FLAGS
+
+
+def _same_line(a, b) -> bool:
+    """Two lines' flags alike but for the paths in them (the fixtures
+    line's roots differ between the worker and the phase)."""
+    def strip(flags):
+        return [f for f in flags if not os.path.isabs(f)]
+    return strip(a) == strip(b)
+
+
+def cpu_bounds_worker(out_dir: str) -> None:
+    """The CPU side of every loss bound, one after the other, each written
+    to ``<out_dir>/<tag>.json`` as it ends (``CpuBounds`` starts this in a
+    process with no card visible)."""
+    with tempfile.TemporaryDirectory(prefix="fedcola_bounds_") as d:
+        for tag, flags in _bound_lines(d):
+            with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
+                losses, secs = _training_losses(flags, "cpu", out)
+            tmp = os.path.join(out_dir, f"{tag}.tmp")
+            with open(tmp, "w") as f:
+                json.dump({"flags": list(flags), "losses": losses,
+                           "seconds": secs}, f)
+            os.replace(tmp, os.path.join(out_dir, f"{tag}.json"))
+
+
+class CpuBounds:
+    """The CPU sides of the loss bounds (about 240 s, no card), computed by
+    one background process from the script's start and collected where
+    each bound is read.  It gets ``CPU_BOUNDS_THREADS`` of the host's
+    cores; the card's phases and their mesh ranks keep the rest."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="fedcola_cpu_bounds_")
+        self.log = open(os.path.join(self.dir, "worker.log"), "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS=str(CPU_BOUNDS_THREADS))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.cpu_bounds_worker(sys.argv[1])", self.dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def get(self, tag: str, flags, timeout: float = 1200):
+        """The CPU losses and seconds of ``tag``'s line, waiting for them;
+        fails when the worker has stopped without them or ran another
+        line."""
+        path = os.path.join(self.dir, f"{tag}.json")
+        t0 = time.time()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or time.time() - t0 > timeout:
+                self.log.flush()
+                tail = open(self.log.name).read()[-4000:]
+                raise AssertionError(f"{tag}: the CPU bound worker stopped "
+                                     f"(exit {self.proc.poll()}) without "
+                                     f"its losses:\n{tail}")
+            time.sleep(0.5)
+        res = json.load(open(path))
+        if not _same_line(res["flags"], flags):
+            raise AssertionError(f"{tag}: the CPU bound worker ran another "
+                                 f"line: {res['flags']}")
+        return res["losses"], res["seconds"], time.time() - t0
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+CPU_BOUNDS_THREADS = 4
+CPU_BOUNDS = None     # the running CpuBounds, set by main()
+
+
 def loss_bound(tag: str, flags) -> None:
     """How far the kernels may move the training loss: the same two rounds
     of a coco.sh line from the same seed (weights, splits, client
@@ -2060,7 +2310,7 @@ def loss_bound(tag: str, flags) -> None:
     import math
     with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
         card, t_card = _training_losses(flags, "cuda", out)
-        cpu, t_cpu = _training_losses(flags, "cpu", out)
+    cpu, t_cpu, waited = CPU_BOUNDS.get(tag, flags)
     for r, (a, b) in enumerate(zip(card, cpu), 1):
         rel = abs(a - b) / abs(b)
         log(f"[{tag}] bound: round {r} training loss on the card {a:.6f}, "
@@ -2071,7 +2321,8 @@ def loss_bound(tag: str, flags) -> None:
                 f"{tag}: round {r} training loss {a} on the card against "
                 f"{b} on the CPU: relative difference {rel:.3e} exceeds "
                 f"{LOSS_BOUND}")
-    log(f"[{tag}] bound: {t_card:.1f}s on the card, {t_cpu:.1f}s on the CPU")
+    log(f"[{tag}] bound: {t_card:.1f}s on the card, {t_cpu:.1f}s on the CPU "
+        f"(background; waited {waited:.1f}s for it)")
 
 
 # --------------------------------------------------------------- remat ----
@@ -2234,7 +2485,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from fedcola_tpu_torch.ops import kernels
+    # outside a checkout of the repo the script stops here
+    from fedcola_tpu_torch.ops import kernels  # noqa: F401
 
     card = gpu_line()
     log(f"[card] {card}")
@@ -2243,6 +2495,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    global CPU_BOUNDS
+    CPU_BOUNDS = CpuBounds()
+    try:
+        return _phases(card)
+    finally:
+        CPU_BOUNDS.close()
+
+
+def _phases(card) -> int:
+    import torch
+    from fedcola_tpu_torch.ops import kernels
     secs = kernels.build()
     log(f"[build] {len(kernels.SOURCES)} sources -> {kernels.LIB_PATH} "
         f"in {secs:.1f}s")
@@ -2253,13 +2516,15 @@ def main() -> int:
     phase_model()
     main_launches, main_results, main_weights = phase_main()
     paths = {"main": main_launches, "resident": phase_resident(main_results),
-             "tiny": phase_tiny(), "baselines": phase_baselines()}
+             "tiny": phase_tiny()}
+    paths["baselines"], (cream_results, cream_weights) = phase_baselines()
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
                  fixtures=phase_fixtures(), remat=phase_remat(),
                  rows=phase_rows(), long=phase_long())
     mesh_launches = phase_mesh(main_results, main_weights, card)
     tp_launches = phase_tp(main_results, main_weights, card)
+    cream_launches = phase_creamfl_mesh(cream_results, cream_weights, card)
 
     rows = []
     for name, (source, replaces, path) in KERNEL_INFO.items():
@@ -2279,9 +2544,13 @@ def main() -> int:
             # the long line's launches (every one at N = 512)
             row["long"]["launches"] = paths["long"][name]
         if name in MESH_TRAINING_KERNELS:
-            # [mesh]: each run's launches per rank (eval rows included)
+            # [mesh] and [creamfl-mesh]: each run's launches per rank (eval
+            # rows included)
             row["mesh_launches"] = {run: {r: v[name] for r, v in ranks.items()}
                                     for run, ranks in mesh_launches.items()}
+            row["creamfl_mesh_launches"] = {
+                run: {r: v[name] for r, v in ranks.items()}
+                for run, ranks in cream_launches.items()}
         if name in TP_KERNELS:
             # [tp]: each rank's launches (mlp_fwd with the eval row 3e)
             row["tp_launches"] = {r: v[name] for r, v in tp_launches.items()}

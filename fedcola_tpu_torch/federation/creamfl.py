@@ -30,6 +30,20 @@ a set over what is left of it is copied to the device batch by batch on
 every pass instead, with one log line.  The task data takes the FedAvg
 path's plane (``_group_aug_plan``).  Every public pass is client-stacked
 like a task step, so each kernel launch covers the group.
+
+Under a mesh (``parallel/mesh.py``) the public steps and the feature
+extraction take the group update's layout: a rank runs its block of the
+group's clients, its rows of each public batch on a ``data`` axis (the
+features gathered with their gradient before the loss, the gradients
+summed over the data ranks) and its shards on a ``model`` axis, with its
+block of the whole group's draws; padding clients never step.  The
+extracted features are all-gathered, so every rank holds every client's.
+The public logits (step 1), the aggregation and the distillation run
+replicated on every rank from replicated inputs, as the JAX package's
+unsharded public batches do, and the round ends by checking that the
+ranks' global models are the same bits.  The JAX ``_padded_group_members``
+has no counterpart: ``MeshPlan.gather_clients`` drops the padding clients
+before anything aggregates.
 """
 
 from __future__ import annotations
@@ -160,20 +174,42 @@ class CreamflServer(FedAvgServer):
         for b in self._pub_host:
             yield to_dev(b)
 
-    def _pub_inputs(self, ds: str, batch, modality: str, n: int):
+    def _pub_inputs(self, ds: str, batch, modality: str, n: int,
+                    rank_rows: bool = False):
         """Slot-aligned MAT inputs of a public batch for ``n`` stacked
-        models of dataset ``ds`` (the batch is the same for each)."""
+        models of dataset ``ds`` (the batch is the same for each); with
+        ``rank_rows``, this mesh rank's rows of it."""
         mcfg = self.model_cfgs[ds]
         spec = self._group_spec(ds)
+        cut = self.plan.batch_block if rank_rows else (lambda t: t)
         ins = [None] * len(mcfg.modalities)
         if "img" in modality:
-            x = preprocess_images(batch["img"], spec,
+            x = preprocess_images(cut(batch["img"]), spec,
                                   DTYPES[mcfg.compute_dtype])
             ins[spec.img_slot] = x.unsqueeze(0).expand((n,) + x.shape)
         if "txt" in modality:
-            t = batch["txt"]
+            t = cut(batch["txt"])
             ins[spec.txt_slot] = t.unsqueeze(0).expand((n,) + t.shape)
         return ins
+
+    def _rank_forward(self, g: GroupRun, batch, train: bool):
+        """The slot-aligned features ``[n_rank, B, D]`` of this rank's
+        block of the group's clients on a public batch: on a ``data`` axis
+        the rank runs its rows and the features are gathered over the data
+        ranks (with their gradient), on a ``model`` axis its shards; a
+        training forward takes its block of the whole group's draws."""
+        n, B = len(g.ids), batch["valid"].shape[0]
+        rows = self.plan.client_rows(n)
+        outs = mat_apply_stacked(
+            g.mcfg, g.stacked,
+            self._pub_inputs(g.ds, batch, g.spec.modality,
+                             rows.stop - rows.start, rank_rows=True),
+            feat_out=True, train=train,
+            gen=self.plan.draws(self.gen, n, B) if train else None, tp=g.tp)
+        if self.plan.splits_batch(B):
+            outs = [None if o is None else self.plan.gather_batch(o)
+                    for o in outs]
+        return outs
 
     # ------------------------------------------------- global pub features --
 
@@ -197,13 +233,14 @@ class CreamflServer(FedAvgServer):
     # --------------------------------------------------- client pub phases --
 
     def _pub_loss(self, g: GroupRun, batch) -> torch.Tensor:
-        """Per-client public contrastive loss ``[n]`` of one batch
-        (creamflclient.py:131-237)."""
-        mcfg, spec, n = g.mcfg, g.spec, len(g.ids)
+        """Per-client public contrastive loss ``[n_rank]`` of one batch
+        (creamflclient.py:131-237) for this rank's block of the group's
+        clients, over the whole batch."""
+        mcfg, spec = g.mcfg, g.spec
         t, w = PUB_TEMPERATURE, self.cfg.interintra_weight
-        ins = self._pub_inputs(g.ds, batch, spec.modality, n)
-        outs = mat_apply_stacked(mcfg, g.stacked, ins, feat_out=True,
-                                 train=True, gen=self.gen)
+        rows = self.plan.client_rows(len(g.ids))
+        n = rows.stop - rows.start
+        outs = self._rank_forward(g, batch, train=True)
         with torch.no_grad():
             # the round-start model, the same for every client: once, n=1
             old = mat_apply_stacked(
@@ -250,22 +287,27 @@ class CreamflServer(FedAvgServer):
                  for leaf in ("kernel", "bias")}
         token = tuple(sorted(set(self._frozen_token(g.ds) or ()) | heads))
         frozen = build_frozen_mask(g.mcfg, g.stacked, token or None)
+        # the padding clients of this rank's block never step
+        rows = self.plan.client_rows(len(g.ids))
+        real = torch.arange(rows.start, rows.stop,
+                            device=self.device) < len(g.ids)
+        data_plan = self.plan if self.plan.splits_batch(
+            self.cfg.pub_batch_size) else None
         for b in self._pub_batches():
             descend(pub_opt, g.stacked, g.opt_state, self._pub_loss(g, b),
-                    self.curr_lr, frozen)
+                    self.curr_lr, frozen, real, data_plan, g.tp)
 
     @torch.no_grad()
     def _extract_pub_features(self, g: GroupRun) -> None:
         """Public features of a uni-modal group's trained clients
-        (creamflserver.py:179-180)."""
+        (creamflserver.py:179-180): this rank's block, then every client's
+        on every rank (the JAX ``to_host`` of the clients-sharded
+        features)."""
         slot = g.spec.img_slot if g.spec.modality == "img" \
             else g.spec.txt_slot
-        fs = [mat_apply_stacked(
-            g.mcfg, g.stacked,
-            self._pub_inputs(g.ds, b, g.spec.modality, len(g.ids)),
-            feat_out=True)[slot][:, :b["n_valid"]]
-            for b in self._pub_batches()]
-        feats = torch.cat(fs, 1)
+        fs = [self._rank_forward(g, b, train=False)[slot][:, :b["n_valid"]]
+              for b in self._pub_batches()]
+        feats = self.plan.gather_clients(torch.cat(fs, 1), len(g.ids))
         for j, cid in enumerate(g.ids):
             self._pub_feats[cid] = feats[j]
 
@@ -382,6 +424,7 @@ class CreamflServer(FedAvgServer):
         else:
             logger.warning("[CREAMFL] skipping distillation: no %s client "
                            "features", "img" if "img" not in vec else "txt")
+        self.plan.check_replicated(self.global_params)
         self._assert_global_finite()
 
         if self.round % cfg.lr_decay_step == 0:

@@ -201,8 +201,9 @@ def _rank(local_index: int, argv, launch):
     from fedcola_tpu_torch.config import parse_args
     cfg = parse_args(argv)
     if launch.device_type == "cpu":
-        # the host's cores, shared among its ranks
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // launch.local))
+        # the process's threads (the host's cores, or OMP_NUM_THREADS),
+        # shared among its ranks
+        torch.set_num_threads(max(1, torch.get_num_threads() // launch.local))
     plan = launch.join(local_index)
     try:
         return _run(cfg, argv, plan)
@@ -236,6 +237,20 @@ def _run(cfg, argv, plan=None):
                 "(rows 3e / 6; the plain MLP off the 128 grid), one "
                 "all-reduce a sublayer; evaluation with whole weights",
                 plan.model_axis)
+        if cfg.algorithm == "creamfl":
+            B, d = cfg.pub_batch_size, plan.data_axis
+            where = [f"{B // d} of {B} public rows a rank"
+                     if plan.splits_batch(B) else
+                     f"the whole public batch of {B} on every data rank"
+                     ] if d > 1 else []
+            if plan.model_axis > 1:
+                where.append("on the rank's shards of the model axis")
+            logger.info(
+                "[MESH] CreamFL: the public steps and the feature "
+                "extraction run each group's client blocks%s; the public "
+                "features are all-gathered; the public logits, the "
+                "aggregation and the distillation run replicated on every "
+                "rank", "".join(", " + w for w in where))
     set_seed(cfg.seed)
 
     data = load_federated_data(cfg, np.random.RandomState(cfg.seed))

@@ -37,8 +37,7 @@ mesh devices (the counterpart of XLA's
 ``--xla_force_host_platform_device_count``).
 
 Ranks whose cards are all distinct talk over NCCL; ranks that share a card
-or run on the CPU over gloo.  CreamFL under a mesh is not ported
-(ROADMAP.md A4).
+or run on the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -520,6 +519,11 @@ class MeshPlan:
         di = self.rank // self.model_axis % self.data_axis
         return slice(di * per, (di + 1) * per)
 
+    def batch_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a ``[B, ...]`` batch that every client of a
+        group shares (CreamFL's public batches)."""
+        return x[self.batch_rows(x.shape[0])]
+
     def local_chunk(self, chunk: Dict[str, np.ndarray]
                     ) -> Dict[str, np.ndarray]:
         """A training chunk ``[n, S, B, ...]`` cut to this rank: its clients
@@ -737,10 +741,6 @@ def plan_launch(cfg, device_type: str) -> Optional[Launch]:
     plan = MeshPlan.build(cfg.mesh_shape, cfg.mesh_axes, n_visible)
     if not multi and plan.shape is None:
         return None
-    if plan.n_devices > 1 and cfg.algorithm == "creamfl":
-        raise NotImplementedError(
-            "--algorithm creamfl under a mesh is not ported to "
-            "fedcola_tpu_torch yet (ROADMAP.md A4); run it on one device")
     if not multi:
         return Launch(plan, 0, plan.n_devices,
                       f"tcp://127.0.0.1:{free_port()}", device_type)

@@ -21,10 +21,10 @@ dropout 0, SGD, ``--eval_type both --test_size 0.2``), two rounds.
   rtol 2e-5 / atol 2e-6.
 * ``--wandb`` under a mesh: only rank 0 writes (a stub ``wandb`` on the
   ranks' path records its calls).
-* ``MeshPlan``'s rules (``tests/test_mesh.py``), the ``model`` axis
-  accepted and its rank layout, the refusals (CreamFL under a mesh, a mesh
-  configuration without a joined plan), the rank's block of a chunk and of
-  a draw.
+* ``MeshPlan``'s rules (``tests/test_mesh.py``), the ``model`` axis and
+  CreamFL under a mesh accepted, the ``model`` axis's rank layout, the
+  refusal of a mesh configuration without a joined plan, the rank's block
+  of a chunk and of a draw.
 """
 
 import json
@@ -353,8 +353,10 @@ def test_meshplan_validation():
 
 
 def test_model_axis_and_creamfl_under_a_mesh_are_refused(monkeypatch):
-    """The ``model`` axis builds (it is ported); CreamFL under a mesh is
-    still refused by name."""
+    """Neither is refused any longer: the ``model`` axis builds, and so
+    does CreamFL under a mesh (its runs:
+    ``tests/test_torch_port_creamfl_mesh.py``).  The name is the one the
+    test had when both were refused."""
     assert MeshPlan.build([2, 2], ["clients", "model"],
                           n_visible=4).model_axis == 2
     assert MeshPlan.build([2, 2, 2], n_visible=8).mesh_dict == \
@@ -362,10 +364,11 @@ def test_model_axis_and_creamfl_under_a_mesh_are_refused(monkeypatch):
     monkeypatch.setenv("FEDCOLA_VIRTUAL_DEVICES", "2")
     cfg = tconfig.parse_args(["--algorithm", "creamfl", "--device", "cpu",
                               "--mesh_shape", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        plan_launch(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        tmain.main(["--algorithm", "creamfl", "--device", "cpu"])
+    launch = plan_launch(cfg, "cpu")
+    assert launch.plan.mesh_dict == {"clients": 2} and launch.local == 2
+    # no --mesh_shape over two visible devices: a clients mesh, as FedAvg's
+    cfg = tconfig.parse_args(["--algorithm", "creamfl", "--device", "cpu"])
+    assert plan_launch(cfg, "cpu").plan.mesh_dict == {"clients": 2}
     # one visible device: no mesh, CreamFL runs as before
     monkeypatch.setenv("FEDCOLA_VIRTUAL_DEVICES", "1")
     assert plan_launch(tconfig.parse_args(["--algorithm", "creamfl",

@@ -46,6 +46,9 @@ result line):
             N = 1025 (flash: ``attention_xla``, no launch; fused: its
             kernel).  Rows 3e and 6 also at a [tp] rank's shape (hidden
             768 of 1536, a zero b2), both dtypes, bf16 N=197 timed.
+            Rows 1-4 also at [population]'s three-client stacks (n=3,
+            B=96) and [flickr]'s B=112 (n=2), N in {197, 40}, both
+            dtypes, untimed.
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -103,6 +106,28 @@ result line):
             ``<ds>.pt`` loaded with ``weights_only`` maps back to the final
             weights bit for bit, and the trace names the ``fc_*`` ranges;
             writing, load, staging, export and trace sizes printed.
+   flickr   the scripts/flickr.sh FedCola line (``main.FLICKR_FLAGS``:
+            Flickr30k trains the img+txt clients, B=112, ``--C``) at
+            mome_small width on Flickr30k / CIFAR100 / AG_NEWS fixtures
+            written here, cut as [fixtures] cuts the coco.sh line (``--Ks 4
+            4 4 --C 0.5 --E 1 --debug --R 2``): ``loss_bound``, two rounds,
+            every group resident, rows 1-4 launched.
+   population the scripts/coco.sh FedCola line at its own population and
+            length (``main.POPULATION_FLAGS``: 12 + 12 + 8 clients, --Cs
+            0.25, whole shards for --E 5 epochs at B=96, no --debug) for 15
+            rounds at full mome_small width, eval every round: Coco on the
+            JAX package's 100-round fixture (1000 path-backed 224 px
+            images), CIFAR100 / AG_NEWS synthetic stand-ins; every round's
+            sections, group losses and Coco r@1sum beside the JAX run's
+            (docs/evidence/fedcola_100round_pathbacked_v5e.json), peak
+            memory, staged bytes, the launches of rows 1-4; every loss
+            finite, r@1sum at round 15 at least 1.0 and above round 5's.
+            Then ``loss_bound`` on the same line without --debug at a
+            small population (``--Ks 4 4 4 --Cs 0.5 --E 2``, chunks of two
+            steps, fixtures of 10 COCO images and 52 CIFAR100 / AG_NEWS
+            rows) in float32, 1e-4 relative: round 1's groups must be
+            ragged, run past one chunk an epoch and end on partial
+            batches, and rows 1-4 must launch.
 7. remat    two local steps of the img+txt group update at mome_small
             (n=2, B=96) under each remat policy: finite losses that agree
             with 'kernel' to bfloat16 tolerance, peak memory per policy.
@@ -161,8 +186,9 @@ result line):
 The CPU sides of the loss bounds run in one background process from the
 script's start (``CpuBounds``; they need no card) and are collected where
 each bound is read.  Phases 5 to 9 (and resident, local, augment,
-fixtures) each zero the launch counters just before and read them just
-after; a kernel's launches are those of the path that runs it.  The
+fixtures, flickr, population) each zero the launch counters just before
+and read them just after; a kernel's launches are those of the path that
+runs it.  The
 [mesh], [tp] and [creamfl-mesh] ranks are processes of their own, which
 count from zero.  The second-to-last line is a JSON object with one entry
 per kernel (the bf16 N=197 training-shape times, under "eval" the
@@ -172,7 +198,8 @@ of kernels 1-4 at the distillation shape, and under "long" and
 with the [long] phase's launches; under "tp" rows 3e / 6 at a [tp] rank's
 shape; under "mesh_launches" each [mesh] run's launches per rank, under
 "creamfl_mesh_launches" each genuine [creamfl-mesh] run's, under
-"tp_launches" the [tp] run's launches of rows 11, 12, 3e and 6 per rank);
+"tp_launches" the [tp] run's launches of rows 11, 12, 3e and 6 per rank;
+under "population_launches" the [population] run's of rows 1-4);
 the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -827,7 +854,8 @@ def _report(name, shape, dtype, N, r, timing):
 
 def phase_kernels():
     """Every kernel against its plain version at every shape its path
-    gives it.  Returns, per kernel, the bf16 N=197 training-shape
+    gives it (rows 1-4 also at [population]'s n=3 and [flickr]'s B=112
+    stacks, untimed).  Returns, per kernel, the bf16 N=197 training-shape
     measurements (the image stack, the main path's largest shape), the
     bf16 N=197 eval-shape ones under "eval", the distillation-shape ones
     under "distill", [tp]'s rank shape under "tp", the bf16 N=512 ones (the long-text line, the keys
@@ -863,6 +891,14 @@ def phase_kernels():
                            if shape in ("eval", "distill", "tp") else str)
                 record(check(N, dtype, dev, timing), shape, dtype, N, timing,
                        key)
+                torch.cuda.empty_cache()
+            # [population]'s three-client stacks and [flickr]'s B = 112:
+            # checked, not timed
+            for shape, kw in (("n=3,B=96", dict(n=3)),
+                              ("n=2,B=112", dict(B=112))):
+                for check in (check_attention, check_mlp):
+                    record(check(N, dtype, dev, False, **kw), shape, dtype,
+                           N, False)
                 torch.cuda.empty_cache()
     check_long_kernels(dev, record)
     for name in worst:
@@ -1467,6 +1503,186 @@ def phase_fixtures():
         if not {"fc_attn_fwd", "fc_mlp_fwd"} <= set(wrappers):
             raise AssertionError(f"[fixtures] the trace names no kernel "
                                  f"wrapper: {wrappers}")
+    return launches
+
+
+# ---------------------------------------------------- population, flickr ----
+
+POPULATION_ROUNDS = 15
+POPULATION_MIN_R1SUM = 1.0   # at round POPULATION_ROUNDS; chance is ~0.065
+# the JAX package's run of this line on the same fixture (one TPU v5e; its
+# Coco r@1sum a round is read beside the port's, a learning curve, no time)
+POPULATION_REFERENCE = "docs/evidence/fedcola_100round_pathbacked_v5e.json"
+FLICKR_FIXTURE = (200, 50, 224)     # Flickr30k train / test images, px
+FLICKR_CLS = (1000, 200)            # CIFAR100 and AG_NEWS train / test rows
+
+
+def _group_losses(server, res):
+    """A round's average training loss of each dataset's sampled clients."""
+    by_ds = {}
+    for cid, m in res["clients_updated"].items():
+        by_ds.setdefault(server.clients[int(cid)].dataset, []).append(
+            m["loss"])
+    return {ds: sum(v) / len(v) for ds, v in by_ds.items()}
+
+
+def phase_population():
+    """The scripts/coco.sh FedCola line at its own population and length
+    (``main.POPULATION_FLAGS``: 12 + 12 + 8 clients, ``--Cs 0.25``, whole
+    shards for ``--E 5`` epochs at B=96, no ``--debug``) for
+    ``POPULATION_ROUNDS`` rounds, eval every round, at full mome_small
+    width, bf16, remat 'kernel', resident: Coco path-backed on the
+    ``coco_fixture(root, 1000, 250, 224)`` of the JAX package's 100-round
+    run, CIFAR100 and AG_NEWS their synthetic stand-ins (no files under
+    their roots), as in that run.  Prints every round's sections, each
+    group's loss and Coco r@1sum beside the JAX run's.  Then
+    ``loss_bound`` on the same line without ``--debug`` at a small
+    population in float32 (``_population_bound_line``, ``LOSS_BOUND_F32``),
+    its round-1 groups ragged, multi-chunk and ending on partial batches.
+    Requires: every loss finite, r@1sum at the last round at least
+    ``POPULATION_MIN_R1SUM`` and above round 5's, the bound, rows 1-4
+    launched in both runs."""
+    import math
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.data import fixtures
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, POPULATION_REFERENCE)) as f:
+        jax_run = {int(r): v["server_evaluated_Coco"]["Coco r@1sum"]
+                   for r, v in json.load(f).items()}
+    with tempfile.TemporaryDirectory(prefix="fedcola_population_") as d:
+        t0 = time.time()
+        coco = fixtures.coco_fixture(os.path.join(d, "coco"), *FIXTURE_COCO)
+        log(f"[population] Coco fixture {FIXTURE_COCO} written in "
+            f"{time.time() - t0:.1f}s")
+        flags = port_main.population_flags(
+            coco, os.path.join(d, "no_cifar100"), os.path.join(d, "no_agnews"))
+        launches, server = _run_line(
+            "population", flags + ("--R", str(POPULATION_ROUNDS)),
+            os.path.join(d, "run"), resident=True)
+    r1 = {}
+    for r in sorted(server.results):
+        res = server.results[r]
+        losses = _group_losses(server, res)
+        r1[r] = res["server_evaluated_Coco"]["Coco r@1sum"]
+        # _run_line has printed round_seconds, its sections, eval_seconds
+        log(f"[population] round {r}: group losses "
+            f"{ {k: round(v, 4) for k, v in losses.items()} }, Coco r@1sum "
+            f"{r1[r]:.4f} (the JAX run: {jax_run[r]:.4f})")
+        bad = [c for c, m in res["clients_updated"].items()
+               if not math.isfinite(m["loss"])]
+        if bad:
+            raise AssertionError(f"[population] round {r}: non-finite "
+                                 f"losses of clients {bad}")
+    with tempfile.TemporaryDirectory(prefix="fedcola_population_") as d:
+        rows, bound_launches = loss_bound("population",
+                                          _population_bound_line(d))
+    _full_epoch_shape("population", rows, LOSS_BOUND_B,
+                      POPULATION_BOUND_CHUNK)
+    missing = [k for k in FIXTURE_TRAINING_KERNELS if bound_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[population] bound: never launched {missing}")
+    last = POPULATION_ROUNDS
+    log(f"[population] launches of rows 1-4 (eval rows with 1 and 3): "
+        f"{ {k: launches[k] for k in FIXTURE_TRAINING_KERNELS} }; staged "
+        f"{server._resident_bytes / 1e6:.1f} MB")
+    missing = [k for k in FIXTURE_TRAINING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[population] never launched {missing}")
+    if not (r1[last] >= POPULATION_MIN_R1SUM and r1[last] > r1[5]):
+        raise AssertionError(
+            f"[population] Coco r@1sum {r1[last]} at round {last} (round 5: "
+            f"{r1[5]}); required at least {POPULATION_MIN_R1SUM} and above "
+            f"round 5's")
+    return launches
+
+
+# [population]'s loss bound: the line's own shape (whole shards for E
+# epochs, no --debug) cut so that its CPU side fits the background worker:
+# two clients a group, --E 2, chunks of two steps, and fixtures whose
+# shards hold 5-15 rows, so that at LOSS_BOUND_B every round-1 group is
+# ragged, runs past one chunk an epoch and ends its epochs on partial
+# batches (its padded rows reach the kernels with no gradient).  In
+# float32: at B=4 bf16 rounding alone moves a COCO client's contrastive
+# loss by more than LOSS_BOUND, with or without padded rows (the bounds'
+# per-client lines), so only float32 can tell an error in the padded rows
+# from rounding
+POPULATION_BOUND_COCO = (10, 4, 224)    # COCO train / test images, px
+POPULATION_BOUND_CLS = (52, 8)          # CIFAR100 and AG_NEWS rows
+POPULATION_BOUND_CHUNK = 2
+
+
+def _population_bound_line(d):
+    """The fixtures of [population]'s loss bound under ``d`` (seeded
+    writers) and ``main.population_flags`` on them, cut as above."""
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.data import fixtures
+    return port_main.cut(port_main.population_flags(
+        fixtures.coco_fixture(os.path.join(d, "bound_coco"),
+                              *POPULATION_BOUND_COCO),
+        fixtures.cifar100_fixture(os.path.join(d, "bound_cifar"),
+                                  *POPULATION_BOUND_CLS),
+        fixtures.agnews_fixture(os.path.join(d, "bound_agnews"),
+                                *POPULATION_BOUND_CLS)),
+        {"--Ks": ("4", "4", "4"), "--Cs": "0.5", "--E": "2", "--R": "2",
+         "--train_chunk_steps": str(POPULATION_BOUND_CHUNK),
+         "--compute_dtype": "float32"})
+
+
+def _full_epoch_shape(tag, rows, B, chunk):
+    """Fails unless round 1's groups (``rows``: each dataset's sampled
+    shards, in rows) are ragged in their steps an epoch at ``B``, some
+    client runs more than ``chunk`` steps an epoch and some shard is not a
+    multiple of ``B``."""
+    steps = {ds: [-(-n // B) for n in v] for ds, v in rows.items()}
+    log(f"[{tag}] bound: round 1 shards {rows} rows, {steps} steps an "
+        f"epoch (B={B}, chunks of {chunk})")
+    if not (all(len(set(v)) > 1 for v in steps.values())
+            and max(max(v) for v in steps.values()) > chunk
+            and any(n % B for v in rows.values() for n in v)):
+        raise AssertionError(f"[{tag}] the bound's groups lost the full-"
+                             f"epoch shape: {steps} steps an epoch")
+
+
+def _write_flickr_line(d):
+    """The fixtures of [flickr] under ``d`` (seeded writers) and the
+    flickr.sh line on them, cut as ``main.fixture_flags`` cuts the coco.sh
+    line: two clients a group, ``--E 1 --debug``, two rounds."""
+    from fedcola_tpu_torch import main as port_main
+    from fedcola_tpu_torch.data import fixtures
+    return port_main.cut(port_main.flickr_flags(
+        fixtures.flickr_fixture(os.path.join(d, "flickr"), *FLICKR_FIXTURE),
+        os.path.join(d, "coco"),       # names the eval model; never read
+        fixtures.cifar100_fixture(os.path.join(d, "cifar"), *FLICKR_CLS),
+        fixtures.agnews_fixture(os.path.join(d, "agnews"), *FLICKR_CLS)),
+        {"--Ks": ("4", "4", "4"), "--C": "0.5", "--E": "1", "--R": "2",
+         "--debug": ()})
+
+
+def phase_flickr():
+    """The scripts/flickr.sh FedCola line (``main.FLICKR_FLAGS``: Flickr30k
+    trains the img+txt clients at B=112, ``--C 0.25``) at mome_small width
+    on fixtures written here, cut as [fixtures] cuts the coco.sh line
+    (``--Ks 4 4 4 --C 0.5 --E 1 --debug --R 2``): ``loss_bound`` card
+    against CPU, then two rounds: every group resident, rows 1-4 launched,
+    Flickr30k's r@1sum finite."""
+    import math
+    with tempfile.TemporaryDirectory(prefix="fedcola_flickr_") as d:
+        t0 = time.time()
+        flags = _write_flickr_line(d)
+        log(f"[flickr] fixtures written in {time.time() - t0:.1f}s "
+            f"(Flickr30k {FLICKR_FIXTURE}, CIFAR100 / AG_NEWS {FLICKR_CLS})")
+        loss_bound("flickr", flags)
+        launches, server = _run_line("flickr", flags, os.path.join(d, "run"),
+                                     resident=True)
+    if server.cfg.B != 112 or "Flickr30k" not in server._resident_cache:
+        raise AssertionError(f"[flickr] B {server.cfg.B}, staged "
+                             f"{sorted(server._resident_cache)}")
+    r1 = server.results[2]["server_evaluated_Flickr30k"]["Flickr30k r@1sum"]
+    if not math.isfinite(r1):
+        raise AssertionError(f"[flickr] Flickr30k r@1sum {r1}")
+    missing = [k for k in FIXTURE_TRAINING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"[flickr] never launched {missing}")
     return launches
 
 
@@ -2176,13 +2392,17 @@ def phase_tp(main_results, main_weights, card):
 # ---------------------------------------------------------- loss bound ----
 
 LOSS_BOUND = 1e-3   # relative, per round
+# the same in float32: [kernels]' float32 tolerance, 1e-4 relative
+LOSS_BOUND_F32 = 1e-4
 LOSS_BOUND_B = 4    # batch size of the comparison, on both devices
 
 
 def _training_losses(flags, device: str, out: str):
     """The two rounds' average training losses of a coco.sh line on
-    ``device`` at ``LOSS_BOUND_B`` without DropPath, and the seconds they
-    took; training only, no central evaluation."""
+    ``device`` at ``LOSS_BOUND_B`` without DropPath, each round's clients'
+    own (client id: [dataset, loss]), the seconds they took and round 1's
+    sampled shards by dataset, in rows; training only, no central
+    evaluation."""
     import numpy as np
     import torch
     from fedcola_tpu_torch.config import parse_args
@@ -2197,15 +2417,21 @@ def _training_losses(flags, device: str, out: str):
     server = create_server(cfg, load_federated_data(
         cfg, np.random.RandomState(cfg.seed)))
     t0 = time.time()
-    losses = []
+    losses, clients = [], []
     for r in (1, 2):
         server.round = r
         server.update()
-        losses.append(
-            server.results[r]["clients_updated_summary"]["loss"]["avg"])
+        res = server.results[r]
+        losses.append(res["clients_updated_summary"]["loss"]["avg"])
+        clients.append({str(c): [server.clients[int(c)].dataset, m["loss"]]
+                        for c, m in res["clients_updated"].items()})
     if device == "cuda":
         torch.cuda.synchronize()
-    return losses, time.time() - t0
+    secs = time.time() - t0
+    rows = {}
+    for c, (ds, _) in clients[0].items():
+        rows.setdefault(ds, []).append(server.data.client_shards[int(c)].n)
+    return losses, clients, secs, rows
 
 
 def _bound_lines(d):
@@ -2218,6 +2444,8 @@ def _bound_lines(d):
     yield "fedprox", port_main.FEDPROX_FLAGS
     yield "creamfl", _creamfl_bound_flags()
     yield "fixtures", _write_fixture_line(d)[0]
+    yield "flickr", _write_flickr_line(d)
+    yield "population", _population_bound_line(d)
     yield "long", port_main.MEDABS_LONG_FLAGS
 
 
@@ -2236,16 +2464,17 @@ def cpu_bounds_worker(out_dir: str) -> None:
     with tempfile.TemporaryDirectory(prefix="fedcola_bounds_") as d:
         for tag, flags in _bound_lines(d):
             with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
-                losses, secs = _training_losses(flags, "cpu", out)
+                losses, clients, secs, _ = _training_losses(flags, "cpu",
+                                                            out)
             tmp = os.path.join(out_dir, f"{tag}.tmp")
             with open(tmp, "w") as f:
                 json.dump({"flags": list(flags), "losses": losses,
-                           "seconds": secs}, f)
+                           "clients": clients, "seconds": secs}, f)
             os.replace(tmp, os.path.join(out_dir, f"{tag}.json"))
 
 
 class CpuBounds:
-    """The CPU sides of the loss bounds (about 240 s, no card), computed by
+    """The CPU sides of the loss bounds (about 400 s, no card), computed by
     one background process from the script's start and collected where
     each bound is read.  It gets ``CPU_BOUNDS_THREADS`` of the host's
     cores; the card's phases and their mesh ranks keep the rest."""
@@ -2279,7 +2508,8 @@ class CpuBounds:
         if not _same_line(res["flags"], flags):
             raise AssertionError(f"{tag}: the CPU bound worker ran another "
                                  f"line: {res['flags']}")
-        return res["losses"], res["seconds"], time.time() - t0
+        return (res["losses"], res["clients"], res["seconds"],
+                time.time() - t0)
 
     def close(self) -> None:
         if self.proc.poll() is None:
@@ -2294,35 +2524,51 @@ CPU_BOUNDS_THREADS = 4
 CPU_BOUNDS = None     # the running CpuBounds, set by main()
 
 
-def loss_bound(tag: str, flags) -> None:
+def loss_bound(tag: str, flags):
     """How far the kernels may move the training loss: the same two rounds
     of a coco.sh line from the same seed (weights, splits, client
     sampling, shuffles) on the card, through the kernels, and on the CPU,
     through their plain versions, at the line's full width and depth in
-    bfloat16.  A round's average training loss may differ by at most
-    ``LOSS_BOUND`` = 1e-3 relative.
+    bfloat16 (or in float32 where the line says so).  A round's average
+    training loss may differ by at most ``LOSS_BOUND`` = 1e-3 relative,
+    in float32 ``LOSS_BOUND_F32``.
 
     The shape is the line's own but for two flags, the same on both
     devices: ``--B 4``, because the CPU side of the full batch of 96 takes
     minutes (the card side under a second), and ``--dropout 0``, because
     the card's and the CPU's generators draw different DropPath masks from
-    one seed.  Both losses are printed."""
+    one seed.  Both losses are printed.  Returns round 1's sampled shards
+    on the card (``_training_losses``) and the card side's launches."""
     import math
+    from fedcola_tpu_torch.ops import kernels
+    f32 = dict(zip(flags, flags[1:])).get("--compute_dtype") == "float32"
+    bound = LOSS_BOUND_F32 if f32 else LOSS_BOUND
+    kernels.reset_launches()
     with tempfile.TemporaryDirectory(prefix="fedcola_smoke_") as out:
-        card, t_card = _training_losses(flags, "cuda", out)
-    cpu, t_cpu, waited = CPU_BOUNDS.get(tag, flags)
+        card, card_clients, t_card, rows = _training_losses(flags, "cuda",
+                                                            out)
+    launches = dict(kernels.LAUNCHES)
+    cpu, cpu_clients, t_cpu, waited = CPU_BOUNDS.get(tag, flags)
     for r, (a, b) in enumerate(zip(card, cpu), 1):
         rel = abs(a - b) / abs(b)
         log(f"[{tag}] bound: round {r} training loss on the card {a:.6f}, "
             f"on the CPU {b:.6f}, relative difference {rel:.2e} "
-            f"(bound {LOSS_BOUND:.0e}; B={LOSS_BOUND_B}, no DropPath)")
-        if not (math.isfinite(a) and rel <= LOSS_BOUND):
+            f"(bound {bound:.0e}; B={LOSS_BOUND_B}, no DropPath)")
+        # each client's own loss, printed, not bounded
+        own = {c: (ds, abs(la - cpu_clients[r - 1][c][1])
+                   / abs(cpu_clients[r - 1][c][1]))
+               for c, (ds, la) in card_clients[r - 1].items()}
+        log(f"[{tag}] bound: round {r} each client's relative difference "
+            + ", ".join(f"{c} ({ds}) {d:.2e}" for c, (ds, d) in
+                        sorted(own.items(), key=lambda kv: int(kv[0]))))
+        if not (math.isfinite(a) and rel <= bound):
             raise AssertionError(
                 f"{tag}: round {r} training loss {a} on the card against "
                 f"{b} on the CPU: relative difference {rel:.3e} exceeds "
-                f"{LOSS_BOUND}")
+                f"{bound}")
     log(f"[{tag}] bound: {t_card:.1f}s on the card, {t_cpu:.1f}s on the CPU "
         f"(background; waited {waited:.1f}s for it)")
+    return rows, launches
 
 
 # --------------------------------------------------------------- remat ----
@@ -2520,7 +2766,8 @@ def _phases(card) -> int:
     paths["baselines"], (cream_results, cream_weights) = phase_baselines()
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
-                 fixtures=phase_fixtures(), remat=phase_remat(),
+                 fixtures=phase_fixtures(), flickr=phase_flickr(),
+                 population=phase_population(), remat=phase_remat(),
                  rows=phase_rows(), long=phase_long())
     mesh_launches = phase_mesh(main_results, main_weights, card)
     tp_launches = phase_tp(main_results, main_weights, card)
@@ -2543,6 +2790,9 @@ def _phases(card) -> int:
         if "long" in row:
             # the long line's launches (every one at N = 512)
             row["long"]["launches"] = paths["long"][name]
+        if name in FIXTURE_TRAINING_KERNELS:
+            # [population]: the coco.sh line at its own population and length
+            row["population_launches"] = paths["population"][name]
         if name in MESH_TRAINING_KERNELS:
             # [mesh] and [creamfl-mesh]: each run's launches per rank (eval
             # rows included)

@@ -36,32 +36,61 @@ import time
 
 import numpy as np
 
-# The scripts/coco.sh FedCola line (scripts/coco.sh:28-29) at full
-# mome_small width, cut to synthetic data, two clients per group
-# (--Ks 4 4 4 --Cs 0.5), --E 1 --debug and two rounds; no pretrained
-# weights or BERT vocab.  chip_smoke.py and profile_round.py run it.
-MAIN_PATH_FLAGS = (
+# The scripts/coco.sh FedCola line at its own population and length
+# (scripts/coco.sh:13-22, :26): 12 + 12 + 8 clients, --Cs 0.25, whole
+# shards for --E 5 epochs at B=96, 30 rounds, no --debug.  Left out:
+# --pretrained (no ViT checkpoint ships with the repo) and --data_paths,
+# which ``population_flags`` adds.
+POPULATION_FLAGS = (
     "--exp_name", "FedCola", "--algorithm", "fedavg",
     "--shared_param", "attn", "--share_scope", "modality",
     "--colearn_param", "none", "--compensation", "--with_aux",
     "--aux_trained", "--seed", "1", "--multi-task",
     "--datasets", "CIFAR100", "AG_NEWS", "Coco", "Coco",
     "--modalities", "img", "txt", "img+txt", "img+txt",
-    "--Ks", "4", "4", "4", "--test_size", "-1", "--split_type", "diri",
+    "--Ks", "12", "12", "8", "--test_size", "-1", "--split_type", "diri",
     "--cncntrtn", "0.5", "--model_name", "mome_small_patch16",
     "--resize", "224", "--imnorm", "--eval_type", "global",
-    "--eval_every", "1", "--eval_metrics", "acc1", "--R", "2",
-    "--Cs", "0.5", "--E", "1", "--B", "96", "--beta1", "0",
+    "--eval_every", "1", "--eval_metrics", "acc1", "--R", "30",
+    "--Cs", "0.25", "--E", "5", "--B", "96", "--beta1", "0",
     "--optimizer", "AdamW", "--lr", "1e-4", "--lr_decay", "0.99",
     "--lr_decay_step", "1", "--criterion", "CrossEntropyLoss",
-    "--equal_sampled", "--eval_batch_size", "512", "--dropout", "0.1",
-    "--synthetic_data", "--debug", "--device", "cuda")
+    "--use_bert_tokenizer", "--equal_sampled", "--eval_batch_size", "512",
+    "--device", "cuda")
+
+
+def cut(flags, changes: dict) -> tuple:
+    """``flags`` with each flag of ``changes`` given the values there (a
+    string, or a tuple of them; ``()`` for a switch): a flag not in
+    ``flags`` is added at the end, and ``None`` takes the flag out with its
+    values.  A flag's values are the tokens up to the next ``--`` one."""
+    flags = list(flags)
+    for flag, values in changes.items():
+        values = [values] if isinstance(values, str) else list(values or ())
+        new = [] if changes[flag] is None else [flag, *values]
+        if flag not in flags:
+            flags += new
+            continue
+        at = flags.index(flag)
+        end = at + 1
+        while end < len(flags) and not flags[end].startswith("--"):
+            end += 1
+        flags[at:end] = new
+    return tuple(flags)
+
+
+# The scripts/coco.sh FedCola line (scripts/coco.sh:28-29) at full
+# mome_small width, cut to synthetic data, two clients per group
+# (--Ks 4 4 4 --Cs 0.5), --E 1 --debug and two rounds; no pretrained
+# weights or BERT vocab.  chip_smoke.py and profile_round.py run it.
+MAIN_PATH_FLAGS = cut(POPULATION_FLAGS, {
+    "--Ks": ("4", "4", "4"), "--R": "2", "--Cs": "0.5", "--E": "1",
+    "--use_bert_tokenizer": None, "--dropout": "0.1",
+    "--synthetic_data": (), "--debug": ()})
 
 # The same line at mome_tiny width (D=192, 3 heads, depth 12): off the
 # fused kernels' 128 grid, so attention runs through the flash kernels.
-MOME_TINY_FLAGS = tuple(
-    "mome_tiny_patch16" if prev == "--model_name" else flag
-    for prev, flag in zip(("",) + MAIN_PATH_FLAGS, MAIN_PATH_FLAGS))
+MOME_TINY_FLAGS = cut(MAIN_PATH_FLAGS, {"--model_name": "mome_tiny_patch16"})
 
 _FEDCOLA_SHARING = ("--shared_param", "attn", "--share_scope", "modality",
                     "--colearn_param", "none", "--compensation",
@@ -129,9 +158,36 @@ def fixture_flags(coco: str, cifar: str, agnews: str) -> tuple:
     ``data/fixtures.py``, cut as ``MAIN_PATH_FLAGS`` is.  ``--pretrained``
     reads the checkpoint named by ``FEDCOLA_PRETRAIN_<SRC>`` (see
     ``models/pretrained.py``)."""
-    flags = [f for f in MAIN_PATH_FLAGS if f != "--synthetic_data"]
-    return tuple(flags) + ("--pretrained", "--use_bert_tokenizer",
-                           "--data_paths", cifar, agnews, coco, coco)
+    return cut(MAIN_PATH_FLAGS, {
+        "--synthetic_data": None, "--pretrained": (),
+        "--use_bert_tokenizer": (),
+        "--data_paths": (cifar, agnews, coco, coco)})
+
+
+def population_flags(coco: str, cifar: str, agnews: str) -> tuple:
+    """``POPULATION_FLAGS`` on the dataset roots given.  A root without the
+    dataset's files loads its synthetic stand-in (2000 train, 500 test
+    rows; ``data/loaders.py``), as the img and txt groups of the JAX
+    package's 100-round run at this population did
+    (docs/evidence/fedcola_100round_pathbacked_v5e.json: Coco on
+    ``coco_fixture(root, 1000, 250, 224)``)."""
+    return POPULATION_FLAGS + ("--data_paths", cifar, agnews, coco, coco)
+
+
+# The scripts/flickr.sh FedCola line (scripts/flickr.sh:13-26, :29): the
+# coco.sh populations with Flickr30k as the img+txt dataset, --C 0.25,
+# B=112.  The last --datasets entry (Coco) only names the server's eval
+# model (config.client_datasets drops it).  Left out: --pretrained and
+# --data_paths, which ``flickr_flags`` adds.
+FLICKR_FLAGS = cut(POPULATION_FLAGS, {
+    "--datasets": ("CIFAR100", "AG_NEWS", "Flickr30k", "Coco"),
+    "--Cs": None, "--C": "0.25", "--B": "112"})
+
+
+def flickr_flags(flickr: str, coco: str, cifar: str, agnews: str) -> tuple:
+    """``FLICKR_FLAGS`` on the dataset roots given (flickr.sh's
+    ``--data_paths``)."""
+    return FLICKR_FLAGS + ("--data_paths", cifar, agnews, flickr, coco)
 
 
 class WandbWriter:

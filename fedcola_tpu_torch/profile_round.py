@@ -1,6 +1,7 @@
 """Where one FedCola round's device time goes, by kernel and by wrapper.
 
-    python -m fedcola_tpu_torch.profile_round [--tiny | --long | main.py flags]
+    python -m fedcola_tpu_torch.profile_round [--tiny | --long | --population
+                                               | main.py flags]
 
 Runs the configured experiment for one untraced warm-up round, then traces
 the next round's update (train + aggregate) with ``torch.profiler`` and
@@ -10,7 +11,12 @@ kernel wrapper (``fc_*`` ranges, one per TPU kernel of the JAX package)
 and the top kernels by device time.  Without flags it runs the main path
 of ``chip_smoke.py`` (``main.MAIN_PATH_FLAGS``); ``--tiny`` runs the same
 line at mome_tiny width (``main.MOME_TINY_FLAGS``, the flash route);
-``--long`` the long-text line (``main.MEDABS_LONG_FLAGS``, N = 512).
+``--long`` the long-text line (``main.MEDABS_LONG_FLAGS``, N = 512);
+``--population`` the coco.sh line at its own population and length
+(``main.population_flags``: whole shards for E = 5 epochs) on a COCO
+fixture of 1000 path-backed 224 px images written to a temporary
+directory, CIFAR100 and AG_NEWS their synthetic stand-ins, as
+``chip_smoke.py`` [population] runs it.
 """
 
 from __future__ import annotations
@@ -26,15 +32,20 @@ from torch.profiler import ProfilerActivity, profile
 
 def main(argv=None) -> int:
     from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.data.fixtures import coco_fixture
     from fedcola_tpu_torch.data.loaders import load_federated_data
     from fedcola_tpu_torch.federation.server import create_server
     from fedcola_tpu_torch.main import (MAIN_PATH_FLAGS, MEDABS_LONG_FLAGS,
-                                        MOME_TINY_FLAGS)
+                                        MOME_TINY_FLAGS, population_flags)
     argv = list(argv if argv is not None else sys.argv[1:])
     named = {"--tiny": MOME_TINY_FLAGS, "--long": MEDABS_LONG_FLAGS}
-    if argv == [] or (len(argv) == 1 and argv[0] in named):
-        argv = list(named[argv[0]] if argv else MAIN_PATH_FLAGS)
     with tempfile.TemporaryDirectory(prefix="fedcola_profile_") as out:
+        if argv == ["--population"]:
+            argv = list(population_flags(
+                coco_fixture(f"{out}/coco", 1000, 250, 224),
+                f"{out}/no_cifar100", f"{out}/no_agnews"))
+        elif argv == [] or (len(argv) == 1 and argv[0] in named):
+            argv = list(named[argv[0]] if argv else MAIN_PATH_FLAGS)
         cfg = parse_args(argv + ["--result_path", out, "--log_path", out])
         if cfg.device != "cuda":
             raise SystemExit("profile_round measures the card: --device cuda")

@@ -13,9 +13,12 @@ result line):
             mlp_fwd.o, mlp_bwd.o, attn_fwd.o and attn_bwd.o must hold wgmma
             (HGMMA) and TMA load (UTMALDG) instructions, the bf16 fused
             route's Hopper mainloop, attn_fwd.o and attn_bwd.o also
-            mma.sync (HMMA), their per-head kernels, and so must
+            mma.sync (HMMA), their resident per-head kernels, and so must
             flash_fwd.o and flash_bwd.o (the per-head forward and backward
-            cores); none of these kernels may spill.
+            cores); every instantiation of the streamed per-head kernels
+            (N > 256: attn_fwd_head_stream_kernel and the backward's row
+            and column kernels, csrc/attn_wgmma.cuh) must hold HGMMA and
+            UTMALDG in its own SASS; none of these kernels may spill.
 3. kernels  each kernel wrapper against its plain PyTorch version at every
             shape its paths give it, N in {197, 40}: the fused kernels at
             mome_small's training shape (n=2 clients, B=96, D=384, H=6) and
@@ -278,27 +281,31 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def check_sass(kernels) -> None:
     """The bf16 MLP and attention forwards and backwards run on wgmma fed
-    by TMA, and the per-head attention kernels (the fused forward's and
-    backward's, flash attention's forward and backward) on mma.sync: count
-    those opcodes in
-    the SASS of their object files, print the registers, stack, static
-    shared and local memory of each Hopper GEMM and head kernel
+    by TMA, the resident per-head attention kernels (the fused forward's and
+    backward's, flash attention's forward and backward) on mma.sync, and
+    the streamed per-head kernels (N > 256) on wgmma fed by TMA: count
+    those opcodes in the SASS of their object files and, for each streamed
+    kernel instantiation, in its own SASS; print the registers, stack,
+    static shared and local memory of each Hopper GEMM and head kernel
     instantiation, and fail if one of them spills (a stack frame or local
     memory)."""
     import re
     from pathlib import Path
     tool = str(Path(kernels._nvcc()).parent / "cuobjdump")
-    want = {"mlp_fwd.o": ("HGMMA", "UTMALDG"),
-            "mlp_bwd.o": ("HGMMA", "UTMALDG"),
-            "attn_fwd.o": ("HGMMA", "UTMALDG", "HMMA"),
-            "attn_bwd.o": ("HGMMA", "UTMALDG", "HMMA"),
-            "flash_fwd.o": ("HMMA",), "flash_bwd.o": ("HMMA",)}
+    wgmma = ("HGMMA", "UTMALDG")
+    want = {"mlp_fwd.o": wgmma, "mlp_bwd.o": wgmma,
+            "attn_fwd.o": wgmma + ("HMMA",), "attn_bwd.o": wgmma + ("HMMA",),
+            "flash_fwd.o": wgmma + ("HMMA",),
+            "flash_bwd.o": wgmma + ("HMMA",)}
     # the mangled template arguments: ILi64ELi2EE is <64, 2>
     pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel|"
                          r"attn_fwd_head_kernel|attn_fwd_head_stream_kernel|"
                          r"attn_bwd_head_rows_stream_kernel|"
                          r"attn_bwd_head_cols_stream_kernel)"
                          r"I((?:L[ib]\d+E)+)E")
+    name_of = lambda m: f"{m.group(1)}<" + ",".join(
+        re.findall(r"\d+", m.group(2))) + ">"
+    streamed = 0
     for name, ops in want.items():
         obj = str(kernels.BUILD_DIR / name)
         run = lambda flag: subprocess.run(
@@ -310,18 +317,31 @@ def check_sass(kernels) -> None:
             ", ".join(f"{n} {op}" for op, n in counts.items()))
         if not all(counts.values()):
             raise AssertionError(f"{name} lacks wgmma, TMA or mma: {counts}")
+        # each streamed kernel's own SASS ("Function : <name>" opens it)
+        for part in sass.split("Function : ")[1:]:
+            m = pattern.search(part.split("\n", 1)[0])
+            if not m or "_stream_kernel" not in m.group(1):
+                continue
+            streamed += 1
+            own = {op: part.count(op) for op in wgmma}
+            if not all(own.values()):
+                raise AssertionError(f"{name_of(m)} in {name} lacks wgmma "
+                                     f"or TMA: {own}")
         kernel = None
         for line in run("-res-usage").splitlines():
             if "Function" in line:
                 m = pattern.search(line)
-                kernel = m and f"{m.group(1)}<" + ",".join(
-                    re.findall(r"\d+", m.group(2))) + ">"
+                kernel = m and name_of(m)
             elif kernel and "REG:" in line:
                 usage = dict(f.split(":") for f in line.split()[:4])
                 log(f"[build] {name} {kernel} {' '.join(line.split()[:4])}")
                 if int(usage["LOCAL"]) or int(usage["STACK"]):
                     raise AssertionError(f"{kernel} spills: {line.strip()}")
                 kernel = None
+    log(f"[build] {streamed} streamed kernel instantiations, each with "
+        f"HGMMA and UTMALDG in its SASS")
+    if not streamed:
+        raise AssertionError("no streamed head kernel in the SASS")
 
 
 # ------------------------------------------------------------- kernels ----

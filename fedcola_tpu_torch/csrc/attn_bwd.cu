@@ -620,10 +620,11 @@ int attn_bwd_sm90(int n, int B, int N, int D, int H, int rps_proj,
   // per-head backward: dqkvc, hpart, (cat)
   const HeadLayout L = {(long long)N * 3 * D, 3 * D, (long long)N * D, D,
                         (long long)N * 3 * D, 3 * D};
-  if ((err = attn_bwd_head(qkv, qkv + D, qkv + 2 * D, dO, P, dqkvc, dqkvc + D,
-                           dqkvc + 2 * D, cat, hpart, stats, L, n * B, H, N,
-                           hd, scale, 0.0f,
-                           recompute ? AH_RECOMP : AH_SAVED, st))) return err;
+  auto head = recompute ? attn_bwd_head<AH_RECOMP> : attn_bwd_head<AH_SAVED>;
+  if ((err = head(qkv, qkv + D, qkv + 2 * D, dO, P, dqkvc, dqkvc + D,
+                  dqkvc + 2 * D, cat, hpart, stats, L, n * B, H, N, hd, scale,
+                  0.0f, D, st)))
+    return err;
   if ((err = colsum<float, bf16>(hpart, n, B * attn_part_rows(N), 3 * D,
                                  nullptr, 1, nullptr, nullptr, nullptr,
                                  nullptr, partial, dbqkv, st))) return err;

@@ -59,6 +59,7 @@
 
 #include "attn_core.cuh"
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -306,407 +307,478 @@ attn_bwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
   }
 }
 
-// ---- streamed (N > AT_RESIDENT_N) ----
+// ---- streamed (N > AT_RESIDENT_N), redesigned for Hopper ----
 //
-// Two kernels on the same stream, each with shared memory that does not
-// grow with N, and the row statistics through device memory in between:
-//   rows     grid (H, items, ceil(N / AS_QB)): a block keeps its AS_QB
-//            queries' Q and dO in shared memory and streams K and V through
-//            a two-slot cp.async ring of AS_KC-key chunks, twice: pass 1
-//            the row statistics, written to stats [items, H, N, 3] (the
-//            row max * c2, 1 / sum and delta; recompute modes) or delta
-//            alone (saved P); pass 2 dQ (and cat), as the resident row
-//            pass does per 16-key block.
-//   columns  grid (H, items, ceil(N / AS_QB)): a block keeps its AS_QB keys'
-//            K and V in shared memory and streams Q, dO and the queries'
-//            statistics through the ring, accumulating dK and dV as the
-//            resident column pass does.
+// Two kernels on the same stream, grid (H, items, ceil(N / AS_QB)) each,
+// AS_THREADS threads (attn_wgmma.cuh: two warpgroups of 64 rows, TMA into
+// a ring of AS_ST stages, wgmma), shared memory a constant whatever N, and
+// the row statistics through device memory in between:
+//   rows     one block an SM.  The block's 128 queries' Q and dO are
+//            loaded once; K and V (and saved P) stream in AS_KC-key
+//            chunks, twice.  Pass 1, two chunks a batch, the row
+//            statistics (recompute: S = Q.K^T and dP = dO.V^T, the online
+//            max and sum with delta's numerator carried under the same
+//            rescaling; saved P: dP and delta = rowsum(P o dP)), written to
+//            stats [items, H, N, 3] (max * c2, 1 / sum, delta); pass 2 P
+//            (f32), dS = T(P o (dP - delta)) and dQ += dS.K (RS, K read
+//            MN-major), and in mode AH_RECOMP cat += T(P).V, in one batch
+//            with the next chunk's S and dP.
+//   columns  two blocks an SM: the block's 128 keys' K and V are loaded
+//            once; Q, dO (and saved P) stream in AS_QC-query chunks, the
+//            queries' statistics beside them (loaded by the lanes of the
+//            warp that refills the stage).  S^T = K.Q^T (recompute) and
+//            dP^T = V.dO^T (m64n32); P^T and dS^T from the statistics,
+//            rounded into A fragments as they are formed; dV += T(P^T).dO
+//            and dK += dS^T.Q (RS).  32-query chunks keep its registers
+//            under the 128 of two blocks an SM, whose four warpgroups hide
+//            each other's waits (one block of 64-query chunks measured
+//            1.4-1.6x as long on an H100).
+// Saved P moves as TMA tiles where its rows are 16-byte aligned
+// (as_p_tiles: N % 8 == 0; the row kernel's tile is [queries][keys], the
+// column kernel's the same tile read transposed), and is otherwise read
+// from device memory element by element: the second path, chosen by shape.
+// In flash mode Q is pre-scaled in shared memory before any product (in
+// the column kernel by both warpgroups, then a barrier of the two).
 // Every value has one writer.  Column sums go to part [items * nqb, 3,
-// H*hd] (nqb = ceil(N / AS_QB); row item * nqb + block), each block's warps
-// summed in order, dQ's by the row kernel and dK's and dV's by the column
-// kernel; the caller sums the rows of a client in a fixed order.
-template <int HD, int MODE>
-__global__ void __launch_bounds__(AS_WARPS * 32, 1)
-attn_bwd_head_rows_stream_kernel(const bf16* qg, const bf16* kg,
-                                 const bf16* vg, const bf16* dog,
-                                 const bf16* P, bf16* dqg, bf16* catg,
-                                 float* part, float* stats, HeadLayout L,
-                                 int N, float scale, float qscale, float c2) {
+// H*hd] (nqb = ceil(N / AS_QB); row item * nqb + block), each block's
+// eight warps summed in order, dQ's by the row kernel and dK's and dV's by
+// the column kernel; the caller sums the rows of a client in a fixed order.
+//
+// What bounds them: at N = 512 the S / dP products and P's bytes in saved
+// mode (row 2: 1152 heads x 512^2 bf16 = 604 MB read twice by the row
+// kernel and once by the column kernel); recompute and flash add the exp2
+// of every element in each pass.
+template <int HD, int MODE, bool PTMA>
+__global__ void __launch_bounds__(AS_THREADS, 1)
+attn_bwd_head_rows_stream_kernel(const __grid_constant__ AsBwdArgs g) {
   constexpr bool RECOMP = MODE != AH_SAVED;
   constexpr bool CAT = MODE == AH_RECOMP;
-  constexpr int LD = HD + AH_PAD;
+  constexpr bool TP = !RECOMP && PTMA;  // P tiles through the ring
   constexpr int KS = HD / 16;
-  constexpr int DT = HD / 8;
-  constexpr uint32_t BLK = 16 * LD * 2;
-  constexpr uint32_t SLOT = AS_KC * LD * 2;
-  extern __shared__ __align__(16) uint8_t as_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(as_raw);  // [AS_QB][LD]
-  bf16* Os = Qs + AS_QB * LD;                  // [AS_QB][LD] (dO)
-  bf16* Ks = Os + AS_QB * LD;                  // ring [2][AS_KC][LD]
-  bf16* Vs = Ks + 2 * AS_KC * LD;              // ring [2][AS_KC][LD]
-  float* red = reinterpret_cast<float*>(Vs + 2 * AS_KC * LD);  // [warps][HD]
+  constexpr uint32_t STAGE = (TP ? 4 : 2) * AS_BOX;  // K, V [, P 128 x 64]
+  extern __shared__ uint8_t as_raw[];
+  const uint32_t qt = (smem_u32(as_raw) + 1023u) & ~1023u;  // Q, 2 boxes
+  const uint32_t ot = qt + 2 * AS_BOX;                     // dO, 2 boxes
+  const uint32_t ring = ot + 2 * AS_BOX;
+  const uint32_t red = ring + AS_ST * STAGE;               // [8 warps][HD]
+  const uint32_t qbar = red + 8 * 64 * 4;
+  const uint32_t full = qbar + 8, cnt = full + 8 * AS_ST;
 
-  const int h = blockIdx.x, H = gridDim.x;
-  const long long item = blockIdx.y;
-  const int qz = blockIdx.z, nqb = gridDim.z;
-  const int q0 = qz * AS_QB, nq = min(AS_QB, N - q0);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool active = warp * 16 < nq;
-  const long long ib = item * L.in_item + (long long)h * HD;
-  const long long ob = item * L.do_item + (long long)h * HD;
-  const long long pbase = (item * H + h) * (long long)N * N;
-  const int nch = (N + AS_KC - 1) / AS_KC;
-
-  ah_load_tile<HD>(Qs, qg + ib + (long long)q0 * L.in_row, L.in_row, nq,
-                   AS_QB, tid, nthr);
-  ah_load_tile<HD>(Os, dog + ob + (long long)q0 * L.do_row, L.do_row, nq,
-                   AS_QB, tid, nthr);
-  ah_cp_wait();
-  if (MODE == AH_FLASH) ah_prescale_tile<HD>(Qs, qscale, nq, tid, nthr);
+  const int h = blockIdx.x, item = blockIdx.y, qz = blockIdx.z;
+  const int q0 = qz * AS_QB, N = g.N;
+  const int nch = (N + AS_KC - 1) / AS_KC, iters = 2 * nch;
+  // ring iteration it: chunk it (pass 1) or it - nch (pass 2) of K (saved
+  // P's pass 1 needs none), V and saved P in tiles
+  auto load = [&](int it) {
+    const int st = it % AS_ST;
+    const bool p2 = it >= nch;
+    const bool k = RECOMP || p2;
+    const int j0 = (p2 ? it - nch : it) * AS_KC;
+    const uint32_t slot = ring + st * STAGE, fb = full + 8 * st;
+    mbar_expect_tx(fb, (k ? 2 : 1) * AS_BOX + (TP ? 2 * AS_BOX : 0));
+    if (k) tma_load(slot, &g.k.map, fb, g.k.col + h * HD, j0, item);
+    tma_load(slot + AS_BOX, &g.v.map, fb, g.v.col + h * HD, j0, item);
+    if (TP)
+      for (int b = 0; b < 2; ++b)
+        tma_load(slot + (2 + b) * AS_BOX, &g.p, fb, j0, q0 + 64 * b,
+                 item * g.H + h);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < AS_ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      as_st32(cnt + 4 * s, 0u);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qbar, 4 * AS_BOX);
+    for (int b = 0; b < 2; ++b) {
+      tma_load(qt + b * AS_BOX, &g.q.map, qbar, g.q.col + h * HD,
+               q0 + 64 * b, item);
+      tma_load(ot + b * AS_BOX, &g.o.map, qbar, g.o.col + h * HD,
+               q0 + 64 * b, item);
+    }
+    for (int it = 0; it < AS_ST; ++it) load(it);
+  }
   __syncthreads();
 
-  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
-  const uint32_t k_sm = ah_smem(Ks), v_sm = ah_smem(Vs);
-  uint32_t oa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ah_ldsm(oa[ks], ah_smem(Os) + warp * BLK + a_off + ks * 32);
-  const uint32_t qa = ah_smem(Qs) + warp * BLK + a_off;
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3, rl = 16 * warp + (lane >> 2);
+  const int r0 = q0 + 64 * wg + rl;  // this thread's rows: r0 and r0 + 8
+  const uint32_t qa = qt + wg * AS_BOX, oa = ot + wg * AS_BOX;
+  const float c2 = g.c2;
+  const bf16* prow = RECOMP ? nullptr
+                            : g.P + ((long long)item * g.H + h) * N * N;
+  auto release = [&](int it) {
+    if (as_release(cnt + 4 * (it % AS_ST), lane) && lane == 0 &&
+        it + AS_ST < iters)
+      load(it + AS_ST);
+  };
+  mbar_wait(qbar, 0);
+  if (MODE == AH_FLASH) {
+    as_prescale(qa, AS_BOX, g.qscale, tid, 128);
+    as_fence_async();
+    as_bar(1 + wg, 128);
+  }
+  // saved P at (row r0 + 8 hh, key j0 + 8 j + 2t + e), e = 0, 1
+  auto p_pair = [&](uint32_t slot, int j0, int j, int hh) -> float2 {
+    if constexpr (TP) {
+      return unpack_bf16x2(as_ld32(slot + (2 + wg) * AS_BOX +
+                                   as_sw(rl + 8 * hh, 8 * j + 2 * t)));
+    } else {
+      const int i = r0 + 8 * hh, c = j0 + 8 * j + 2 * t;
+      float2 p = make_float2(0.0f, 0.0f);
+      if (i < N && c < N) {
+        const bf16* at = prow + (long long)i * N + c;
+        p.x = to_f(at[0]);
+        if (c + 1 < N) p.y = to_f(at[1]);
+      }
+      return p;
+    }
+  };
+
+  // pass 1: the row statistics, two chunks' products a wgmma batch
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   float dl[2] = {0.0f, 0.0f};
-
-  // pass 1: the row statistics
-  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
-  ah_load_chunk<HD>(Vs, vg + ib, L.in_row, 0, N, tid, nthr);
-  ah_cp_commit();
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      const int slot = ((c + 1) & 1) * AS_KC * LD;
-      ah_load_chunk<HD>(Ks + slot, kg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_load_chunk<HD>(Vs + slot, vg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_cp_commit();
-      ah_cp_wait_pending<1>();
-    } else {
-      ah_cp_wait_pending<0>();
-    }
-    __syncthreads();
+  // S (recompute; s is not read otherwise) and dP of ring iteration `it`,
+  // issued (the caller commits)
+  auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
+    const int st = it % AS_ST;
+    const uint32_t slot = ring + st * STAGE;
+    mbar_wait(full + 8 * st, (it / AS_ST) & 1);
+    if constexpr (RECOMP) as_issue_ss<KS>(s, qa, slot);
+    as_issue_ss<KS>(dp, oa, slot + AS_BOX);
+  };
+  auto stats = [&](float (&s)[32], float (&dp)[32], int c) {
+    const uint32_t slot = ring + (c % AS_ST) * STAGE;
+    if constexpr (RECOMP) as_keep(s);
+    as_keep(dp);
     const int j0 = c * AS_KC;
-    const int nb = (min(AS_KC, N - j0) + 15) / 16;
-    const uint32_t kc = k_sm + (c & 1) * SLOT, vc = v_sm + (c & 1) * SLOT;
-    for (int jb = 0; active && jb < nb; ++jb) {
-      const int jj = j0 + jb * 16;
-      float s[2][4], dp[2][4];
-      ah_chunk<KS, RECOMP>(qa, oa, kc + jb * BLK + b_off,
-                           vc + jb * BLK + b_off, s, dp);
-      if (RECOMP) {
-        if (jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
-        float cm[2];
+    if constexpr (RECOMP) {
+      if (j0 + AS_KC > N) as_mask_cols(s, j0 + 2 * t, N);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          cm[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                        fmaxf(s[1][2 * r], s[1][2 * r + 1]));
-          cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
-          cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
-          const float mn = fmaxf(m[r], cm[r]);
-          const float corr = exp2f((m[r] - mn) * c2);
-          l[r] *= corr;
-          dl[r] *= corr;
-          m[r] = mn;
-        }
-        const float mc[2] = {m[0] * c2, m[1] * c2};
+      for (int hh = 0; hh < 2; ++hh) {
+        float cm = -INFINITY;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+        for (int j = 0; j < 8; ++j)
+          cm = fmaxf(cm, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+        const float mn = fmaxf(m[hh], cm);
+        const float corr = exp2f((m[hh] - mn) * c2);
+        l[hh] *= corr;
+        dl[hh] *= corr;
+        m[hh] = mn;
+        const float mc = mn * c2;
 #pragma unroll
-          for (int c4 = 0; c4 < 4; ++c4) {
-            const float e = exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1]));
-            l[c4 >> 1] += e;
-            dl[c4 >> 1] += e * dp[nt][c4];
-          }
-      } else {
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int c4 = 0; c4 < 4; ++c4) {
-            const int i = r0 + 8 * (c4 >> 1);
-            const int j = jj + nt * 8 + 2 * t + (c4 & 1);
-            if (i < N && j < N)
-              dl[c4 >> 1] +=
-                  to_f(P[pbase + (long long)i * N + j]) * dp[nt][c4];
+          for (int e = 0; e < 2; ++e) {
+            const float x = exp2f(fmaf(s[4 * j + 2 * hh + e], c2, -mc));
+            l[hh] += x;
+            dl[hh] += x * dp[4 * j + 2 * hh + e];
           }
       }
-    }
-    __syncthreads();
-  }
-  float il[2], delta[2];
-  const float mc[2] = {m[0] * c2, m[1] * c2};
+    } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 1);
-    dl[r] += __shfl_xor_sync(0xffffffffu, dl[r], 2);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 p = p_pair(slot, j0, j, hh);
+          dl[hh] += p.x * dp[4 * j + 2 * hh] + p.y * dp[4 * j + 2 * hh + 1];
+        }
+    }
+    release(c);
+  };
+  for (int c = 0; c < nch; c += 2) {
+    float sa[32], dpa[32], sb[32], dpb[32];
+    const bool two = c + 1 < nch;
+    wgmma_fence();
+    issue(sa, dpa, c);
+    if (two) issue(sb, dpb, c + 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    stats(sa, dpa, c);
+    if (two) stats(sb, dpb, c + 1);
+  }
+  float il[2], delta[2], mc[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 1);
+    dl[hh] += __shfl_xor_sync(0xffffffffu, dl[hh], 2);
+    mc[hh] = m[hh] * c2;
     if (RECOMP) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      il[r] = 1.0f / l[r];
-      delta[r] = dl[r] * il[r];
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      il[hh] = 1.0f / l[hh];
+      delta[hh] = dl[hh] * il[hh];
     } else {
-      il[r] = 0.0f;
-      delta[r] = dl[r];
+      il[hh] = 0.0f;
+      delta[hh] = dl[hh];
     }
-  }
-  if (active && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int i = r0 + 8 * r;
-      if (i < N) {
-        float* st = stats + ((item * H + h) * (long long)N + i) * 3;
-        st[0] = mc[r];
-        st[1] = il[r];
-        st[2] = delta[r];
-      }
+    const int i = r0 + 8 * hh;
+    if (t == 0 && i < N) {
+      float* sp = g.stats + (((long long)item * g.H + h) * N + i) * 3;
+      sp[0] = mc[hh];
+      sp[1] = il[hh];
+      sp[2] = delta[hh];
     }
   }
 
-  // pass 2: dQ (and cat)
-  float dq[DT][4], cat[CAT ? DT : 1][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) {
-      dq[nt][c4] = 0.0f;
-      if constexpr (CAT) cat[nt][c4] = 0.0f;
-    }
-  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
-  ah_load_chunk<HD>(Vs, vg + ib, L.in_row, 0, N, tid, nthr);
-  ah_cp_commit();
+  // pass 2: dQ (and cat).  dS(c).K(c) (and P(c).V(c)) and the next chunk's
+  // S and dP are one wgmma batch.
+  float dq[32], cat[CAT ? 32 : 1], s[32], dp[32];
+  uint32_t ads[4][4], ap[CAT ? 4 : 1][4];
+  wgmma_fence();
+  issue(s, dp, nch);
+  wgmma_commit();
+  wgmma_wait<0>();
   for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      const int slot = ((c + 1) & 1) * AS_KC * LD;
-      ah_load_chunk<HD>(Ks + slot, kg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_load_chunk<HD>(Vs + slot, vg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_cp_commit();
-      ah_cp_wait_pending<1>();
-    } else {
-      ah_cp_wait_pending<0>();
-    }
-    __syncthreads();
+    const int it = nch + c;
+    const uint32_t slot = ring + (it % AS_ST) * STAGE;
+    if constexpr (RECOMP) as_keep(s);
+    as_keep(dp);
     const int j0 = c * AS_KC;
-    const int nb = (min(AS_KC, N - j0) + 15) / 16;
-    const uint32_t kc = k_sm + (c & 1) * SLOT, vc = v_sm + (c & 1) * SLOT;
-    for (int jb = 0; active && jb < nb; ++jb) {
-      const int jj = j0 + jb * 16;
-      float s[2][4], dp[2][4];
-      ah_chunk<KS, RECOMP>(qa, oa, kc + jb * BLK + b_off,
-                           vc + jb * BLK + b_off, s, dp);
-      if (RECOMP && jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
+    if constexpr (RECOMP) {
+      if (j0 + AS_KC > N) as_mask_cols(s, j0 + 2 * t, N);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) {
-          const int i = r0 + 8 * (c4 >> 1);
-          const int j = jj + nt * 8 + 2 * t + (c4 & 1);
-          float p;
-          if (RECOMP)
-            p = exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1])) * il[c4 >> 1];
-          else
-            p = (i < N && j < N) ? to_f(P[pbase + (long long)i * N + j])
-                                 : 0.0f;
-          s[nt][c4] = p;
-          dp[nt][c4] = p * (dp[nt][c4] - delta[c4 >> 1]);
+        for (int q = 0; q < 4; ++q)
+          s[4 * j + q] =
+              exp2f(fmaf(s[4 * j + q], c2, -mc[q >> 1])) * il[q >> 1];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 p = p_pair(slot, j0, j, hh);
+          s[4 * j + 2 * hh] = p.x;
+          s[4 * j + 2 * hh + 1] = p.y;
         }
-      uint32_t a[4];
-      ah_as_a(dp, a);
-      ah_accumulate<HD>(dq, a, kc + jb * BLK + a_off);
-      if constexpr (CAT) {
-        ah_as_a(s, a);
-        ah_accumulate<HD>(cat, a, vc + jb * BLK + a_off);
-      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        dp[4 * j + q] = s[4 * j + q] * (dp[4 * j + q] - delta[q >> 1]);
+    as_frag(dp, ads);
+    if constexpr (CAT) as_frag(s, ap);
+    wgmma_fence();
+    if (c + 1 < nch) issue(s, dp, it + 1);
+    as_issue_rs(dq, ads, slot, c);
+    if constexpr (CAT) as_issue_rs(cat, ap, slot + AS_BOX, c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    as_keep(dq);
+    as_keep(ads);
+    if constexpr (CAT) {
+      as_keep(cat);
+      as_keep(ap);
+    }
+    release(it);
   }
-  if (active) {
-    bf16* dq_out = dqg + item * L.dq_item + (long long)h * HD;
-    if constexpr (MODE == AH_FLASH)
-      ah_store<HD, true>(dq, qscale, dq_out, L.dq_row, r0, N, lane, nullptr);
-    else
-      ah_store<HD>(dq, scale, dq_out, L.dq_row, r0, N, lane,
-                   part ? red + warp * HD : nullptr);
-    if constexpr (CAT)
-      ah_store<HD>(cat, 1.0f, catg + ob, L.do_row, r0, N, lane, nullptr);
-  }
-  if (!part) return;
-  __syncthreads();
-  const int nw = (nq + 15) / 16;  // the active warps, in order
-  for (int d = tid; d < HD; d += nthr) {
+  float* redp = reinterpret_cast<float*>(as_raw + (red - smem_u32(as_raw)));
+  bf16* dq_out = g.dq + (long long)item * g.g_item + h * HD;
+  if constexpr (MODE == AH_FLASH)
+    as_store<HD, true>(dq, g.qscale, dq_out, g.g_row, r0, N, lane, nullptr);
+  else
+    as_store<HD>(dq, g.scale, dq_out, g.g_row, r0, N, lane,
+                 g.part ? redp + (4 * wg + warp) * HD : nullptr);
+  if constexpr (CAT)
+    as_store<HD>(cat, 1.0f, g.cat + (long long)item * g.o_item + h * HD,
+                 g.o_row, r0, N, lane, nullptr);
+  if (!g.part) return;
+  as_bar(3, 256);
+  for (int d = threadIdx.x; d < HD; d += 256) {
     float v = 0.0f;
-    for (int w = 0; w < nw; ++w) v += red[w * HD + d];
-    part[((item * nqb + qz) * 3) * (long long)(H * HD) + h * HD + d] = v;
+    for (int w = 0; w < 8; ++w) v += redp[w * HD + d];
+    g.part[((long long)(item * gridDim.z + qz) * 3) * (g.H * HD) + h * HD +
+           d] = v;
   }
 }
 
-template <int HD, int MODE>
-__global__ void __launch_bounds__(AS_WARPS * 32, 1)
-attn_bwd_head_cols_stream_kernel(const bf16* qg, const bf16* kg,
-                                 const bf16* vg, const bf16* dog,
-                                 const bf16* P, bf16* dkg, bf16* dvg,
-                                 float* part, const float* stats,
-                                 HeadLayout L, int N, float scale,
-                                 float qscale, float c2) {
+template <int HD, int MODE, bool PTMA>
+__global__ void __launch_bounds__(AS_THREADS, 2)
+attn_bwd_head_cols_stream_kernel(const __grid_constant__ AsBwdArgs g) {
   constexpr bool RECOMP = MODE != AH_SAVED;
-  constexpr int LD = HD + AH_PAD;
+  constexpr bool TP = !RECOMP && PTMA;
   constexpr int KS = HD / 16;
-  constexpr int DT = HD / 8;
-  constexpr uint32_t BLK = 16 * LD * 2;
-  constexpr uint32_t SLOT = AS_KC * LD * 2;
-  extern __shared__ __align__(16) uint8_t as_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(as_raw);  // [AS_QB][LD] (the keys)
-  bf16* Vs = Ks + AS_QB * LD;                  // [AS_QB][LD]
-  bf16* Qs = Vs + AS_QB * LD;                  // ring [2][AS_KC][LD]
-  bf16* Os = Qs + 2 * AS_KC * LD;              // ring [2][AS_KC][LD] (dO)
-  float* sst = reinterpret_cast<float*>(Os + 2 * AS_KC * LD);
-  // sst: ring [2][3][AS_KC] of the queries' max * c2, 1 / sum and delta
-  float* red = sst + 2 * 3 * AS_KC;  // [2][warps][HD]: dK, dV column sums
+  constexpr uint32_t QBOX = AS_QC * 64 * 2;  // a 32-row box
+  // Q, dO [, P: 32 queries x 128 keys as two boxes], the statistics
+  constexpr uint32_t STATS = (TP ? 4 : 2) * QBOX;
+  constexpr uint32_t STAGE = STATS + 1024;
+  extern __shared__ uint8_t as_raw[];
+  const uint32_t kt = (smem_u32(as_raw) + 1023u) & ~1023u;  // K, 2 boxes
+  const uint32_t vt = kt + 2 * AS_BOX;                     // V, 2 boxes
+  const uint32_t ring = vt + 2 * AS_BOX;
+  const uint32_t red = ring + AS_ST * STAGE;  // [2][8 warps][HD] f32
+  const uint32_t kbar = red + 2 * 8 * 64 * 4;
+  const uint32_t full = kbar + 8, cnt = full + 8 * AS_ST;
 
-  const int h = blockIdx.x, H = gridDim.x;
-  const long long item = blockIdx.y;
-  const int kz = blockIdx.z, nkb = gridDim.z;
-  const int k0 = kz * AS_QB, nk = min(AS_QB, N - k0);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool active = warp * 16 < nk;
-  const long long ib = item * L.in_item + (long long)h * HD;
-  const long long ob = item * L.do_item + (long long)h * HD;
-  const long long pbase = (item * H + h) * (long long)N * N;
-  const float* sbase = stats + (item * H + h) * (long long)N * 3;
-  const int nch = (N + AS_KC - 1) / AS_KC;
-
-  // the queries' statistics of chunk `c` into ring slot `slot`; rows past
-  // N get zeros (their Q and dO are zero too, so P and dS are 0 there)
-  auto load_stats = [&](int c, int slot) {
-    float* dst = sst + slot * 3 * AS_KC;
-    for (int e = tid; e < 3 * AS_KC; e += nthr) {
-      const int which = e / AS_KC, r = e % AS_KC, i = c * AS_KC + r;
-      dst[e] = i < N ? sbase[(long long)i * 3 + which] : 0.0f;
+  const int h = blockIdx.x, item = blockIdx.y, kz = blockIdx.z;
+  const int k0 = kz * AS_QB, N = g.N;
+  const int nch = (N + AS_QC - 1) / AS_QC;
+  const int lane = threadIdx.x & 31;
+  const float* sbase = g.stats + ((long long)item * g.H + h) * N * 3;
+  // chunk it of Q, dO and saved P in tiles (lane 0's TMA), and the
+  // queries' max * c2, 1 / sum and delta, [3][AS_QC], every lane's loads
+  // (rows past N get zeros: their Q and dO are zero too, so P and dS are 0
+  // there).  A warp calls it; each lane arrives once on the full barrier.
+  auto load = [&](int it) {
+    const int st = it % AS_ST;
+    const int i0 = it * AS_QC;
+    const uint32_t slot = ring + st * STAGE, fb = full + 8 * st;
+    for (int e = lane; e < 3 * AS_QC; e += 32) {
+      const int which = e / AS_QC, i = i0 + e % AS_QC;
+      as_st_f32(slot + STATS + 4 * e,
+                i < N ? sbase[(long long)i * 3 + which] : 0.0f);
     }
-  };
-  // Q of chunk `c` (pre-scaled in flash mode: this thread's own pieces,
-  // once its copies have landed) and dO into ring slot `slot`
-  auto load_qo = [&](int c, int slot) {
-    ah_load_chunk<HD>(Qs + slot * AS_KC * LD, qg + ib, L.in_row, c * AS_KC, N,
-                      tid, nthr);
-    ah_load_chunk<HD>(Os + slot * AS_KC * LD, dog + ob, L.do_row, c * AS_KC,
-                      N, tid, nthr);
-  };
-
-  ah_load_tile<HD>(Ks, kg + ib + (long long)k0 * L.in_row, L.in_row, nk,
-                   AS_QB, tid, nthr);
-  ah_load_tile<HD>(Vs, vg + ib + (long long)k0 * L.in_row, L.in_row, nk,
-                   AS_QB, tid, nthr);
-  ah_cp_commit();
-  load_qo(0, 0);
-  load_stats(0, 0);
-  ah_cp_commit();
-  ah_cp_wait_pending<1>();  // the block's K and V have landed
-  __syncthreads();
-
-  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
-  const uint32_t q_sm = ah_smem(Qs), o_sm = ah_smem(Os);
-  const uint32_t ka = ah_smem(Ks) + warp * BLK + a_off;
-  const int j0 = k0 + warp * 16 + g;  // this thread's keys: j0 and j0 + 8
-  uint32_t va[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ah_ldsm(va[ks], ah_smem(Vs) + warp * BLK + a_off + ks * 32);
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) { dk[nt][c4] = 0.0f; dv[nt][c4] = 0.0f; }
-
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      load_qo(c + 1, (c + 1) & 1);
-      load_stats(c + 1, (c + 1) & 1);
-      ah_cp_commit();
-      ah_cp_wait_pending<1>();
+    __syncwarp();
+    if (lane == 0) {
+      mbar_expect_tx(fb, (TP ? 4 : 2) * QBOX);
+      tma_load(slot, &g.qc.map, fb, g.qc.col + h * HD, i0, item);
+      tma_load(slot + QBOX, &g.oc.map, fb, g.oc.col + h * HD, i0, item);
+      if (TP)
+        for (int b = 0; b < 2; ++b)
+          tma_load(slot + (2 + b) * QBOX, &g.pc, fb, k0 + 64 * b, i0,
+                   item * g.H + h);
     } else {
-      ah_cp_wait_pending<0>();
+      mbar_arrive(fb);
     }
-    if (MODE == AH_FLASH)
-      ah_prescale_tile<HD>(Qs + (c & 1) * AS_KC * LD, qscale,
-                           min(AS_KC, N - c * AS_KC), tid, nthr);
-    __syncthreads();
-    const int i0 = c * AS_KC;
-    const int nb = (min(AS_KC, N - i0) + 15) / 16;
-    const uint32_t qc = q_sm + (c & 1) * SLOT, oc = o_sm + (c & 1) * SLOT;
-    const float* sm = sst + (c & 1) * 3 * AS_KC;
-    for (int ib2 = 0; active && ib2 < nb; ++ib2) {
-      float sT[2][4], dpT[2][4];
-      ah_chunk<KS, RECOMP>(ka, va, qc + ib2 * BLK + b_off,
-                           oc + ib2 * BLK + b_off, sT, dpT);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4) {
-          const int j = j0 + 8 * (c4 >> 1);
-          const int r = ib2 * 16 + nt * 8 + 2 * t + (c4 & 1);  // in chunk
-          const int i = i0 + r;
-          float p;
-          if (RECOMP)
-            p = j < N ? exp2f(fmaf(sT[nt][c4], c2, -sm[r])) * sm[AS_KC + r]
-                      : 0.0f;
-          else
-            p = (i < N && j < N) ? to_f(P[pbase + (long long)i * N + j])
-                                 : 0.0f;
-          sT[nt][c4] = p;
-          dpT[nt][c4] = p * (dpT[nt][c4] - sm[2 * AS_KC + r]);
-        }
-      uint32_t a[4];
-      ah_as_a(dpT, a);
-      ah_accumulate<HD>(dk, a, qc + ib2 * BLK + a_off);
-      ah_as_a(sT, a);
-      ah_accumulate<HD>(dv, a, oc + ib2 * BLK + a_off);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(kbar, 1);
+    for (int s = 0; s < AS_ST; ++s) {
+      mbar_init(full + 8 * s, 32);  // a warp's lanes
+      as_st32(cnt + 4 * s, 0u);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(kbar, 4 * AS_BOX);
+    for (int b = 0; b < 2; ++b) {
+      tma_load(kt + b * AS_BOX, &g.k.map, kbar, g.k.col + h * HD,
+               k0 + 64 * b, item);
+      tma_load(vt + b * AS_BOX, &g.v.map, kbar, g.v.col + h * HD,
+               k0 + 64 * b, item);
+    }
   }
-  if (active) {
-    const long long ob2 = item * L.dq_item + (long long)h * HD;
-    // flash: dK = dS^T . qm, the pre-scaled q (the ring holds it), unscaled
-    ah_store<HD>(dk, MODE == AH_FLASH ? 1.0f : scale, dkg + ob2, L.dq_row,
-                 j0, N, lane, part ? red + warp * HD : nullptr);
-    ah_store<HD>(dv, 1.0f, dvg + ob2, L.dq_row, j0, N, lane,
-                 part ? red + (AS_WARPS + warp) * HD : nullptr);
-  }
-  if (!part) return;
   __syncthreads();
-  const int nw = (nk + 15) / 16;
-  for (int e = tid; e < 2 * HD; e += nthr) {
+  if (threadIdx.x < 32)
+    for (int it = 0; it < AS_ST; ++it) load(it);
+
+  // warpgroup wg owns keys k0 + 64 wg .. + 63
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127, warp = tid >> 5;
+  const int t = lane & 3, jl = 16 * warp + (lane >> 2);
+  const int j0 = k0 + 64 * wg + jl;  // this thread's keys: j0 and j0 + 8
+  const uint32_t ka = kt + wg * AS_BOX, va = vt + wg * AS_BOX;
+  const float c2 = g.c2;
+  const bf16* pbase = RECOMP ? nullptr
+                             : g.P + ((long long)item * g.H + h) * N * N;
+  auto release = [&](int it) {
+    if (as_release(cnt + 4 * (it % AS_ST), lane) && it + AS_ST < nch)
+      load(it + AS_ST);
+  };
+  mbar_wait(kbar, 0);
+  float dk[32], dv[32];
+  for (int c = 0; c < nch; ++c) {
+    const int st = c % AS_ST;
+    const uint32_t slot = ring + st * STAGE;
+    mbar_wait(full + 8 * st, (c / AS_ST) & 1);
+    if (MODE == AH_FLASH) {
+      as_prescale(slot, QBOX, g.qscale, threadIdx.x, 256);
+      as_fence_async();
+      as_bar(3, 256);
+    }
+    float sT[16], dpT[16];
+    wgmma_fence();
+    if constexpr (RECOMP) as_issue_ss<KS>(sT, ka, slot);
+    as_issue_ss<KS>(dpT, va, slot + QBOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if constexpr (RECOMP) as_keep(sT);
+    as_keep(dpT);
+    const int i0 = c * AS_QC;
+    const uint32_t sm = slot + STATS;
+    // P^T and dS^T, rounded into the A fragments as they are formed:
+    // columns 8j + 2t + e of rows jl + 8 hh are a[j / 2][2 (j % 2) + hh]
+    uint32_t ap[2][4], ads[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p[2][2], ds[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 8 * j + 2 * t + e;  // the query, in the chunk
+        const float dlt = as_ld_f32(sm + 4 * (2 * AS_QC + r));
+        float mr = 0.0f, ilr = 0.0f;
+        if constexpr (RECOMP) {
+          mr = as_ld_f32(sm + 4 * r);
+          ilr = as_ld_f32(sm + 4 * (AS_QC + r));
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          float pv;
+          if constexpr (RECOMP) {
+            pv = j0 + 8 * hh < N ? exp2f(fmaf(sT[x], c2, -mr)) * ilr : 0.0f;
+          } else if constexpr (TP) {
+            pv = as_ld_bf16(slot + (2 + wg) * QBOX + as_sw(r, jl + 8 * hh));
+          } else {
+            const int i = i0 + r, jj = j0 + 8 * hh;
+            pv = (i < N && jj < N) ? to_f(pbase[(long long)i * N + jj]) : 0.0f;
+          }
+          p[hh][e] = pv;
+          ds[hh][e] = pv * (dpT[x] - dlt);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        ap[j >> 1][2 * (j & 1) + hh] = ah_pack(p[hh][0], p[hh][1]);
+        ads[j >> 1][2 * (j & 1) + hh] = ah_pack(ds[hh][0], ds[hh][1]);
+      }
+    }
+    wgmma_fence();
+    as_issue_rs(dv, ap, slot + QBOX, c);
+    as_issue_rs(dk, ads, slot, c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    as_keep(dv);
+    as_keep(dk);
+    as_keep(ap);
+    as_keep(ads);
+    release(c);
+  }
+  float* redp = reinterpret_cast<float*>(as_raw + (red - smem_u32(as_raw)));
+  const long long ob = (long long)item * g.g_item + h * HD;
+  // flash: dK = dS^T . qm, the pre-scaled q (the ring holds it), unscaled
+  as_store<HD>(dk, MODE == AH_FLASH ? 1.0f : g.scale, g.dk + ob, g.g_row, j0,
+               N, lane, g.part ? redp + (4 * wg + warp) * HD : nullptr);
+  as_store<HD>(dv, 1.0f, g.dv + ob, g.g_row, j0, N, lane,
+               g.part ? redp + (8 + 4 * wg + warp) * HD : nullptr);
+  if (!g.part) return;
+  as_bar(3, 256);
+  for (int e = threadIdx.x; e < 2 * HD; e += 256) {
     const int which = e / HD, d = e % HD;
     float v = 0.0f;
-    for (int w = 0; w < nw; ++w) v += red[(which * AS_WARPS + w) * HD + d];
-    part[((item * nkb + kz) * 3 + 1 + which) * (long long)(H * HD) + h * HD +
-         d] = v;
+    for (int w = 0; w < 8; ++w) v += redp[(which * 8 + w) * HD + d];
+    g.part[((long long)(item * gridDim.z + kz) * 3 + 1 + which) *
+               (g.H * HD) + h * HD + d] = v;
   }
 }
 
-// The streamed kernels' shared memory, whatever N: the rows kernel's Q and
-// dO blocks, its K and V ring and the warps' dQ column sums; the column
-// kernel's K and V blocks, its Q and dO ring, the statistics ring and the
-// dK and dV column sums.
-__host__ __device__ inline size_t attn_bwd_head_rows_stream_smem(int hd) {
-  return (size_t)(2 * AS_QB + 4 * AS_KC) * (hd + AH_PAD) * sizeof(bf16) +
-         (size_t)AS_WARPS * hd * sizeof(float);
+// The streamed kernels' shared memory, whatever N (and whatever hd): the
+// row kernel's Q and dO boxes, its ring (K, V and with P tiles P) and the
+// warps' dQ column sums; the column kernel's K and V boxes, its ring (Q,
+// dO, with P tiles P, and the statistics) and the dK and dV column sums.
+__host__ __device__ inline size_t attn_bwd_head_rows_stream_smem(bool tiles) {
+  return 1024 + (size_t)(4 + AS_ST * (tiles ? 4 : 2)) * AS_BOX +
+         8 * 64 * 4 + 8 * (1 + AS_ST) + 4 * AS_ST;
 }
-__host__ __device__ inline size_t attn_bwd_head_cols_stream_smem(int hd) {
-  return (size_t)(2 * AS_QB + 4 * AS_KC) * (hd + AH_PAD) * sizeof(bf16) +
-         (size_t)(2 * 3 * AS_KC + 2 * AS_WARPS * hd) * sizeof(float);
+__host__ __device__ inline size_t attn_bwd_head_cols_stream_smem(bool tiles) {
+  return 1024 + (size_t)4 * AS_BOX +
+         (size_t)AS_ST * ((tiles ? 4 : 2) * AS_QC * 128 + 1024) +
+         2 * 8 * 64 * 4 + 8 * (1 + AS_ST) + 4 * AS_ST;
 }
 
 // Rows of the part buffer an item takes: 1 resident, one a query block
@@ -715,33 +787,73 @@ inline int attn_part_rows(int N) {
   return attn_streams_keys(N) ? (N + AS_QB - 1) / AS_QB : 1;
 }
 
-template <int HD, int MODE>
-int attn_bwd_head_stream_launch(const bf16* q, const bf16* k, const bf16* v,
-                                const bf16* dO, const bf16* P, bf16* dq,
-                                bf16* dk, bf16* dv, bf16* cat, float* part,
-                                float* stats, const HeadLayout& L, int items,
-                                int H, int N, float scale, float qscale,
+template <int HD, int MODE, bool PTMA>
+int attn_bwd_head_stream_launch(const AsBwdArgs& g, int items,
                                 cudaStream_t st) {
-  auto rows = attn_bwd_head_rows_stream_kernel<HD, MODE>;
-  auto cols = attn_bwd_head_cols_stream_kernel<HD, MODE>;
-  const size_t smem_r = attn_bwd_head_rows_stream_smem(HD);
-  const size_t smem_c = attn_bwd_head_cols_stream_smem(HD);
+  auto rows = attn_bwd_head_rows_stream_kernel<HD, MODE, PTMA>;
+  auto cols = attn_bwd_head_cols_stream_kernel<HD, MODE, PTMA>;
+  const bool tiles = MODE == AH_SAVED && PTMA;
+  const size_t smem_r = attn_bwd_head_rows_stream_smem(tiles);
+  const size_t smem_c = attn_bwd_head_cols_stream_smem(tiles);
   cudaFuncSetAttribute(rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_r);
   cudaFuncSetAttribute(cols, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem_c);
   FC_CHECK();
-  const dim3 grid(H, items, (N + AS_QB - 1) / AS_QB);
-  const float c2 = scale * AH_LOG2E;
-  rows<<<grid, AS_WARPS * 32, smem_r, st>>>(q, k, v, dO, P, dq, cat, part,
-                                            stats, L, N, scale, qscale, c2);
+  const dim3 grid(g.H, items, (g.N + AS_QB - 1) / AS_QB);
+  rows<<<grid, AS_THREADS, smem_r, st>>>(g);
   FC_CHECK();
-  cols<<<grid, AS_WARPS * 32, smem_c, st>>>(q, k, v, dO, P, dk, dv, part,
-                                            stats, L, N, scale, qscale, c2);
+  cols<<<grid, AS_THREADS, smem_c, st>>>(g);
   FC_CHECK();
   return 0;
 }
 
+// The maps and scalars of one streamed backward; q, k, v, dO as AsSrc,
+// dq / dk / dv rows at item * g_item + r * g_row, cat rows as dO's.
+template <int MODE>
+int attn_bwd_head_stream(const AsSrc& q, const AsSrc& k, const AsSrc& v,
+                         const AsSrc& o, const bf16* P, bf16* dq, bf16* dk,
+                         bf16* dv, long long g_item, int g_row, bf16* cat,
+                         float* part, float* stats, int items, int H, int N,
+                         int hd, float scale, float qscale, cudaStream_t st) {
+  AsBwdArgs g = {};
+  int err;
+  if ((err = as_map(&g.q.map, q, N, items)) ||
+      (err = as_map(&g.k.map, k, N, items)) ||
+      (err = as_map(&g.v.map, v, N, items)) ||
+      (err = as_map(&g.o.map, o, N, items)) ||
+      (err = as_map(&g.qc.map, q, N, items, AS_QC)) ||
+      (err = as_map(&g.oc.map, o, N, items, AS_QC)))
+    return err;
+  g.q.col = g.qc.col = q.col; g.k.col = k.col; g.v.col = v.col;
+  g.o.col = g.oc.col = o.col;
+  const bool ptma = MODE == AH_SAVED && as_p_tiles(P, N);
+  if (ptma) {
+    const AsSrc p = {P, (long long)N * N, N, N, 0};
+    if ((err = as_map(&g.p, p, N, items * H)) ||
+        (err = as_map(&g.pc, p, N, items * H, AS_QC)))
+      return err;
+  }
+  g.P = P; g.dq = dq; g.dk = dk; g.dv = dv;
+  g.g_item = g_item; g.g_row = g_row;
+  g.cat = cat; g.o_item = o.item; g.o_row = o.row;
+  g.part = part; g.stats = stats;
+  g.N = N; g.H = H;
+  g.scale = scale; g.qscale = qscale; g.c2 = scale * AH_LOG2E;
+#define FC_AS_BWD(HD_)                                                      \
+  if (hd == HD_) {                                                          \
+    if constexpr (MODE == AH_SAVED) {                                       \
+      if (ptma)                                                             \
+        return attn_bwd_head_stream_launch<HD_, MODE, true>(g, items, st);  \
+    }                                                                       \
+    return attn_bwd_head_stream_launch<HD_, MODE, false>(g, items, st);     \
+  }
+  FC_AS_BWD(16)
+  FC_AS_BWD(32)
+  FC_AS_BWD(64)
+#undef FC_AS_BWD
+  return (int)cudaErrorInvalidValue;
+}
 // Four tiles, the row statistics and, with column sums, their staging.
 inline size_t attn_bwd_head_smem(int N, int hd, bool colsums) {
   const int nblk = (N + 15) / 16, NP = nblk * 16;
@@ -769,34 +881,44 @@ int attn_bwd_head_launch(const bf16* q, const bf16* k, const bf16* v,
   return 0;
 }
 
-// hd in {16, 32, 64}, or cudaErrorInvalidValue.  mode AH_SAVED reads P;
+// hd in {16, 32, 64}, or cudaErrorInvalidValue.  MODE AH_SAVED reads P;
 // AH_RECOMP writes cat [as dO]; AH_FLASH takes qscale (and scale = 1), a
-// null part and no cat.  Past AT_RESIDENT_N the streamed kernels run: they
+// null part and no cat (a template argument, so that each caller builds
+// only the kernels of its modes).  Past AT_RESIDENT_N the streamed kernels run: they
 // take stats [items, H, N, 3] f32 (or cudaErrorInvalidValue) and write part
-// as [items * attn_part_rows(N), 3, H*hd].
-inline int attn_bwd_head(const bf16* q, const bf16* k, const bf16* v,
-                         const bf16* dO, const bf16* P, bf16* dq, bf16* dk,
-                         bf16* dv, bf16* cat, float* part, float* stats,
-                         const HeadLayout& L, int items, int H, int N, int hd,
-                         float scale, float qscale, int mode,
-                         cudaStream_t st) {
+// as [items * attn_part_rows(N), 3, H*hd].  packed = D where k = q + D and
+// v = q + 2D are the packed qkv layout's columns (one map over its rows),
+// 0 where q, k and v are separate tensors.
+template <int MODE>
+int attn_bwd_head(const bf16* q, const bf16* k, const bf16* v,
+                  const bf16* dO, const bf16* P, bf16* dq, bf16* dk, bf16* dv,
+                  bf16* cat, float* part, float* stats, const HeadLayout& L,
+                  int items, int H, int N, int hd, float scale, float qscale,
+                  int packed, cudaStream_t st) {
   if (N < 1) return (int)cudaErrorInvalidValue;
-  const bool stream = attn_streams_keys(N);
-  if (stream && !stats) return (int)cudaErrorInvalidValue;
-#define FC_HEAD(HD_, MODE_)                                                 \
-  if (hd == HD_ && mode == MODE_)                                           \
-    return stream ? attn_bwd_head_stream_launch<HD_, MODE_>(                \
-                        q, k, v, dO, P, dq, dk, dv, cat, part, stats, L,    \
-                        items, H, N, scale, qscale, st)                     \
-                  : attn_bwd_head_launch<HD_, MODE_>(q, k, v, dO, P, dq,    \
-                                                     dk, dv, cat, part, L,  \
-                                                     items, H, N, scale,    \
-                                                     qscale, st);
-#define FC_HEADS(MODE_) FC_HEAD(16, MODE_) FC_HEAD(32, MODE_) FC_HEAD(64, MODE_)
-  FC_HEADS(AH_SAVED)
-  FC_HEADS(AH_RECOMP)
-  FC_HEADS(AH_FLASH)
-#undef FC_HEADS
+  if (attn_streams_keys(N)) {
+    if (!stats) return (int)cudaErrorInvalidValue;
+    AsSrc qs = {q, L.in_item, L.in_row, L.in_row, 0}, ks = qs, vs = qs;
+    if (packed) {
+      ks.col = packed;
+      vs.col = 2 * packed;
+    } else {
+      ks.ptr = k;
+      vs.ptr = v;
+    }
+    const AsSrc os = {dO, L.do_item, L.do_row, L.do_row, 0};
+    return attn_bwd_head_stream<MODE>(qs, ks, vs, os, P, dq, dk, dv,
+                                      L.dq_item, L.dq_row, cat, part, stats,
+                                      items, H, N, hd, scale, qscale, st);
+  }
+#define FC_HEAD(HD_)                                                        \
+  if (hd == HD_)                                                            \
+    return attn_bwd_head_launch<HD_, MODE>(q, k, v, dO, P, dq, dk, dv, cat, \
+                                           part, L, items, H, N, scale,     \
+                                           qscale, st);
+  FC_HEAD(16)
+  FC_HEAD(32)
+  FC_HEAD(64)
 #undef FC_HEAD
   return (int)cudaErrorInvalidValue;
 }

@@ -49,6 +49,7 @@
 
 #include "attn_core.cuh"
 #include "attn_mma.cuh"
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -214,192 +215,270 @@ attn_fwd_head_kernel(const bf16* qg, const bf16* kg, const bf16* vg, bf16* og,
   }
 }
 
-// The streamed forward (N > AT_RESIDENT_N): grid (H, items, ceil(N /
-// AS_QB)), AS_WARPS warps, one 16-query block each.  The block's queries
-// stay in shared memory; K (pass 1) and K and V (pass 2) stream through a
-// two-slot cp.async ring of AS_KC-key chunks, the next chunk in flight
-// while the current one is used.  Per 16-key block the arithmetic is the
-// resident kernel's, in the same order, so the two passes and the rounding
-// of P before P . V are as above.  P, when saved, is stored from the
-// fragments (pairs of keys at even N), not staged.
-template <int HD, bool SAVE>
-__global__ void __launch_bounds__(AS_WARPS * 32, 2)
-attn_fwd_head_stream_kernel(const bf16* qg, const bf16* kg, const bf16* vg,
-                            bf16* og, bf16* P, CoreLayout L, int N, float c2,
-                            float qscale) {
-  constexpr int LD = HD + AH_PAD;
+// The streamed forward (N > AT_RESIDENT_N), redesigned for Hopper: grid
+// (H, items, ceil(N / AS_QB)), AS_THREADS threads (attn_wgmma.cuh), two
+// blocks an SM.  The block's 128 queries are loaded once; the head's keys
+// stream in AS_KC-key chunks through the ring, twice: pass 1 K alone,
+// pass 2 K and V.  Each warpgroup owns 64 query rows:
+//   pass 1  S = Q.K^T (SS wgmma), two chunks a batch, the row max (of the
+//           raw products; scale > 0) and the sum carried under it;
+//   pass 2  S again, P = T(exp2(c2 s - c2 max) * (1 / sum)), whose rounded
+//           accumulator is the A operand of O += P.V (RS wgmma, V read
+//           MN-major); P(c).V(c) and the next chunk's S are one batch.
+// Two passes, not an online softmax, as the resident kernel above: P is
+// rounded after normalisation and before P.V, as the TPU kernels round it.
+// Padded keys (the last chunk's rows past N, TMA's zero fill) score -inf;
+// padded query rows are computed and not stored.
+//
+// The P store (SAVE).  With PTMA (as_p_tiles: N % 8 == 0) each warpgroup
+// writes its rounded 64 x 64 P tile into a swizzled staging box and one
+// thread sends the box out with a TMA store, which clips the ragged edges.
+// Without PTMA the rows of P are not 16-byte aligned and the fragments are
+// stored directly, key pair by key pair at even N, element by element at
+// odd N: the second path, chosen by shape in attn_fwd_head_stream.
+//
+// What bounds it: at N = 512, hd = 64 two exp2 an element of S (16 a clock
+// an SM) and the three N^2 products; the bytes of q, k, v and o (and P when
+// saved) come next.  Shared memory: 64 KB, 96 KB with the P staging,
+// whatever N, so two blocks share an SM.
+template <int HD, bool SAVE, bool PTMA>
+__global__ void __launch_bounds__(AS_THREADS, 2)
+attn_fwd_head_stream_kernel(const __grid_constant__ AsFwdArgs g) {
   constexpr int KS = HD / 16;
-  constexpr int DT = HD / 8;
-  constexpr uint32_t BLK = 16 * LD * 2;     // bytes of 16 shared rows
-  constexpr uint32_t SLOT = AS_KC * LD * 2;  // bytes of a ring slot
-  extern __shared__ __align__(16) uint8_t as_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(as_raw);  // [AS_QB][LD]
-  bf16* Ks = Qs + AS_QB * LD;                  // ring [2][AS_KC][LD]
-  bf16* Vs = Ks + 2 * AS_KC * LD;              // ring [2][AS_KC][LD]
+  constexpr bool STAGE_P = SAVE && PTMA;
+  extern __shared__ uint8_t as_raw[];
+  const uint32_t qt = (smem_u32(as_raw) + 1023u) & ~1023u;  // Q, 2 boxes
+  const uint32_t ring = qt + 2 * AS_BOX;                   // AS_ST x {K, V}
+  const uint32_t pst = ring + AS_ST * 2 * AS_BOX;          // [wg] P boxes
+  const uint32_t qbar = pst + (STAGE_P ? 2 * AS_BOX : 0);
+  const uint32_t full = qbar + 8, cnt = full + 8 * AS_ST;
 
-  const int h = blockIdx.x, H = gridDim.x;
-  const long long item = blockIdx.y;
-  const int q0 = blockIdx.z * AS_QB, nq = min(AS_QB, N - q0);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool active = warp * 16 < nq;  // the warp's rows hold a query
-  const long long ib = item * L.in_item + (long long)h * HD;
-  const long long ob = item * L.out_item + (long long)h * HD;
-  const int nch = (N + AS_KC - 1) / AS_KC;
-
-  ah_load_tile<HD>(Qs, qg + ib + (long long)q0 * L.in_row, L.in_row, nq,
-                   AS_QB, tid, nthr);
-  ah_cp_wait();
-  if (qscale != 0.0f) ah_prescale_tile<HD>(Qs, qscale, nq, tid, nthr);
+  const int h = blockIdx.x, item = blockIdx.y;
+  const int q0 = blockIdx.z * AS_QB, N = g.N;
+  const int nch = (N + AS_KC - 1) / AS_KC, iters = 2 * nch;
+  // ring iteration it: pass 1 K of chunk it, pass 2 K and V of it - nch
+  auto load = [&](int it) {
+    const int st = it % AS_ST;
+    const bool p2 = it >= nch;
+    const int j0 = (p2 ? it - nch : it) * AS_KC;
+    const uint32_t slot = ring + st * 2 * AS_BOX, fb = full + 8 * st;
+    mbar_expect_tx(fb, p2 ? 2 * AS_BOX : AS_BOX);
+    tma_load(slot, &g.k.map, fb, g.k.col + h * HD, j0, item);
+    if (p2) tma_load(slot + AS_BOX, &g.v.map, fb, g.v.col + h * HD, j0, item);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < AS_ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      as_st32(cnt + 4 * s, 0u);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(qbar, 2 * AS_BOX);
+    tma_load(qt, &g.q.map, qbar, g.q.col + h * HD, q0, item);
+    tma_load(qt + AS_BOX, &g.q.map, qbar, g.q.col + h * HD, q0 + 64, item);
+    for (int it = 0; it < AS_ST; ++it) load(it);
+  }
   __syncthreads();
 
-  const uint32_t a_off = ah_a_off<HD>(lane), b_off = ah_b_off<HD>(lane);
-  const uint32_t k_sm = ah_smem(Ks), v_sm = ah_smem(Vs);
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ah_ldsm(qa[ks], ah_smem(Qs) + warp * BLK + a_off + ks * 32);
-  const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = q0 + 64 * wg + 16 * warp + (lane >> 2);  // and r0 + 8
+  const uint32_t qa = qt + wg * AS_BOX;
+  const float c2 = g.c2;
+  // this warp is done with ring iteration it; the last of the eight to be
+  // done refills its stage
+  auto release = [&](int it) {
+    if (as_release(cnt + 4 * (it % AS_ST), lane) && lane == 0 &&
+        it + AS_ST < iters)
+      load(it + AS_ST);
+  };
+  mbar_wait(qbar, 0);
+  if (g.qscale != 0.0f) {
+    as_prescale(qa, AS_BOX, g.qscale, tid, 128);
+    as_fence_async();
+    as_bar(1 + wg, 128);
+  }
 
-  // pass 1: row max (of the raw products; scale > 0) and sum
+  // pass 1: row max and sum, two chunks' S a wgmma batch
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
-  ah_cp_commit();
-  for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      ah_load_chunk<HD>(Ks + ((c + 1) & 1) * AS_KC * LD, kg + ib, L.in_row,
-                        (c + 1) * AS_KC, N, tid, nthr);
-      ah_cp_commit();
-      ah_cp_wait_pending<1>();
-    } else {
-      ah_cp_wait_pending<0>();
-    }
-    __syncthreads();
+  auto stats = [&](float (&s)[32], int c) {
+    as_keep(s);
+    release(c);
     const int j0 = c * AS_KC;
-    const int nb = (min(AS_KC, N - j0) + 15) / 16;
-    const uint32_t kc = k_sm + (c & 1) * SLOT;
-    for (int jb = 0; active && jb < nb; ++jb) {
-      float s[2][4];
-      ah_scores<KS>(qa, kc + jb * BLK + b_off, s);
-      const int jj = j0 + jb * 16;
-      if (jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
-      float cm[2];
+    if (j0 + AS_KC > N) as_mask_cols(s, j0 + 2 * t, N);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        cm[r] = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                      fmaxf(s[1][2 * r], s[1][2 * r + 1]));
-        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 1));
-        cm[r] = fmaxf(cm[r], __shfl_xor_sync(0xffffffffu, cm[r], 2));
-        const float mn = fmaxf(m[r], cm[r]);
-        l[r] *= exp2f((m[r] - mn) * c2);
-        m[r] = mn;
-      }
-      const float mc[2] = {m[0] * c2, m[1] * c2};
+    for (int hh = 0; hh < 2; ++hh) {
+      float cm = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int j = 0; j < 8; ++j)
+        cm = fmaxf(cm, fmaxf(s[4 * j + 2 * hh], s[4 * j + 2 * hh + 1]));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 1));
+      cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 2));
+      const float mn = fmaxf(m[hh], cm);
+      l[hh] *= exp2f((m[hh] - mn) * c2);
+      m[hh] = mn;
+      const float mc = mn * c2;
 #pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4)
-          l[c4 >> 1] += exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1]));
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          l[hh] += exp2f(fmaf(s[4 * j + 2 * hh + e], c2, -mc));
     }
-    __syncthreads();
+  };
+  // S of ring iteration it into s, issued (the caller commits)
+  auto issue_s = [&](float (&s)[32], int it) {
+    const int st = it % AS_ST;
+    mbar_wait(full + 8 * st, (it / AS_ST) & 1);
+    as_issue_ss<KS>(s, qa, ring + st * 2 * AS_BOX);
+  };
+  for (int c = 0; c < nch; c += 2) {
+    float sa[32], sb[32];
+    const bool two = c + 1 < nch;
+    wgmma_fence();
+    issue_s(sa, c);
+    if (two) issue_s(sb, c + 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    stats(sa, c);
+    if (two) stats(sb, c + 1);
   }
-  float il[2];
+  float il[2], mc[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    il[r] = 1.0f / l[r];
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    il[hh] = 1.0f / l[hh];
+    mc[hh] = m[hh] * c2;
   }
-  const float mc[2] = {m[0] * c2, m[1] * c2};
 
-  // pass 2: P and O, K and V through the ring
-  float o[DT][4];
-#pragma unroll
-  for (int nt = 0; nt < DT; ++nt)
-#pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) o[nt][c4] = 0.0f;
-  bf16* prow = SAVE ? P + (item * H + h) * (long long)N * N : nullptr;
-  ah_load_chunk<HD>(Ks, kg + ib, L.in_row, 0, N, tid, nthr);
-  ah_load_chunk<HD>(Vs, vg + ib, L.in_row, 0, N, tid, nthr);
-  ah_cp_commit();
+  // pass 2: P and O.  P(c).V(c) and the next chunk's S are one wgmma batch.
+  float o[32], s[32];
+  uint32_t a[4][4];
+  bf16* prow = SAVE ? g.P + ((long long)item * g.H + h) * N * N : nullptr;
+  wgmma_fence();
+  issue_s(s, nch);
+  wgmma_commit();
+  wgmma_wait<0>();
   for (int c = 0; c < nch; ++c) {
-    if (c + 1 < nch) {
-      const int slot = ((c + 1) & 1) * AS_KC * LD;
-      ah_load_chunk<HD>(Ks + slot, kg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_load_chunk<HD>(Vs + slot, vg + ib, L.in_row, (c + 1) * AS_KC, N, tid,
-                        nthr);
-      ah_cp_commit();
-      ah_cp_wait_pending<1>();
-    } else {
-      ah_cp_wait_pending<0>();
-    }
-    __syncthreads();
+    const int it = nch + c;
+    as_keep(s);
     const int j0 = c * AS_KC;
-    const int nb = (min(AS_KC, N - j0) + 15) / 16;
-    const uint32_t kc = k_sm + (c & 1) * SLOT, vc = v_sm + (c & 1) * SLOT;
-    for (int jb = 0; active && jb < nb; ++jb) {
-      float s[2][4];
-      ah_scores<KS>(qa, kc + jb * BLK + b_off, s);
-      const int jj = j0 + jb * 16;
-      if (jj + 16 > N) ah_mask_keys(s, jj + 2 * t, N);
+    if (j0 + AS_KC > N) as_mask_cols(s, j0 + 2 * t, N);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c4 = 0; c4 < 4; ++c4)
-          s[nt][c4] = exp2f(fmaf(s[nt][c4], c2, -mc[c4 >> 1])) * il[c4 >> 1];
-      uint32_t a[4];
-      ah_as_a(s, a);
-      if constexpr (SAVE) {
-        if ((N & 1) == 0) {
-          // even N: each key pair is one aligned 4-byte word of a row of P
+      for (int q = 0; q < 4; ++q)
+        s[4 * j + q] = exp2f(fmaf(s[4 * j + q], c2, -mc[q >> 1])) * il[q >> 1];
+    as_frag(s, a);
+    if constexpr (STAGE_P) {
+      // a[kk][q]: row 16 warp + lane/4 + 8 (q & 1), keys 16 kk + 8 (q >> 1)
+      // + 2t, +1 of the warpgroup's tile
+      const uint32_t buf = pst + wg * AS_BOX;
+      if (c > 0) {
+        if (tid == 0) as_bulk_wait_read<0>();  // the last store has read it
+        as_bar(1 + wg, 128);
+      }
+      const int rl = 16 * warp + (lane >> 2);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int i = r0 + 8 * (q & 1);
-            const int j = jj + (q >> 1) * 8 + 2 * t;
-            if (i < N && j < N)
-              *reinterpret_cast<uint32_t*>(prow + (long long)i * N + j) = a[q];
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          as_st32(buf + as_sw(rl + 8 * (q & 1), 16 * kk + 8 * (q >> 1) + 2 * t),
+                  a[kk][q]);
+      as_fence_async();
+      as_bar(1 + wg, 128);
+      if (tid == 0) {
+        as_tma_store(&g.p, buf, j0, q0 + 64 * wg, item * g.H + h);
+        as_bulk_commit();
+      }
+    } else if constexpr (SAVE) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = r0 + 8 * (q & 1);
+          const int j = j0 + 16 * kk + 8 * (q >> 1) + 2 * t;
+          if (i >= N || j >= N) continue;
+          bf16* p = prow + (long long)i * N + j;
+          if ((N & 1) == 0) {
+            *reinterpret_cast<uint32_t*>(p) = a[kk][q];
+          } else {
+            *reinterpret_cast<uint16_t*>(p) = (uint16_t)(a[kk][q] & 0xffffu);
+            if (j + 1 < N)
+              *reinterpret_cast<uint16_t*>(p + 1) = (uint16_t)(a[kk][q] >> 16);
           }
-        } else {
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int c4 = 0; c4 < 4; ++c4) {
-              const int i = r0 + 8 * (c4 >> 1);
-              const int j = jj + nt * 8 + 2 * t + (c4 & 1);
-              if (i < N && j < N)
-                prow[(long long)i * N + j] = from_f<bf16>(s[nt][c4]);
-            }
         }
-      }
-      ah_accumulate<HD>(o, a, vc + jb * BLK + a_off);
     }
-    __syncthreads();
+    wgmma_fence();
+    if (c + 1 < nch) issue_s(s, it + 1);
+    as_issue_rs(o, a, ring + (it % AS_ST) * 2 * AS_BOX + AS_BOX, c);
+    wgmma_commit();
+    wgmma_wait<0>();
+    as_keep(o);
+    as_keep(a);
+    release(it);
   }
-  if (active) ah_store<HD>(o, 1.0f, og + ob, L.out_row, r0, N, lane, nullptr);
+  as_store<HD>(o, 1.0f, g.o + (long long)item * g.o_item + h * HD, g.o_row,
+               r0, N, lane, nullptr);
+  if (STAGE_P && tid == 0) as_bulk_wait_all();
 }
 
-// Three tiles' worth of rows (the queries and two ring slots each of K and
-// V), whatever N.
-__host__ __device__ inline size_t attn_fwd_head_stream_smem(int hd) {
-  return (size_t)(AS_QB + 4 * AS_KC) * (hd + AH_PAD) * sizeof(bf16);
+// The streamed forward's shared memory, whatever N (and whatever hd): the
+// queries, the ring and, with P stored in tiles, its staging boxes.
+__host__ __device__ inline size_t attn_fwd_head_stream_smem(bool stage_p) {
+  return 1024 + (size_t)(2 + 2 * AS_ST + (stage_p ? 2 : 0)) * AS_BOX +
+         8 * (1 + AS_ST) + 4 * AS_ST;
 }
 
-template <int HD, bool SAVE>
-int attn_fwd_head_stream_launch(const bf16* q, const bf16* k, const bf16* v,
-                                bf16* o, bf16* P, const CoreLayout& L,
-                                int items, int H, int N, float scale,
-                                float qscale, cudaStream_t st) {
-  auto kern = attn_fwd_head_stream_kernel<HD, SAVE>;
-  const size_t smem = attn_fwd_head_stream_smem(HD);
+template <int HD, bool SAVE, bool PTMA>
+int attn_fwd_head_stream_launch(const AsFwdArgs& g, int items,
+                                cudaStream_t st) {
+  auto kern = attn_fwd_head_stream_kernel<HD, SAVE, PTMA>;
+  const size_t smem = attn_fwd_head_stream_smem(SAVE && PTMA);
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   FC_CHECK();
-  kern<<<dim3(H, items, (N + AS_QB - 1) / AS_QB), AS_WARPS * 32, smem, st>>>(
-      q, k, v, o, P, L, N, scale * AH_LOG2E, qscale);
+  kern<<<dim3(g.H, items, (g.N + AS_QB - 1) / AS_QB), AS_THREADS, smem, st>>>(
+      g);
   FC_CHECK();
   return 0;
+}
+
+// The maps and scalars of one streamed forward: q, k, v as AsSrc (the
+// packed layout's one map, or three), o [items, N, ...] at o_item / o_row,
+// P [items, H, N, N] or null.
+inline int attn_fwd_head_stream(const AsSrc& q, const AsSrc& k,
+                                const AsSrc& v, bf16* o, long long o_item,
+                                int o_row, bf16* P, int items, int H, int N,
+                                int hd, float scale, float qscale,
+                                cudaStream_t st) {
+  AsFwdArgs g = {};
+  int err;
+  if ((err = as_map(&g.q.map, q, N, items)) ||
+      (err = as_map(&g.k.map, k, N, items)) ||
+      (err = as_map(&g.v.map, v, N, items)))
+    return err;
+  g.q.col = q.col; g.k.col = k.col; g.v.col = v.col;
+  const bool ptma = as_p_tiles(P, N);
+  if (ptma) {
+    const AsSrc p = {P, (long long)N * N, N, N, 0};
+    if ((err = as_map(&g.p, p, N, items * H))) return err;
+  }
+  g.o = o; g.o_item = o_item; g.o_row = o_row;
+  g.P = P; g.N = N; g.H = H;
+  g.c2 = scale * AH_LOG2E; g.qscale = qscale;
+#define FC_AS_FWD(HD_)                                                       \
+  if (hd == HD_)                                                             \
+    return !P ? attn_fwd_head_stream_launch<HD_, false, false>(g, items, st) \
+           : ptma ? attn_fwd_head_stream_launch<HD_, true, true>(g, items, st) \
+                  : attn_fwd_head_stream_launch<HD_, true, false>(g, items, st);
+  FC_AS_FWD(16)
+  FC_AS_FWD(32)
+  FC_AS_FWD(64)
+#undef FC_AS_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 inline size_t attn_fwd_head_smem(int N, int hd) {
@@ -435,22 +514,26 @@ inline bool attn_fwd_head_takes(int N, int hd) {
   return (hd == 16 || hd == 32 || hd == 64) && N >= 1;
 }
 
-// The arguments of attn_core_fwd<bf16>; cudaErrorInvalidValue where
+// The arguments of attn_core_fwd<bf16>, q, k and v separate tensors (each
+// row L.in_row elements wide); cudaErrorInvalidValue where
 // attn_fwd_head_takes is false.
 inline int attn_fwd_head(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                          bf16* P, const CoreLayout& L, int items, int H, int N,
                          int hd, float scale, float qscale, cudaStream_t st) {
   if (!attn_fwd_head_takes(N, hd)) return (int)cudaErrorInvalidValue;
+  if (attn_streams_keys(N)) {
+    const AsSrc qs = {q, L.in_item, L.in_row, L.in_row, 0};
+    AsSrc ks = qs, vs = qs;
+    ks.ptr = k;
+    vs.ptr = v;
+    return attn_fwd_head_stream(qs, ks, vs, o, L.out_item, L.out_row, P,
+                                items, H, N, hd, scale, qscale, st);
+  }
 #define FC_AF_LAUNCH(HD)                                                      \
-  return attn_streams_keys(N)                                                 \
-      ? (P ? attn_fwd_head_stream_launch<HD, true>(                           \
-                 q, k, v, o, P, L, items, H, N, scale, qscale, st)            \
-           : attn_fwd_head_stream_launch<HD, false>(                          \
-                 q, k, v, o, P, L, items, H, N, scale, qscale, st))           \
-      : (P ? attn_fwd_head_launch<HD, true>(q, k, v, o, P, L, items, H, N,    \
+  return P ? attn_fwd_head_launch<HD, true>(q, k, v, o, P, L, items, H, N,    \
                                             scale, qscale, st)                \
            : attn_fwd_head_launch<HD, false>(q, k, v, o, P, L, items, H, N,   \
-                                             scale, qscale, st))
+                                             scale, qscale, st)
   if (hd == 16) FC_AF_LAUNCH(16);
   if (hd == 32) FC_AF_LAUNCH(32);
   FC_AF_LAUNCH(64);
@@ -459,13 +542,22 @@ inline int attn_fwd_head(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // The fused sublayer's packed layout, as attn_core_fwd_packed: qkv [items,
 // N, 3D] (q | k | v), the head concat cat [items, N, D], P [items, H, N, N]
-// or null.
+// or null.  Streamed, q, k and v are one map over qkv's rows.
 inline int attn_fwd_head_packed(const bf16* qkv, bf16* P, bf16* cat, int items,
                                 int N, int D, int H, cudaStream_t st) {
   const int hd = D / H;
+  const float scale = 1.0f / sqrtf((float)hd);
+  if (attn_streams_keys(N) && attn_fwd_head_takes(N, hd)) {
+    const AsSrc q = {qkv, (long long)N * 3 * D, 3 * D, 3 * D, 0};
+    AsSrc k = q, v = q;
+    k.col = D;
+    v.col = 2 * D;
+    return attn_fwd_head_stream(q, k, v, cat, (long long)N * D, D, P, items,
+                                H, N, hd, scale, 0.0f, st);
+  }
   const CoreLayout L = {(long long)N * 3 * D, 3 * D, (long long)N * D, D};
   return attn_fwd_head(qkv, qkv + D, qkv + 2 * D, cat, P, L, items, H, N, hd,
-                       1.0f / sqrtf((float)hd), 0.0f, st);
+                       scale, 0.0f, st);
 }
 
 }  // namespace

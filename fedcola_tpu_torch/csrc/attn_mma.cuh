@@ -43,24 +43,14 @@ __device__ __forceinline__ void ah_cp_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The streamed kernels' ring: close this thread's group of copies, and wait
-// until at most PENDING of its groups are still in flight.
-__device__ __forceinline__ void ah_cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING>
-__device__ __forceinline__ void ah_cp_wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
 constexpr int AH_PAD = 8;  // bf16 elements of padding a shared-memory row
 
-// The streamed kernels (N > AT_RESIDENT_N): a block owns AS_QB query rows
-// (the column pass: key rows), 16 a warp, and the other operand streams
-// through a two-slot ring of AS_KC-row chunks.
+// The streamed kernels (N > AT_RESIDENT_N, attn_wgmma.cuh): a block owns
+// AS_QB query rows (the column pass: key rows), and the other operand
+// streams through a ring of AS_KC-row chunks (the column pass: AS_QC).
 constexpr int AS_QB = 128;
 constexpr int AS_KC = 64;
-constexpr int AS_WARPS = AS_QB / 16;
+constexpr int AS_QC = 32;
 
 // Element offset in a tile of the 16-byte piece `piece` of row `row`.
 template <int HD>
@@ -126,16 +116,6 @@ __device__ __forceinline__ void ah_load_tile(bf16* tile, const bf16* src,
     else
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
-}
-
-// Rows [r0, r0 + AS_KC) of one head's operand, those past N zeroed, into
-// a ring slot (ah_load_tile's pieces, so ah_prescale_tile applies).
-template <int HD>
-__device__ __forceinline__ void ah_load_chunk(bf16* slot, const bf16* src,
-                                              int row_stride, int r0, int N,
-                                              int tid, int nthr) {
-  ah_load_tile<HD>(slot, src + (long long)r0 * row_stride, row_stride,
-                   min(AS_KC, N - r0), AS_KC, tid, nthr);
 }
 
 // tile = T(tile * qscale) on the pieces this thread copied in

@@ -18,7 +18,8 @@
 //     pair: q, k, v, do as padded bf16 tiles in shared memory (117 KB at
 //     N=197), q pre-scaled and rounded there, every product an mma.sync,
 //     no statistics through memory.  Past N = 256 its streamed row and
-//     column kernels, the row statistics through the scratch stats.
+//     column kernels (Hopper: TMA + wgmma, attn_wgmma.cuh), the row
+//     statistics through the scratch stats.
 //     Rounding, where it departs from the TPU kernel: _bwd_kernel keeps P
 //     and dS in f32 through every product; here they are handed on as bf16
 //     A fragments (dv = T(P)^T . do, dq = T(dS) . k, dk = T(dS)^T . qm), and
@@ -562,12 +563,11 @@ extern "C" int fc_flash_bwd(int dtype, int pairs, int N, int hd, float qscale,
   if (dtype == 1 && (hd == 16 || hd == 32 || hd == 64)) {
     const long long item = (long long)N * hd;
     const HeadLayout L = {item, hd, item, hd, item, hd};
-    return attn_bwd_head(
+    return attn_bwd_head<AH_FLASH>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), nullptr,
         static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        nullptr, nullptr, stats, L, pairs, 1, N, hd, 1.0f, qscale, AH_FLASH,
-        st);
+        nullptr, nullptr, stats, L, pairs, 1, N, hd, 1.0f, qscale, 0, st);
   }
   if (dtype == 1)
     return flash_bwd_impl<bf16>(pairs, N, hd, qscale, q, k, v, dout, dq, dk,

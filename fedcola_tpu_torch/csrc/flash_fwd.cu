@@ -22,8 +22,9 @@
 //     of attn_core.cuh (one warp per query row, K and V in shared memory as
 //     f32).
 // Each keeps the keys resident up to N = 256 and streams them past it
-// (a block per 128 or 64 queries; ops/kernels.py streams_keys).  The flash
-// route sends N > 1024 to plain attention before any launch
+// (a block per 128 or 64 queries; ops/kernels.py streams_keys); the bf16
+// streamed kernel is the Hopper one of attn_wgmma.cuh (TMA + wgmma).  The
+// flash route sends N > 1024 to plain attention before any launch
 // (ops/flash_attention.py), as the JAX package does.
 #include "attn_fwd_core.cuh"
 

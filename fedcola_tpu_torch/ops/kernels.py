@@ -98,12 +98,15 @@ def plan_row_splits(rows: int, out_rows: int, out_cols: int):
 # attn_bwd_core.cuh, attn_bwd.cu, flash_bwd.cu) keep a head's keys resident
 # in shared memory up to N = RESIDENT_MAX_SEQ and stream them past it.  The
 # streamed kernels' blocks and chunks, as the C side defines them: the
-# tensor-core kernels own 128 query (column pass: key) rows a block and
-# ring 64-row chunks (AS_QB, AS_KC); the CUDA-core kernels own 64 query
-# rows a block and load 32-key chunks (AT_QR, AT_KC), their column passes
-# 32 keys (AB_KR, the fused route) or 64 (FB_KR, flash).
+# bf16 tensor-core kernels (csrc/attn_wgmma.cuh) own 128 query (column
+# pass: key) rows a block and stream chunks of 64 rows (AS_KC; the column
+# pass 32, AS_QC) as 64-column TMA boxes (AS_BOX bytes at 64 rows) through
+# a ring of AS_ST stages; the
+# CUDA-core kernels own 64 query rows a block and load 32-key chunks
+# (AT_QR, AT_KC), their column passes 32 keys (AB_KR, the fused route) or
+# 64 (FB_KR, flash).
 RESIDENT_MAX_SEQ = 256
-AS_QB, AS_KC, AH_PAD = 128, 64, 8
+AS_QB, AS_KC, AS_QC, AS_ST, AS_BOX = 128, 64, 32, 4, 64 * 64 * 2
 AT_QR, AT_KC, AT_WARPS, AB_KR, AB_RC, FB_KR = 64, 32, 8, 32, 32, 64
 SMEM_LIMIT = 232448     # dynamic shared memory a block may take on Hopper
 
@@ -120,19 +123,30 @@ def attn_part_rows(N: int) -> int:
     return -(-N // AS_QB) if streams_keys(N) else 1
 
 
+def p_moves_in_tiles(N: int) -> bool:
+    """Whether the streamed bf16 kernels move the saved P ``[.., N, N]`` in
+    whole 64 x 64 TMA tiles (``as_p_tiles`` in ``csrc/attn_wgmma.cuh``):
+    a row of P is ``2N`` bytes, and a TMA map needs row strides that are
+    multiples of 16 bytes.  Otherwise P is written and read element by
+    element from the fragments, chosen in C by this shape alone."""
+    return N % 8 == 0
+
+
 def stream_smem_bytes(hd: int) -> Dict[str, int]:
     """Dynamic shared memory of each streamed kernel at head_dim ``hd``,
     mirrored from the ``*_stream_smem`` functions of ``csrc/``: a function
-    of hd alone, at every sequence length."""
+    of hd alone, at every sequence length (the bf16 tensor-core kernels'
+    does not depend on hd either; their largest variants, with P in TMA
+    tiles, are given)."""
     bf, f = 2, 4
-    tile = lambda rows: rows * (hd + AH_PAD) * bf   # padded bf16 rows
     core = lambda rows: rows * (hd + 1) * f         # padded f32 rows
+    bars = 8 * (1 + AS_ST) + 4 * AS_ST    # mbarriers and the stage counters
     return {
-        "attn_fwd_head_stream": tile(AS_QB + 4 * AS_KC),
-        "attn_bwd_head_rows_stream": tile(2 * AS_QB + 4 * AS_KC)
-        + (AS_QB // 16) * hd * f,
-        "attn_bwd_head_cols_stream": tile(2 * AS_QB + 4 * AS_KC)
-        + (2 * 3 * AS_KC + 2 * (AS_QB // 16) * hd) * f,
+        "attn_fwd_head_stream": 1024 + (2 + 2 * AS_ST + 2) * AS_BOX + bars,
+        "attn_bwd_head_rows_stream": 1024 + (4 + 4 * AS_ST) * AS_BOX
+        + 8 * 64 * f + bars,
+        "attn_bwd_head_cols_stream": 1024 + 4 * AS_BOX
+        + AS_ST * (4 * AS_QC * 64 * bf + 1024) + 2 * 8 * 64 * f + bars,
         "attn_core_fwd_stream": core(AT_QR + 2 * AT_KC) + AT_WARPS * AT_KC * f,
         "attn_bwd_rows_stream": core(2 * AT_QR + 2 * AT_KC)
         + AT_WARPS * AT_KC * f,

@@ -1,15 +1,17 @@
 """Where one call of the fused attention backward spends its device time.
 
-    python -m fedcola_tpu_torch.profile_attn_bwd
+    python -m fedcola_tpu_torch.profile_attn_bwd [N ...]
 
 Traces ten calls each of ``attn_bwd`` (from the plain forward's saves) and
 ``attn_bwd_recompute`` with ``torch.profiler`` at mome_small's training
-shape (n=2 clients, B=96, D=384, 6 heads, bfloat16) for N=197 and N=40,
-and prints the device time per call of every kernel they launch: the
-Hopper GEMM instantiations, the per-head kernel, LayerNorm and the column
-sums, and a SHA-1 digest of each entry point's outputs (seeded inputs, no
-atomics: two builds that compute the same function the same way print the
-same digests).  Needs a CUDA device.
+shape (n=2 clients, B=96, D=384, 6 heads, bfloat16), and of the flash
+backward at mome_tiny's (3 heads of 64), for each N given (197 and 40 by
+default; 512 is the long-text line's, where the per-head kernels stream
+the keys), and prints the device time per call of every kernel they
+launch: the Hopper GEMM instantiations, the per-head kernels, LayerNorm
+and the column sums, and a SHA-1 digest of each entry point's outputs
+(seeded inputs, no atomics: two builds that compute the same function the
+same way print the same digests).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -38,6 +40,13 @@ def _inputs(n, B, N, D, dev):
         f(n, B, N, D).to(bf)
 
 
+def _flash(n, B, N, dev):
+    """q, k, v, dO [n, B, 3, N, 64] in bf16 (mome_tiny's heads), seeded."""
+    r = np.random.RandomState(N + 1)
+    return [torch.from_numpy(r.randn(n, B, 3, N, 64).astype(np.float32))
+            .to(dev).to(torch.bfloat16) for _ in range(4)]
+
+
 def digest(tensors) -> str:
     """SHA-1 over the bytes of every tensor, in order."""
     h = hashlib.sha1()
@@ -47,18 +56,21 @@ def digest(tensors) -> str:
     return h.hexdigest()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    from fedcola_tpu_torch.ops import flash_attention as fl
     from fedcola_tpu_torch.ops import fused_attention as fa
     if not torch.cuda.is_available():
         raise SystemExit("profile_attn_bwd measures the card: no CUDA device")
     dev = torch.device("cuda")
     n, B, D, H = 2, 96, 384, 6
-    for N in (197, 40):
+    for N in [int(a) for a in (argv or sys.argv[1:])] or (197, 40):
         x, s, w, bproj, da = _inputs(n, B, N, D, dev)
         _, P, cat = fa.attn_fwd_plain(x, s, *w, bproj, H)
+        q, k, v, do = _flash(n, B, N, dev)
         entries = {
             "attn_bwd": lambda: fa.attn_bwd(x, s, *w, P, cat, da, H),
-            "attn_bwd_recompute": lambda: fa.attn_bwd_recompute(x, *w, da, H)}
+            "attn_bwd_recompute": lambda: fa.attn_bwd_recompute(x, *w, da, H),
+            "flash_bwd": lambda: fl.flash_bwd(q, k, v, do, 0.125)}
         for name, fn in entries.items():
             for _ in range(3):
                 outs = fn()

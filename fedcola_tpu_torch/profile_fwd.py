@@ -1,16 +1,19 @@
 """Where one call of each fused forward spends its device time.
 
-    python -m fedcola_tpu_torch.profile_fwd
+    python -m fedcola_tpu_torch.profile_fwd [N ...]
 
 Traces ten calls each of the six forward variants of the fused route with
 ``torch.profiler`` in bfloat16 at mome_small's width (D=384, F=1536, 6
-heads) for N=197 and N=40: ``mlp_fwd`` and ``attn_fwd`` at the training
-shape (n=2 clients, B=96; residual, P saved) and at central eval's (n=1,
-B=500; neither), ``mlp_fwd_rows`` and ``mlp_ln_fwd_rows`` on the training
-batch flattened.  Prints the device time per call of every kernel they
-launch: the Hopper GEMM instantiations (the last template argument is the
-epilogue: 1 bias, 3 GELU, 4 residual join), the per-head kernel and
-LayerNorm.  Inputs are seeded; needs a CUDA device.
+heads) for each N given (197 and 40 by default; 512 is the long-text
+line's, where the per-head kernels stream the keys): ``mlp_fwd`` and
+``attn_fwd`` at the training shape (n=2 clients, B=96; residual, P saved)
+and at central eval's (n=1, B=500; neither), ``mlp_fwd_rows`` and
+``mlp_ln_fwd_rows`` on the training batch flattened, and the flash forward
+at mome_tiny's shapes (3 heads of 64; n=2, B=96 and n=1, B=500).  Prints
+the device time per call of every kernel they launch: the Hopper GEMM
+instantiations (the last template argument is the epilogue: 1 bias, 3
+GELU, 4 residual join), the per-head kernel and LayerNorm.  Inputs are
+seeded; needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -42,17 +45,27 @@ def _inputs(n, B, N, D, dev):
     return f(n, B, N, D).to(bf), s, ln, attn, mlp
 
 
-def main() -> int:
+def _flash(n, B, N, dev):
+    """q, k, v [n, B, 3, N, 64] in bf16 (mome_tiny's heads), seeded."""
+    r = np.random.RandomState(N + B + 1)
+    return [torch.from_numpy(r.randn(n, B, 3, N, 64).astype(np.float32))
+            .to(dev).to(torch.bfloat16) for _ in range(3)]
+
+
+def main(argv=None) -> int:
+    from fedcola_tpu_torch.ops import flash_attention as fl
     from fedcola_tpu_torch.ops import fused_attention as fa
     from fedcola_tpu_torch.ops import fused_mlp as fm
     if not torch.cuda.is_available():
         raise SystemExit("profile_fwd measures the card: no CUDA device")
     dev = torch.device("cuda")
     D, H = 384, 6
-    for N in (197, 40):
+    for N in [int(a) for a in (argv or sys.argv[1:])] or (197, 40):
         x, s, ln, attn, mlp = _inputs(2, 96, N, D, dev)
         xe, _, lne, attne, mlpe = _inputs(1, 500, N, D, dev)
         xr = x.reshape(2, 96 * N, D)
+        fq, fk, fv = _flash(2, 96, N, dev)
+        eq, ek, ev = _flash(1, 500, N, dev)
         entries = {
             "attn_fwd": lambda: fa.attn_fwd(x, s, *ln, *attn, H, save=True),
             "attn_fwd (eval)": lambda: fa.attn_fwd(xe, None, *lne, *attne, H,
@@ -60,7 +73,9 @@ def main() -> int:
             "mlp_fwd": lambda: fm.mlp_fwd(x, s, *ln, *mlp),
             "mlp_fwd (eval)": lambda: fm.mlp_fwd(xe, None, *lne, *mlpe),
             "mlp_fwd_rows": lambda: fm.mlp_fwd_rows(xr, *mlp),
-            "mlp_ln_fwd_rows": lambda: fm.mlp_ln_fwd_rows(xr, *ln, *mlp)}
+            "mlp_ln_fwd_rows": lambda: fm.mlp_ln_fwd_rows(xr, *ln, *mlp),
+            "flash_fwd": lambda: fl.flash_fwd(fq, fk, fv, 0.125),
+            "flash_fwd (eval)": lambda: fl.flash_fwd(eq, ek, ev, 0.125)}
         for name, fn in entries.items():
             for _ in range(3):
                 fn()

@@ -25,12 +25,14 @@ N = 256, 197, 40 and 1, with bitwise repeats; the two epilogues alone to a
 float32 reference at ragged M and N across a client boundary; and D = 100
 and head_dim 48 to the plain versions on the ``gemm_kernel`` path.  Past
 N = 256 every attention kernel streams the keys: rows 1, 1e, 2 and 5 at
-N = 257 (head_dim 64, 32, 16), 512 and 1536 and the flash kernels at 257,
-512 and 1024 (tensor-core and CUDA-core paths) are held to the plain
-versions in float32 and bfloat16 with bitwise repeats, the flash route
-takes the plain attention at N = 1025, and ``resident_digests`` gives the
-outputs of the resident kernels (N = 256, 197, 40) for a comparison with
-another build.
+N = 257, 300, 333, 512, 513 and 1536 and the flash kernels at 257, 300,
+333, 512, 513 and 1024 (head_dim 64, 32, 16; tensor-core and CUDA-core
+paths) are held to the plain versions in float32 and bfloat16 with
+bitwise repeats, the bf16 entry points are shown to launch the Hopper
+streamed kernels whether P moves in TMA tiles (N = 512) or element by
+element (N = 300), the flash route takes the plain attention at
+N = 1025, and ``resident_digests`` gives the outputs of the resident
+kernels (N = 256, 197, 40) for a comparison with another build.
 
 Marked ``cuda``: every test skips without a CUDA device.  This file imports
 no JAX, so it runs on a machine with only PyTorch:
@@ -715,14 +717,16 @@ def test_forward_path_choice_by_dtype_and_shape(dev):
 # ------------------------------------ long sequences: the keys streamed ----
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,Hm", [(257, 2), (257, 4), (257, 8), (512, 2),
-                                  (1536, 2)])
+@pytest.mark.parametrize("Hm", [2, 4, 8])
+@pytest.mark.parametrize("N", [257, 300, 333, 512, 513, 1536])
 def test_streamed_attention_kernels_match_plain(dev, N, Hm, dtype):
-    """Rows 1, 1e, 2 and 5 past the resident kernels' 256 keys: N = 257
-    (the edge: one key in the last chunk, one query in the last block) at
-    head_dim 64, 32 and 16, 512 (the long line's length) and 1536; every
-    output, P, cat and every gradient against the plain versions, and a
-    second call of each in bf16 gives the first call's bits."""
+    """Rows 1, 1e, 2 and 5 past the resident kernels' 256 keys at head_dim
+    64, 32 and 16: N = 257 (the edge: one key in the last chunk, one query
+    in the last block), 300, 333 and 513 (rows of P not 16-byte aligned:
+    the bf16 kernels write and read P element by element) and 512 (the
+    long line's length) and 1536 (P in TMA tiles); every output, P, cat and
+    every gradient against the plain versions, and a second call of each
+    in bf16 gives the first call's bits."""
     assert kernels.streams_keys(N)
     t = _inputs(ATTN, N, dtype, dev, seed=N + Hm)
     w = [t[k] for k in ATTN[2:8]]
@@ -747,12 +751,13 @@ def test_streamed_attention_kernels_match_plain(dev, N, Hm, dtype):
                                       (torch.bfloat16, 16),
                                       (torch.bfloat16, 48),
                                       (torch.float32, 64)])
-@pytest.mark.parametrize("N", [257, 512, 1024])
+@pytest.mark.parametrize("N", [257, 300, 333, 512, 513, 1024])
 def test_streamed_flash_kernels_match_plain(dev, N, hd, dtype):
     """Rows 11 and 12 past 256 keys, up to the flash route's 1024: the
-    tensor-core kernels (bf16 at head_dim 64, 32, 16) and the CUDA-core
-    ones (head_dim 48, float32), forward and every gradient against the
-    plain versions, and bitwise repeats."""
+    tensor-core kernels (bf16 at head_dim 64, 32, 16; N = 300, 333 and 513
+    leave a ragged last chunk and block) and the CUDA-core ones (head_dim
+    48, float32), forward and every gradient against the plain versions,
+    and bitwise repeats."""
     q, k, v, do = _flash_inputs(N, hd, dtype, dev)
     scale = hd ** -0.5
     got = [fl.flash_fwd(q, k, v, scale)]
@@ -762,6 +767,32 @@ def test_streamed_flash_kernels_match_plain(dev, N, hd, dtype):
     _agree(got, fl.flash_bwd_plain(q, k, v, do, scale), dtype)
     assert all(torch.equal(a, b)
                for a, b in zip(got, fl.flash_bwd(q, k, v, do, scale)))
+
+
+@pytest.mark.parametrize("N", [300, 512])
+def test_streamed_kernels_launched_by_shape(dev, N):
+    """Past 256 keys the bf16 entry points launch the Hopper streamed
+    kernels (TMA + wgmma, ``csrc/attn_wgmma.cuh``) at N = 300, where P is
+    moved element by element, as at N = 512, where it moves in TMA tiles:
+    the second path is chosen by shape in C, not taken after a failure."""
+    t = _inputs(ATTN, N, torch.bfloat16, dev, seed=N)
+    w = [t[k] for k in ATTN[2:8]]
+    _, P, cat = fa.attn_fwd_plain(t["x"], t["s"], *w, H)
+    q, k, v, do = _flash_inputs(N, 64, torch.bfloat16, dev)
+    tiles = str(N == 512).lower()  # P's rows 16-byte aligned
+    assert kernels.p_moves_in_tiles(N) is (N == 512)
+    calls = {
+        f"attn_fwd_head_stream_kernel<64, true, {tiles}>":
+            lambda: fa.attn_fwd(t["x"], t["s"], *w, H),
+        f"attn_bwd_head_rows_stream_kernel<64, 0, {tiles}>":
+            lambda: fa.attn_bwd(t["x"], t["s"], *w[:5], P, cat, t["do"], H),
+        "attn_bwd_head_cols_stream_kernel<64, 2, false>":
+            lambda: fl.flash_bwd(q, k, v, do, 0.125)}
+    for name, call in calls.items():
+        launched = _kernels_of(call)
+        if "kernel" not in launched:
+            pytest.skip("the profiler recorded no kernel on this machine")
+        assert name in launched, (name, launched)
 
 
 def test_flash_route_takes_plain_attention_past_1024(dev):

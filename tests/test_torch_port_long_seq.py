@@ -154,6 +154,35 @@ def test_predicates_and_streamed_shared_memory(N):
         assert max(smem.values()) <= kernels.SMEM_LIMIT, smem
 
 
+@pytest.mark.parametrize("N", [257, 300, 333, 512, 513, 1024, 1536])
+def test_streamed_launch_plan(N):
+    """What Python mirrors of the bf16 streamed kernels' launch plan: the P
+    ``fwd_launch`` allocates (and ``bwd_launch`` passes on) moves in whole
+    TMA tiles exactly where a row of it starts on a 16-byte boundary, as a
+    tensor map's strides must (N = 512, 1024, 1536), and element by
+    element at 257, 300, 333 and 513; a grid block covers 128 queries, one
+    column-sum part row each; and the Hopper kernels' shared memory is the
+    same at every head_dim (and N)."""
+    n, Bm, Dm, Hm = 1, 2, 128, 2
+    z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt)
+    f32 = torch.float32
+    x = z(n, Bm, N, Dm)
+    _, args, (_, P, _) = tat.fwd_launch(
+        x, z(n, Bm, dt=f32), z(n, Dm, dt=f32), z(n, Dm, dt=f32),
+        z(n, Dm, 3 * Dm), z(n, 3 * Dm), z(n, Dm, Dm), z(n, Dm), Hm)
+    assert P.shape == (n, Bm, Hm, N, N) and P.is_contiguous()
+    row_bytes = P.stride(-2) * P.element_size()
+    assert kernels.p_moves_in_tiles(N) is (row_bytes % 16 == 0)
+    assert kernels.p_moves_in_tiles(N) is (N in (512, 1024, 1536))
+    blocks = kernels.attn_part_rows(N)
+    assert (blocks - 1) * kernels.AS_QB < N <= blocks * kernels.AS_QB
+    hopper = ("attn_fwd_head_stream", "attn_bwd_head_rows_stream",
+              "attn_bwd_head_cols_stream")
+    for hd in (16, 32):
+        assert all(kernels.stream_smem_bytes(hd)[k]
+                   == kernels.stream_smem_bytes(64)[k] for k in hopper)
+
+
 def _resident(case):
     """The same launch at N = 256 (the arguments of ``bwd_launch``)."""
     def cut(t):

@@ -34,6 +34,7 @@ from fedcola_tpu_torch.parallel.client_update import (GroupSpec, _take,
                                                       eval_batch,
                                                       eval_forward,
                                                       preprocess_images)
+from fedcola_tpu_torch.utils.profiling import readback, span
 
 
 def extract_features(cfg: MATConfig, spec: GroupSpec, params,
@@ -149,7 +150,9 @@ def evaluate_recall(q_features, g_features, q_classes,
     g = torch.as_tensor(g_features).float().to(q.device)
     best = _best_positive_ranks(
         q, g, torch.as_tensor(np.asarray(q_classes), device=q.device),
-        torch.as_tensor(np.asarray(g_classes), device=q.device)).cpu().numpy()
+        torch.as_tensor(np.asarray(g_classes), device=q.device))
+    with readback():
+        best = best.cpu().numpy()
     scores = {
         "recall_1": float(np.mean(best < 1)),
         "recall_5": float(np.mean(best < 5)),
@@ -196,17 +199,22 @@ def evaluate(cfg: MATConfig, spec: GroupSpec, params, dataset: TaskDataset,
              rng: Optional[np.random.RandomState] = None,
              resident: Optional[Dict[str, torch.Tensor]] = None,
              plan=None) -> Dict:
-    imf, capf, imc, capc = extract_features(cfg, spec, params, dataset,
-                                            batch_size, rng, resident, plan)
+    """The features (span ``.forward``), then the ranking's recalls over
+    the crossfolds and the whole set (``.rank``)."""
+    with span(".forward"):
+        imf, capf, imc, capc = extract_features(
+            cfg, spec, params, dataset, batch_size, rng, resident, plan)
     scores: Dict = {}
-    if n_crossfolds > 0 and len(imf) >= n_crossfolds * 1000:
-        scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc, n_crossfolds)
-    elif n_crossfolds > 0:
-        nipf = max(len(imf) // n_crossfolds, 1)
-        scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc,
-                                           n_crossfolds, nipf)
-    scores["i2t"] = evaluate_recall(imf, capf, imc, capc)
-    scores["t2i"] = evaluate_recall(capf, imf, capc, imc)
+    with span(".rank"):
+        if n_crossfolds > 0 and len(imf) >= n_crossfolds * 1000:
+            scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc,
+                                               n_crossfolds)
+        elif n_crossfolds > 0:
+            nipf = max(len(imf) // n_crossfolds, 1)
+            scores["n_fold"] = evaluate_n_fold(imf, capf, imc, capc,
+                                               n_crossfolds, nipf)
+        scores["i2t"] = evaluate_recall(imf, capf, imc, capc)
+        scores["t2i"] = evaluate_recall(capf, imf, capc, imc)
     for key in ("rsum", "medr", "meanr"):
         scores[key] = scores["i2t"][key] + scores["t2i"][key]
     return scores

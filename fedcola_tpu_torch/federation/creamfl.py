@@ -68,7 +68,7 @@ from fedcola_tpu_torch.parallel.client_update import (build_frozen_mask,
                                                       preprocess_images)
 from fedcola_tpu_torch.parallel.optim import OptimizerSpec, init_opt_state
 from fedcola_tpu_torch.utils.dispatch import pad_batch_indices
-from fedcola_tpu_torch.utils.profiling import Timer
+from fedcola_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -381,22 +381,20 @@ class CreamflServer(FedAvgServer):
 
     # --------------------------------------------------------------- round --
 
-    def update(self):
+    def _update(self):
         cfg = self.cfg
         t0 = time.time()
-        timer = Timer()
-        with timer.section("pub_logit"):
+        with span("pub_logit"):
             self._generate_public_logit()
         self._pub_feats = {}
-        sampled, groups, updated_sizes, uploads = \
-            self._sample_and_train(timer)
+        sampled, groups, updated_sizes, uploads = self._sample_and_train()
         if not sampled:
             return []
 
         client_cfgs = {ds: self.model_cfgs[ds] for ds in groups}
         exp_modalities = cfg.modalities or [DATASET_2_MODALITY[d]
                                             for d in cfg.client_datasets]
-        with timer.section("aggregate"):
+        with span("aggregate"):
             vec = {}
             for mod, other in (("img", self.g_txt), ("txt", self.g_img)):
                 ids = [i for i in sampled if self.clients[i].modality == mod]
@@ -419,7 +417,7 @@ class CreamflServer(FedAvgServer):
                     jobs, weights, self.global_params[ds], uploads)
 
         if "img" in vec and "txt" in vec:
-            with timer.section("distill"):
+            with span("distill"):
                 self._distill(vec["img"], vec["txt"])
         else:
             logger.warning("[CREAMFL] skipping distillation: no %s client "
@@ -429,7 +427,7 @@ class CreamflServer(FedAvgServer):
 
         if self.round % cfg.lr_decay_step == 0:
             self.curr_lr *= cfg.lr_decay
-        self._record_round_time(t0, timer, len(sampled), len(groups))
+        self._record_round_time(t0, len(sampled), len(groups))
         return sampled
 
     def finalize(self):

@@ -114,12 +114,12 @@ class FedOptServer(FedAvgServer):
                             "this param restart from zero", f, name,
                             "m" if has_m else "v")
 
-    def update(self):
+    def _update(self):
         old_globals = dict(self.global_params)
-        # super().update() decays curr_lr at its end: take this round's now
+        # super()._update() decays curr_lr at its end: take this round's now
         round_lr = (self.cfg.server_lr if self.cfg.server_lr is not None
                     else self.curr_lr)
-        sampled = super().update()
+        sampled = super()._update()
         if not sampled:
             return sampled
         # global_params holds the plain aggregate: step from the old globals

@@ -75,7 +75,7 @@ from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
 from fedcola_tpu_torch.parallel.optim import init_opt_state, make_optimizer_spec
 from fedcola_tpu_torch.utils.dispatch import DispatchWindow, pad_batch_indices
 from fedcola_tpu_torch.utils.metrics import MetricManager
-from fedcola_tpu_torch.utils.profiling import Timer
+from fedcola_tpu_torch.utils.profiling import Timer, readback, span
 
 logger = logging.getLogger(__name__)
 
@@ -146,6 +146,9 @@ class FedAvgServer:
         self._train_dataset_cache: Dict[str, object] = {}
         # per-rank figures of a mesh run, written into the results JSON
         self.mesh_stats: Optional[Dict] = None
+        # the spans and counters of the round being run (``_round_timer``)
+        self._timer: Optional[Timer] = None
+        self._timer_round: Optional[int] = None
 
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model_cfgs = {}
@@ -335,42 +338,62 @@ class FedAvgServer:
                            else g.feeder.round_chunks(self.cfg.E))
         return self._close_group(g)
 
+    def _round_timer(self) -> Timer:
+        """The current round's span recorder: its sections and counters are
+        the round's ``round_sections`` and ``round_counters``, which its
+        update and its evaluation both record into."""
+        if self._timer is None or self._timer_round != self.round:
+            res = self.results[self.round]
+            self._timer = Timer(res.setdefault("round_sections", {}),
+                                res.setdefault("round_counters", {}),
+                                cuda=self.device.type == "cuda")
+            self._timer_round = self.round
+        return self._timer
+
     def _open_group(self, ds: str, ids: List[int]) -> GroupRun:
         """The round-start state of one group: the global model stacked for
         its ``n`` clients (under a mesh, this rank's block of them; on a
         ``model`` axis, its shard of that), fresh optimizer state, the
         freeze mask, the feeder of the whole group, the on-device metric
         sums and the group's data plane."""
-        cfg, mcfg = self.cfg, self.model_cfgs[ds]
-        spec, aug, data = self._group_aug_plan(ds, self._group_spec(ds))
-        rows = self.plan.client_rows(len(ids))
-        n = rows.stop - rows.start
-        stacked = stack_clients(self.global_params[ds], n)
-        global_params = self.global_params[ds]
-        tp = self.model_tps[ds]
-        if tp is not None:
-            stacked = tp.cut(stacked)
-            global_params = tp.cut(global_params, lead=0)
-        stacked = tree_map(lambda a: a.requires_grad_(True), stacked)
-        feeder = GroupFeeder([self.data.client_shards[i] for i in ids],
-                             cfg.B, spec.modality,
-                             chunk_steps=cfg.train_chunk_steps,
-                             shuffle=not cfg.no_shuffle,
-                             rng=self.shuffle_rng,
-                             debug_two_batches=cfg.debug, aug=aug)
-        return GroupRun(
-            ds=ds, ids=ids, mcfg=mcfg, spec=spec, stacked=stacked,
-            opt_state=init_opt_state(self.opt_spec, stacked, n),
-            frozen=build_frozen_mask(mcfg, stacked, self._frozen_token(ds)),
-            feeder=feeder,
-            acc={k: torch.zeros(n, dtype=torch.float64, device=self.device)
-                 for k in ("l", "c", "n")},
-            data=data, tp=tp, global_params=global_params)
+        with span(".open"):
+            cfg, mcfg = self.cfg, self.model_cfgs[ds]
+            spec, aug, data = self._group_aug_plan(ds, self._group_spec(ds))
+            rows = self.plan.client_rows(len(ids))
+            n = rows.stop - rows.start
+            stacked = stack_clients(self.global_params[ds], n)
+            global_params = self.global_params[ds]
+            tp = self.model_tps[ds]
+            if tp is not None:
+                stacked = tp.cut(stacked)
+                global_params = tp.cut(global_params, lead=0)
+            stacked = tree_map(lambda a: a.requires_grad_(True), stacked)
+            feeder = GroupFeeder([self.data.client_shards[i] for i in ids],
+                                 cfg.B, spec.modality,
+                                 chunk_steps=cfg.train_chunk_steps,
+                                 shuffle=not cfg.no_shuffle,
+                                 rng=self.shuffle_rng,
+                                 debug_two_batches=cfg.debug, aug=aug)
+            return GroupRun(
+                ds=ds, ids=ids, mcfg=mcfg, spec=spec, stacked=stacked,
+                opt_state=init_opt_state(self.opt_spec, stacked, n),
+                frozen=build_frozen_mask(mcfg, stacked,
+                                         self._frozen_token(ds)),
+                feeder=feeder,
+                acc={k: torch.zeros(n, dtype=torch.float64, device=self.device)
+                     for k in ("l", "c", "n")},
+                data=data, tp=tp, global_params=global_params)
 
     def _train_chunks(self, g: GroupRun, chunks) -> None:
         """Local steps over a group's chunks; the metric sums stay on the
         device until the group closes."""
-        for chunk in Prefetcher(chunks):
+        chunks = Prefetcher(chunks)
+        while True:
+            # the main thread's wait for the feeder thread's next chunk
+            with span(".data"):
+                chunk = next(chunks, None)
+            if chunk is None:
+                break
             ls, cs, ns = run_chunk(g.mcfg, g.spec, self.opt_spec, g.stacked,
                                    g.opt_state, chunk, self.curr_lr,
                                    self.gen, g.frozen, g.global_params,
@@ -385,21 +408,24 @@ class FedAvgServer:
         both are the whole group's, gathered from every rank's block (on a
         ``model`` axis, once the model ranks' copies of the replicated
         leaves are checked equal and the shards all-gathered)."""
-        n = len(g.ids)
-        with torch.no_grad():
-            trained = tree_map(lambda a: a.detach(), g.stacked)
-            if g.tp is not None:
-                self.plan.check_replicated(
-                    {f"{g.ds} client block": g.tp.replicated(trained)},
-                    g.tp.group)
-                trained = g.tp.join(trained)
-            upload = self.plan.gather_clients(
-                fold_aux_into_upload(g.mcfg, trained), n)
-        acc = {k: self.plan.gather_clients(v, n) for k, v in g.acc.items()}
-        return upload, self._readback_group_metrics(acc, g.ds, g.ids)
+        with span(".close"):
+            n = len(g.ids)
+            with torch.no_grad():
+                trained = tree_map(lambda a: a.detach(), g.stacked)
+                if g.tp is not None:
+                    self.plan.check_replicated(
+                        {f"{g.ds} client block": g.tp.replicated(trained)},
+                        g.tp.group)
+                    trained = g.tp.join(trained)
+                upload = self.plan.gather_clients(
+                    fold_aux_into_upload(g.mcfg, trained), n)
+            acc = {k: self.plan.gather_clients(v, n) for k, v in g.acc.items()}
+            return upload, self._readback_group_metrics(acc, g.ds, g.ids)
 
     def _readback_group_metrics(self, acc, ds: str, ids: List[int]):
-        loss_sums, cor, cnt = (acc[k].cpu().numpy() for k in ("l", "c", "n"))
+        with readback():
+            loss_sums, cor, cnt = (acc[k].cpu().numpy()
+                                   for k in ("l", "c", "n"))
         bad = ~np.isfinite(loss_sums)
         if bad.any():
             msg = (f"non-finite training loss in round {self.round} for "
@@ -435,8 +461,9 @@ class FedAvgServer:
         """Abort when aggregation produced a non-finite global parameter
         (it would poison every later round)."""
         for ds, params in self.global_params.items():
-            ok = all(bool(torch.isfinite(l).all())
-                     for l in tree_leaves(params))
+            with readback():
+                ok = all(bool(torch.isfinite(l).all())
+                         for l in tree_leaves(params))
             if not ok:
                 bad = [name for p, name
                        in naming.param_names(self.model_cfgs[ds])
@@ -449,7 +476,7 @@ class FedAvgServer:
 
     # --------------------------------------------------------------- round ---
 
-    def _sample_and_train(self, timer: Timer):
+    def _sample_and_train(self):
         """Sample the round's clients and run every group's local update
         (the ``train`` section).  Returns ``(sampled, groups,
         updated_sizes, uploads)``; ``sampled`` is empty when the warmup
@@ -468,7 +495,7 @@ class FedAvgServer:
             groups[self.clients[i].dataset].append(i)
         updated_sizes = {i: self.clients[i].n_train for i in sampled}
         uploads, round_metrics = {}, {}
-        with timer.section("train"):
+        with span("train"):
             for ds, ids in groups.items():
                 uploads[ds], m = self._train_group(ds, ids)
                 round_metrics.update(m)
@@ -476,11 +503,13 @@ class FedAvgServer:
         return sampled, groups, updated_sizes, uploads
 
     def update(self) -> List[int]:
+        with self._round_timer().recording():
+            return self._update()
+
+    def _update(self) -> List[int]:
         cfg = self.cfg
         t0 = time.time()
-        timer = Timer()
-        sampled, groups, updated_sizes, uploads = \
-            self._sample_and_train(timer)
+        sampled, groups, updated_sizes, uploads = self._sample_and_train()
         if not sampled:
             return []
 
@@ -489,65 +518,74 @@ class FedAvgServer:
         def aggregate_all(fedavg: bool):
             new = {}
             for i, ds in enumerate(self.global_params.keys()):
-                jobs, weights = agg.plan_aggregation(
-                    ds, self.model_cfgs[ds], client_cfgs, self.clients,
-                    sampled, updated_sizes, self.param_scope,
-                    cfg.modalities or [DATASET_2_MODALITY[d]
-                                       for d in cfg.client_datasets],
-                    dict(groups),
-                    out_modality_scale=cfg.out_modality_scales[i]
-                    if i < len(cfg.out_modality_scales) else 1.0,
-                    compensation=cfg.compensation,
-                    share_scope=cfg.share_scope, fedavg=fedavg,
-                    model_modality=DATASET_2_MODALITY[ds],
-                    model_task=DATASET_2_TASK[ds])
-                new[ds] = agg.apply_aggregation(
-                    jobs, weights, self.global_params[ds], uploads)
+                with span(".plan"):
+                    jobs, weights = agg.plan_aggregation(
+                        ds, self.model_cfgs[ds], client_cfgs, self.clients,
+                        sampled, updated_sizes, self.param_scope,
+                        cfg.modalities or [DATASET_2_MODALITY[d]
+                                           for d in cfg.client_datasets],
+                        dict(groups),
+                        out_modality_scale=cfg.out_modality_scales[i]
+                        if i < len(cfg.out_modality_scales) else 1.0,
+                        compensation=cfg.compensation,
+                        share_scope=cfg.share_scope, fedavg=fedavg,
+                        model_modality=DATASET_2_MODALITY[ds],
+                        model_task=DATASET_2_TASK[ds])
+                with span(".apply"):
+                    new[ds] = agg.apply_aggregation(
+                        jobs, weights, self.global_params[ds], uploads)
             return new
 
         if cfg.fedavg_eval:
             # evaluate a plain-fedavg aggregate, then restore
             # (fedavgserver.py:794-806)
             old = self.global_params
-            with timer.section("fedavg_eval"):
+            with span("fedavg_eval"):
                 self.global_params = aggregate_all(fedavg=True)
                 self._central_evaluate(fedavg=True)
             self.global_params = old
 
-        with timer.section("aggregate"):
+        with span("aggregate"):
             self.global_params = aggregate_all(fedavg=False)
             if cfg.with_aux:
-                self.global_params = exchange_aux_weights(
-                    self.global_params, self.model_cfgs,
-                    {ds: DATASET_2_MODALITY[ds] for ds in self.global_params})
-            self.plan.check_replicated(self.global_params)
-            # reads every leaf back: the section holds its device work
-            self._assert_global_finite()
+                with span(".aux"):
+                    self.global_params = exchange_aux_weights(
+                        self.global_params, self.model_cfgs,
+                        {ds: DATASET_2_MODALITY[ds]
+                         for ds in self.global_params})
+            with span(".check"):
+                self.plan.check_replicated(self.global_params)
+                # reads every leaf back: the section holds its device work
+                self._assert_global_finite()
 
         if self.round % cfg.lr_decay_step == 0:
             self.curr_lr *= cfg.lr_decay
-        self._record_round_time(t0, timer, len(sampled), len(groups))
+        self._record_round_time(t0, len(sampled), len(groups))
         return sampled
 
-    def _record_round_time(self, t0: float, timer: Timer, n_sampled: int,
+    def _record_round_time(self, t0: float, n_sampled: int,
                            n_groups: int) -> None:
-        """``round_seconds`` (host clock after a synchronize) and the
-        round's sections."""
+        """``round_seconds`` (host clock after a synchronize) and the log
+        line of the round's sections and counters so far."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize()
+            with readback():
+                torch.cuda.synchronize()
         dt = time.time() - t0
         self.results[self.round]["round_seconds"] = dt
-        self.results[self.round]["round_sections"] = dict(timer.sections)
-        logger.info("[%s] [Round %04d] %d clients in %d groups, %.2fs (%s)",
-                    self.cfg.algorithm.upper(), self.round, n_sampled,
-                    n_groups, dt, timer.summary())
+        timer = self._round_timer()
+        logger.info("[%s] [Round %04d] %d clients in %d groups, %.2fs (%s) "
+                    "[%s]", self.cfg.algorithm.upper(), self.round,
+                    n_sampled, n_groups, dt, timer.summary(),
+                    " ".join(f"{k}={v}" for k, v in timer.refresh().items()))
 
     # ---------------------------------------------------------------- eval ---
 
     @torch.no_grad()
     def _central_evaluate(self, fedavg: bool = False):
         """Evaluate the global models on the server's test sets; with
-        ``fedavg`` the results go under ``server_evaluated_{ds}_fedavg``."""
+        ``fedavg`` the results go under ``server_evaluated_{ds}_fedavg``.
+        Its spans lie in the section it runs in: ``eval`` (``evaluate``),
+        or ``fedavg_eval``."""
         cfg = self.cfg
         t0 = time.time()
         for ds, test in self.data.server_eval.items():
@@ -584,10 +622,12 @@ class FedAvgServer:
             resident = self._resident_eval_data(ds, spec)
 
             def drain_one(logits, idx):
-                logits = logits.float().cpu()
-                y = torch.from_numpy(test.targets[idx].astype(np.int64))
-                mm.track(float(cross_entropy(logits, y)), logits.numpy(),
-                         y.numpy())
+                with span(".drain"):
+                    with readback():
+                        logits = logits.float().cpu()
+                    y = torch.from_numpy(test.targets[idx].astype(np.int64))
+                    mm.track(float(cross_entropy(logits, y)),
+                             logits.numpy(), y.numpy())
 
             def fwd(i):
                 return eval_forward(mcfg, spec, params, eval_batch(
@@ -596,7 +636,9 @@ class FedAvgServer:
             window = DispatchWindow(drain_one)
             for start in range(0, test.n, B):
                 idx = np.arange(start, min(start + B, test.n))
-                window.push(self.plan.eval_rows(fwd, idx), idx)
+                with span(".forward"):
+                    out = self.plan.eval_rows(fwd, idx)
+                window.push(out, idx)
             window.flush()
             mm.aggregate(test.n)
             result = mm.results
@@ -680,9 +722,11 @@ class FedAvgServer:
                     sel = t[s * B:(s + 1) * B]
                     idx[c, s] = pad_batch_indices(sel, B)
                     val[c, s, :len(sel)] = True
-            ls, cs, ns = (a.cpu().numpy() for a in local_eval(
-                self.model_cfgs[ds], spec, self.global_params[ds], idx, val,
-                resident, self.plan))
+            sums = local_eval(self.model_cfgs[ds], spec,
+                              self.global_params[ds], idx, val, resident,
+                              self.plan)
+            with readback():
+                ls, cs, ns = (a.cpu().numpy() for a in sums)
             for j in range(len(gids)):
                 losses.append(float(ls[j] / max(ns[j], 1.0)))
                 sizes.append(len(tidxs[j]))
@@ -732,11 +776,13 @@ class FedAvgServer:
         def drain_one(out, sel):
             if spec.modality == "img+txt":
                 fi, ft = out
-                mm.track(float(clip_contrastive(fi[:len(sel)],
-                                                ft[:len(sel)])),
-                         count=len(sel))
+                with readback():
+                    loss = float(clip_contrastive(fi[:len(sel)],
+                                                  ft[:len(sel)]))
+                mm.track(loss, count=len(sel))
             else:
-                logits = out[:len(sel)].float().cpu()
+                with readback():
+                    logits = out[:len(sel)].float().cpu()
                 y = torch.from_numpy(d.targets[sel].astype(np.int64))
                 mm.track(float(cross_entropy(logits, y)), logits.numpy(),
                          y.numpy())
@@ -760,18 +806,21 @@ class FedAvgServer:
         """``--eval_type`` local / both: the clients' holdout evaluation of
         an eval cohort sampled among the clients not in ``excluded_ids``
         (the reference's ``clients_evaluated_out``, fedavgserver.py:866);
-        global / both: the central evaluation."""
+        global / both: the central evaluation, in the ``eval`` section of
+        the round's spans."""
         cfg = self.cfg
-        if cfg.eval_type != "global":
-            ids = sample_clients(
-                self.sampler, self.client_dataset_of,
-                self.client_modality_of, cfg.client_datasets, self.Cs,
-                cfg.C, cfg.equal_sampled, self.round,
-                exclude=list(excluded_ids),
-                eval_fraction=cfg.eval_fraction, eval_mode=True)
-            self._local_evaluate(ids, participated=False)
-        if cfg.eval_type != "local":
-            self._central_evaluate()
+        with self._round_timer().recording():
+            if cfg.eval_type != "global":
+                ids = sample_clients(
+                    self.sampler, self.client_dataset_of,
+                    self.client_modality_of, cfg.client_datasets, self.Cs,
+                    cfg.C, cfg.equal_sampled, self.round,
+                    exclude=list(excluded_ids),
+                    eval_fraction=cfg.eval_fraction, eval_mode=True)
+                self._local_evaluate(ids, participated=False)
+            if cfg.eval_type != "local":
+                with span("eval"):
+                    self._central_evaluate()
 
     # ------------------------------------------------------------- finalize --
 

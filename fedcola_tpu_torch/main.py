@@ -9,9 +9,10 @@ checkpoint and one reference-format ``<ds>.pt`` state dict per dataset
 under ``<result_path>/<exp_name>/``; ``--wandb`` logs the metrics to wandb
 too when it is installed.  ``--checkpoint_every N`` also saves
 every N rounds to ``<result_path>/<exp_name>/ckpt``; a run that finds that
-directory resumes from it.  ``--profile_every N`` traces the update of
-every N-th round (``<log_path>/trace_round<r>/trace.json``).  Runs on the
-card unless ``--device cpu`` is given.
+directory resumes from it.  ``--profile_every N`` traces every N-th round,
+its update and its evaluation (``<log_path>/trace_round<r>/trace.json``:
+the kernels, and every span of the round as an ``fc_<name>`` range).
+Runs on the card unless ``--device cpu`` is given.
 
 ``--mesh_shape`` / ``--mesh_axes`` (``parallel/mesh.py``) start one rank
 per mesh device on this host and return when all have ended; with
@@ -82,7 +83,9 @@ def cut(flags, changes: dict) -> tuple:
 # The scripts/coco.sh FedCola line (scripts/coco.sh:28-29) at full
 # mome_small width, cut to synthetic data, two clients per group
 # (--Ks 4 4 4 --Cs 0.5), --E 1 --debug and two rounds; no pretrained
-# weights or BERT vocab.  chip_smoke.py and profile_round.py run it.
+# weights or BERT vocab.  chip_smoke.py runs it; ``--profile_every N``
+# traces its rounds (``python3 -m portbench.run --workload
+# coco-pop.mome_small --trace 1`` traces the line at its population).
 MAIN_PATH_FLAGS = cut(POPULATION_FLAGS, {
     "--Ks": ("4", "4", "4"), "--R": "2", "--Cs": "0.5", "--E": "1",
     "--use_bert_tokenizer": None, "--dropout": "0.1",
@@ -323,8 +326,9 @@ def _run(cfg, argv, plan=None):
         with round_trace(cfg.profile_every > 0 and r % cfg.profile_every == 0,
                          cfg.log_path, r):
             server.update()
-        if (cfg.eval_every > 0 and r % cfg.eval_every == 0) or r == cfg.R:
-            server.evaluate([])
+            if (cfg.eval_every > 0 and r % cfg.eval_every == 0) \
+                    or r == cfg.R:
+                server.evaluate([])
         if cfg.checkpoint_every and r % cfg.checkpoint_every == 0 \
                 and rank == 0:
             server.save_checkpoint(ckpt_dir)

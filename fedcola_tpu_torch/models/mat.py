@@ -55,6 +55,7 @@ from fedcola_tpu_torch.ops.fused_attention import (fused_attention,
                                                    fused_attention_residual)
 from fedcola_tpu_torch.ops.fused_mlp import (
     fused_mlp_residual_sublayer_items, fused_mlp_sublayer_items)
+from fedcola_tpu_torch.utils.profiling import span
 
 Params = Dict[str, Any]
 
@@ -350,16 +351,18 @@ def _sublayers(cfg: MATConfig, fused_attn: bool, fused_mlp_: bool,
     ``attn(h) -> a``, ``mlp_join(h1) -> h1 + dp(mlp(h1))`` and the whole
     ``layer(h)``."""
     def attn(h):
-        if fused_attn:
-            return fused_attention(h, *ln1, *attn_w, cfg.num_heads)
-        return multi_head_attention(_layer_norm(h, ln1[0], ln1[1], 1e-5),
-                                    *attn_w, cfg.num_heads,
-                                    use_pallas=flash)
+        with span("mat.attn", timed=False):
+            if fused_attn:
+                return fused_attention(h, *ln1, *attn_w, cfg.num_heads)
+            return multi_head_attention(
+                _layer_norm(h, ln1[0], ln1[1], 1e-5), *attn_w, cfg.num_heads,
+                use_pallas=flash)
 
     def mlp_join(h1):
-        m = fused_mlp_sublayer_items(h1, *ln2, *mlp_w) if fused_mlp_ else \
-            _mlp_plain(h1, ln2, mlp_w)
-        return h1 + _drop_path(m, masks[1], inv)
+        with span("mat.mlp", timed=False):
+            m = fused_mlp_sublayer_items(h1, *ln2, *mlp_w) if fused_mlp_ \
+                else _mlp_plain(h1, ln2, mlp_w)
+            return h1 + _drop_path(m, masks[1], inv)
 
     def layer(h):
         return mlp_join(h + _drop_path(attn(h), masks[0], inv))
@@ -387,15 +390,18 @@ def _tp_layer(cfg: MATConfig, tp: TensorParallel, h, flash: bool, ln1,
         return _ckpt(fn, x) if train else fn(x)
 
     def attn_part(x):
-        xn = tp.enter(_layer_norm(x, ln1[0], ln1[1], 1e-5))
-        return attention_heads(xn, *attn_w[:3], cfg.num_heads // tp.size,
-                               use_pallas=flash).reshape(x.shape)
+        with span("mat.attn", timed=False):
+            xn = tp.enter(_layer_norm(x, ln1[0], ln1[1], 1e-5))
+            return attention_heads(xn, *attn_w[:3],
+                                   cfg.num_heads // tp.size,
+                                   use_pallas=flash).reshape(x.shape)
 
     def mlp_part(x):
-        w = (*mlp_w[:3], torch.zeros_like(mlp_w[3]))
-        if cfg.fused_mlp_ok:
-            return fused_mlp_sublayer_items(tp.enter(x), *ln2, *w)
-        return _mlp_plain(tp.enter(x), ln2, w)
+        with span("mat.mlp", timed=False):
+            w = (*mlp_w[:3], torch.zeros_like(mlp_w[3]))
+            if cfg.fused_mlp_ok:
+                return fused_mlp_sublayer_items(tp.enter(x), *ln2, *w)
+            return _mlp_plain(tp.enter(x), ln2, w)
 
     attn_whole, mlp_join, _ = _sublayers(cfg, False, cfg.fused_mlp_ok, flash,
                                          ln1, attn_w, ln2, mlp_w, masks, inv)
@@ -431,20 +437,24 @@ def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
         return (w.to(dt) if cast else w).contiguous()
 
     for l, rate in enumerate(cfg.drop_path_rates):
-        ln1 = (layer(l, "norm1_scale"), layer(l, "norm1_bias"))
-        ln2 = (layer(l, "norm2_scale"), layer(l, "norm2_bias"))
-        attn_w = [layer(l, k, True) for k in ("qkv_kernel", "qkv_bias",
-                                              "proj_kernel", "proj_bias")]
-        mlp_w = [layer(l, k, True) for k in ("fc1_kernel", "fc1_bias",
-                                             "fc2_kernel", "fc2_bias")]
+        with span("mat.weights", timed=False):
+            ln1 = (layer(l, "norm1_scale"), layer(l, "norm1_bias"))
+            ln2 = (layer(l, "norm2_scale"), layer(l, "norm2_bias"))
+            attn_w = [layer(l, k, True) for k in (
+                "qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias")]
+            mlp_w = [layer(l, k, True) for k in (
+                "fc1_kernel", "fc1_bias", "fc2_kernel", "fc2_bias")]
         masks = [_drop_path_mask(rate, n, B, gen, x.device)
                  if use_dp else None for _ in range(2)]
         if train and policy == "kernel":
             # the residual join and the DropPath scale run in the kernels
             s_a, s_m = (torch.ones((n, B), device=x.device) if m is None
                         else m.float() / (1.0 - rate) for m in masks)
-            h = fused_attention_residual(h, s_a, *ln1, *attn_w, cfg.num_heads)
-            h = fused_mlp_residual_sublayer_items(h, s_m, *ln2, *mlp_w)
+            with span("mat.attn", timed=False):
+                h = fused_attention_residual(h, s_a, *ln1, *attn_w,
+                                             cfg.num_heads)
+            with span("mat.mlp", timed=False):
+                h = fused_mlp_residual_sublayer_items(h, s_m, *ln2, *mlp_w)
             continue
         inv = _keep_inv(rate, dt) if use_dp else None
         if tp is not None:
@@ -561,31 +571,38 @@ def mat_apply_stacked(cfg: MATConfig, params: Params,
         if modality is None or inputs[i] is None:
             continue
         s = str(i)
-        if modality == "img":
-            h = _embed_image(cfg, params["emb"][s], inputs[i], train, gen)
-        else:
-            h = _embed_text(cfg, params["emb"][s], inputs[i], train, gen,
-                            tp)
+        with span("mat.embed", timed=False):
+            if modality == "img":
+                h = _embed_image(cfg, params["emb"][s], inputs[i], train,
+                                 gen)
+            else:
+                h = _embed_text(cfg, params["emb"][s], inputs[i], train,
+                                gen, tp)
         h = _run_stack(cfg, _effective_kernels(cfg, params, s), h, train, gen,
                        tp)
-        h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"],
-                        1e-6)
-        if seq_feat_out:
-            hf = h.float()
-            outs[i] = hf / torch.clamp(hf.norm(dim=-1, keepdim=True),
-                                       min=1e-12)
-            continue
-        cls_tok = h[:, :, 0].float()
-        if feat_out or cfg.tasks[i] == "rtv":
-            norm = cls_tok.norm(dim=-1, keepdim=True)
-            outs[i] = cls_tok / torch.clamp(norm, min=1e-12)
-        elif cfg.tasks[i] == "cls":
-            head = params["head"][s]
-            outs[i] = torch.bmm(cls_tok, head["kernel"].float()) \
-                + head["bias"].float()[:, None, :]
-        else:
-            outs[i] = cls_tok
+        with span("mat.head", timed=False):
+            outs[i] = _head(cfg, params, i, h, feat_out, seq_feat_out)
     return outs
+
+
+def _head(cfg: MATConfig, params: Params, i: int, h: torch.Tensor,
+          feat_out: bool, seq_feat_out: bool) -> torch.Tensor:
+    """Slot ``i``'s output from the stack's ``h``: the final LayerNorm,
+    then the whole normalised sequence, the normalised CLS feature, the
+    class logits or the CLS token (see :func:`mat_apply_stacked`)."""
+    h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"], 1e-6)
+    if seq_feat_out:
+        hf = h.float()
+        return hf / torch.clamp(hf.norm(dim=-1, keepdim=True), min=1e-12)
+    cls_tok = h[:, :, 0].float()
+    if feat_out or cfg.tasks[i] == "rtv":
+        norm = cls_tok.norm(dim=-1, keepdim=True)
+        return cls_tok / torch.clamp(norm, min=1e-12)
+    if cfg.tasks[i] == "cls":
+        head = params["head"][str(i)]
+        return torch.bmm(cls_tok, head["kernel"].float()) \
+            + head["bias"].float()[:, None, :]
+    return cls_tok
 
 
 def mat_apply(cfg: MATConfig, params: Params,

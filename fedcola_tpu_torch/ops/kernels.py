@@ -30,6 +30,8 @@ from typing import Dict, Optional
 
 import torch
 
+from fedcola_tpu_torch.utils.profiling import span
+
 logger = logging.getLogger(__name__)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -276,10 +278,11 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def launch(name: str, *args) -> None:
     """Call entry point ``fc_<name>`` on the current stream; raise if the
-    launch sequence reported a CUDA error."""
+    launch sequence reported a CUDA error.  Under ``torch.profiler`` the
+    call is the range ``fc_<name>``, which the kernels' rooflines read."""
     fn = getattr(library(), "fc_" + name)
     stream = torch.cuda.current_stream().cuda_stream
-    with torch.profiler.record_function("fc_" + name):
+    with span(name, timed=False, device=True):
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel fc_{name} failed with error {err}: "

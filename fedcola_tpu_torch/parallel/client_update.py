@@ -29,6 +29,7 @@ from fedcola_tpu_torch.models.mat import (DTYPES, MATConfig, mat_apply,
 from fedcola_tpu_torch.ops import losses
 from fedcola_tpu_torch.parallel.mesh import MeshPlan, RankDraws
 from fedcola_tpu_torch.parallel.optim import OptimizerSpec, opt_update
+from fedcola_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -367,23 +368,28 @@ def run_chunk(cfg: MATConfig, spec: GroupSpec, opt: OptimizerSpec, params,
     chunk = plan.local_chunk(chunk)
     if data is not None:
         # the whole chunk's index maps in one copy
-        on_dev = to_device_batch(chunk, device)
+        with span(".data"):
+            on_dev = to_device_batch(chunk, device)
     ls, cs, ns = [], [], []
     for s in range(sv_all.shape[1]):
         if not sv_all[:, s].any():
             continue
-        if data is None:
-            batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
-                                     if k != "step_valid"}, device)
-            sv = torch.from_numpy(chunk["step_valid"][:, s].copy()).to(device)
-        else:
-            batch = resident_gather(spec, data, on_dev["idx"][:, s],
-                                    on_dev["valid"][:, s])
-            sv = on_dev["step_valid"][:, s]
-            if spec.device_aug:
-                batch["x"] = _augment_stacked(spec, batch["x"], gen)
-        loss, (correct, n_valid) = _local_loss(cfg, spec, params, batch, gen,
-                                               global_params, data_plan, tp)
+        count("steps")
+        with span(".data"):
+            if data is None:
+                batch = to_device_batch({k: v[:, s] for k, v in chunk.items()
+                                         if k != "step_valid"}, device)
+                sv = torch.from_numpy(
+                    chunk["step_valid"][:, s].copy()).to(device)
+            else:
+                batch = resident_gather(spec, data, on_dev["idx"][:, s],
+                                        on_dev["valid"][:, s])
+                sv = on_dev["step_valid"][:, s]
+                if spec.device_aug:
+                    batch["x"] = _augment_stacked(spec, batch["x"], gen)
+        with span(".forward"):
+            loss, (correct, n_valid) = _local_loss(
+                cfg, spec, params, batch, gen, global_params, data_plan, tp)
         descend(opt, params, opt_state, loss, lr, frozen, sv, data_plan, tp)
         ls.append(loss.detach())
         cs.append(correct)
@@ -423,15 +429,17 @@ def descend(opt: OptimizerSpec, params, opt_state, loss: torch.Tensor,
     rank's cut; the replicated leaves' partial gradients are summed over
     the model ranks, and clipping counts the shards' square sums."""
     leaves = tree_leaves(params)
-    grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    if data_plan is not None:
-        grads = data_plan.sum_over_data(grads)
-    if tp is not None:
-        grads = tp.sum_partial_grads(params, grads)
-    opt_update(opt, params, _unflatten_like(params, grads), opt_state, lr,
-               frozen=frozen, step_valid=step_valid, tp=tp)
+    with span(".backward"):
+        grads = torch.autograd.grad(loss.sum(), leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        if data_plan is not None:
+            grads = data_plan.sum_over_data(grads)
+        if tp is not None:
+            grads = tp.sum_partial_grads(params, grads)
+    with span(".opt"):
+        opt_update(opt, params, _unflatten_like(params, grads), opt_state,
+                   lr, frozen=frozen, step_valid=step_valid, tp=tp)
 
 
 def _unflatten_like(tree, flat):

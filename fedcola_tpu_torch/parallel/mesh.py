@@ -52,6 +52,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fedcola_tpu_torch.utils.profiling import readback
+
 VALID_AXES = ("clients", "data", "model")
 VIRTUAL_DEVICES_ENV = "FEDCOLA_VIRTUAL_DEVICES"
 # how long a rank waits on its peers before a collective fails
@@ -617,8 +619,9 @@ class MeshPlan:
         digest = torch.stack([sum(_bit_sum(t) for t in tree_leaves(trees[k]))
                               for k in names])
         every = all_gather(digest[None], group or self.groups.world)
-        bad = [k for j, k in enumerate(names)
-               if not bool((every[:, j] == every[0, j]).all())]
+        with readback():
+            bad = [k for j, k in enumerate(names)
+                   if not bool((every[:, j] == every[0, j]).all())]
         if bad:
             raise RuntimeError(f"mesh ranks hold different copies of {bad} "
                                f"(rank digests {every.tolist()})")

@@ -48,7 +48,7 @@ CUTS = {"--model_name": "mome_test16_patch16_32", "--resize": "32",
 # images: with 40, every COCO client holds 4 images (20 rows), so no
 # sampled COCO pair could differ in its steps
 COCO, CIFAR, AGNEWS = (44, 12, 32), (800, 200), (400, 100)
-PORT_ONLY = ("eval_seconds", "local_eval_seconds", "mesh")
+PORT_ONLY = ("eval_seconds", "local_eval_seconds", "mesh", "round_counters")
 TIMES = ("round_seconds", "round_sections")
 
 

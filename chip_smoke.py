@@ -51,7 +51,13 @@ result line):
             768 of 1536, a zero b2), both dtypes, bf16 N=197 timed.
             Rows 1-4 also at [population]'s three-client stacks (n=3,
             B=96) and [flickr]'s B=112 (n=2), N in {197, 40}, both
-            dtypes, untimed.
+            dtypes, untimed.  The fused optimizer step (opt_update.cu,
+            no Pallas kernel) at the coco.sh population's three group
+            shapes (CIFAR100 n=3, AG_NEWS n=3, Coco n=2 at mome_small):
+            three masked AdamW steps within 1e-6 of max|ref| of the plain
+            loop, then the kernel, the plain loop and
+            torch.optim.AdamW(fused=True) timed over steps back to back,
+            beside the bound of 28 bytes an element.
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -68,7 +74,8 @@ result line):
             training loss and every eval result bitwise equal to [main]'s;
             both runs' round_seconds and eval_seconds.
 6. tiny     the same line at mome_tiny width (D=192, 3 heads, depth 12):
-            attention through the flash kernels, no fused kernel.
+            attention through the flash kernels, no fused attention or
+            MLP kernel; the optimizer step on its kernel.
    bound    for the mome_small and the mome_tiny line each: the same two
             rounds of training from the same seed on the card (kernels)
             and on the CPU (plain versions), at full width and depth with
@@ -247,6 +254,8 @@ KERNEL_INFO = {
                         "fedcola_tpu/ops/fused_mlp.py:385", "rows"),
     "mlp_ln_bwd_rows": ("fedcola_tpu_torch/csrc/mlp_bwd.cu",
                         "fedcola_tpu/ops/fused_mlp.py:418", "rows"),
+    # no Pallas kernel: the JAX package's update, fused by XLA
+    "opt_update": ("fedcola_tpu_torch/csrc/opt_update.cu", "none", "main"),
 }
 
 
@@ -276,6 +285,27 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def time_back_to_back_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Median over ``reps`` of the per-call device time of ``calls`` calls
+    issued back to back: where the host issues a call faster than the card
+    runs it, the card's time alone."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -921,6 +951,7 @@ def phase_kernels():
                            N, False)
                 torch.cuda.empty_cache()
     check_long_kernels(dev, record)
+    measured["opt_update"] = check_opt(dev, record)
     for name in worst:
         measured[name]["max_abs_err"] = worst[name]
         for shape in ("eval", "distill", "long", "long_eval", "tp"):
@@ -987,6 +1018,97 @@ def check_long_kernels(dev, record):
         f"finite {bool(torch.isfinite(out.float()).all())}")
     if flash_launches or not same or kernels.LAUNCHES["attn_fwd"] != 1:
         raise AssertionError(f"route at N={N}: {dict(kernels.LAUNCHES)}")
+
+
+# the coco.sh population's groups whose optimizer step [kernels] times:
+# (dataset, clients sampled a round), mome_small, AdamW with f32 moments
+OPT_GROUPS = (("CIFAR100", 3), ("AG_NEWS", 3), ("Coco", 2))
+OPT_BYTES = 28              # p, g, m, v read; p, m, v written (float32)
+OPT_FLOPS = 15              # AdamW's operations an element
+
+
+def check_opt(dev, record):
+    """The fused optimizer step (``fc_opt_update``) at the three coco.sh
+    population group shapes (``OPT_GROUPS``: mome_small's leaves under
+    ``main.POPULATION_FLAGS``, stacked over the group's clients): three
+    steps under a mask that leaves a client out against the plain loop
+    (within 1e-6 of max|ref|, counters equal), then timed beside the plain
+    loop, one ``torch.optim.AdamW(fused=True)`` step over the same leaves
+    (the yardstick; the port never calls it) and the bytes bound, each a
+    step's device time over steps issued back to back (the wrapper's host
+    work, about 0.2 ms a step, overlaps the kernel's).  Returns
+    the Coco group's measurements with every group's under "groups"."""
+    import torch
+    from fedcola_tpu_torch import main as m
+    from fedcola_tpu_torch.config import parse_args
+    from fedcola_tpu_torch.models.mat import init_mat, tree_leaves, tree_map
+    from fedcola_tpu_torch.models.registry import build_mat_config
+    from fedcola_tpu_torch.parallel import optim
+    cfg = parse_args(list(m.POPULATION_FLAGS))
+    spec = optim.make_optimizer_spec(cfg)
+    lr = cfg.lr
+    groups = {}
+    for ds, n in OPT_GROUPS:
+        mcfg = build_mat_config(cfg.model_name, cfg, ds)
+        with torch.device("meta"):
+            shapes = tree_map(lambda a: (n,) + tuple(a.shape),
+                              init_mat(mcfg, torch.Generator()))
+        gen = torch.Generator(device=dev).manual_seed(n)
+        params = tree_map(lambda s: torch.randn(
+            s, device=dev, generator=gen) * 0.02, shapes)
+        grads = tree_map(lambda p: torch.randn(
+            p.shape, device=dev, generator=gen) * 1e-3, params)
+        state = optim.init_opt_state(spec, params, n)
+        ref_p = tree_map(lambda a: a.clone(), params)
+        ref_s = tree_map(lambda a: a.clone(), state)
+        sv = torch.tensor([c != 1 for c in range(n)], device=dev)
+        for _ in range(3):
+            optim.opt_update(spec, params, grads, state, lr, step_valid=sv)
+            optim.opt_update_plain(spec, ref_p, grads, ref_s, lr,
+                                   step_valid=sv)
+        worst = 0.0
+        for a, b in zip(tree_leaves(params) + tree_leaves(state),
+                        tree_leaves(ref_p) + tree_leaves(ref_s)):
+            if a.dtype == torch.int32:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"opt_update {ds}: counters differ")
+                continue
+            d = (a - b).abs().max().item()
+            if d > 1e-6 * b.abs().max().item():
+                raise AssertionError(f"opt_update {ds}: max|d| {d:.3e} "
+                                     f"vs max|ref| "
+                                     f"{b.abs().max().item():.3e}")
+            worst = max(worst, d)
+        del ref_p, ref_s
+        elements = sum(p.numel() for p in tree_leaves(params))
+        ms = time_back_to_back_ms(lambda: optim.opt_update(
+            spec, params, grads, state, lr))
+        plain_ms = time_back_to_back_ms(lambda: optim.opt_update_plain(
+            spec, params, grads, state, lr))
+        leaves = [p.detach().clone().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        for p, g in zip(leaves, tree_leaves(grads)):
+            p.grad = g
+        lib = torch.optim.AdamW(leaves, lr=lr, betas=(spec.beta1,
+                                                      spec.beta2),
+                                eps=spec.eps, weight_decay=spec.weight_decay,
+                                fused=True)
+        library_ms = time_back_to_back_ms(lib.step)
+        del lib, leaves, params, grads, state
+        r = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, flops=OPT_FLOPS * elements,
+                 bytes=OPT_BYTES * elements)
+        record({"opt_update": r}, f"{ds},n={n}", torch.float32, 0, True)
+        log(f"[kernels] opt_update {ds} n={n}: {elements} elements, "
+            f"{len(tree_leaves(shapes))} leaves, "
+            f"ms/plain={ms / plain_ms:.3f}")
+        groups[ds] = r
+        torch.cuda.empty_cache()
+    main = dict(groups["Coco"])
+    main["groups"] = {ds: {k: r[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        for ds, r in groups.items()}
+    return main
 
 
 # --------------------------------------------------------------- model ----
@@ -1139,10 +1261,12 @@ def phase_tiny():
     from fedcola_tpu_torch import main as port_main
     loss_bound("tiny", port_main.MOME_TINY_FLAGS)
     launches, _ = run_line("tiny", port_main.MOME_TINY_FLAGS)
-    if not (launches["flash_fwd"] and launches["flash_bwd"]):
-        raise AssertionError(f"mome_tiny never launched flash: {launches}")
+    if not (launches["flash_fwd"] and launches["flash_bwd"]
+            and launches["opt_update"]):
+        raise AssertionError(f"mome_tiny never launched flash or the "
+                             f"optimizer step: {launches}")
     fused = {k: v for k, v in launches.items()
-             if v and not k.startswith("flash")}
+             if v and k.startswith(("attn", "mlp"))}
     if fused:
         raise AssertionError(f"mome_tiny launched fused kernels: {fused}")
     return launches
@@ -1788,7 +1912,7 @@ def phase_long():
                  for prev, flag in zip(("",) + flags, flags))
     tiny_launches, _ = run_line("long-tiny", tiny)
     fused = {k: v for k, v in tiny_launches.items()
-             if v and not k.startswith("flash")}
+             if v and k.startswith(("attn", "mlp"))}
     if fused:
         raise AssertionError(f"[long-tiny] launched fused kernels: {fused}")
     for k, v in tiny_launches.items():
@@ -2807,6 +2931,9 @@ def _phases(card) -> int:
                 # rank's shape
                 row[shape] = {k: m[shape][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        if "groups" in m:
+            # the optimizer step at each population group's shape
+            row["groups"] = m["groups"]
         if "long" in row:
             # the long line's launches (every one at N = 512)
             row["long"]["launches"] = paths["long"][name]

@@ -10,7 +10,9 @@ entry point launches a fixed sequence of the package's own kernels on the
 stream it is given and returns the first CUDA error (0 when none);
 :func:`launch` raises on anything else.
 
-Every entry point corresponds to one TPU kernel of the JAX package;
+Every entry point but one corresponds to one TPU kernel of the JAX
+package; ``fc_opt_update`` (``csrc/opt_update.cu``, the group's optimizer
+step) replaces the update the JAX package left to XLA's fusion.
 ``LAUNCHES`` counts, per entry point, the calls that went to the card.
 """
 
@@ -39,7 +41,7 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libfedcola_kernels.so"
 SOURCES = ("attn_fwd.cu", "attn_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
-           "flash_fwd.cu", "flash_bwd.cu")
+           "flash_fwd.cu", "flash_bwd.cu", "opt_update.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches per entry point, counted by the ops wrappers (CUDA branch only)
@@ -48,7 +50,7 @@ LAUNCHES: Dict[str, int] = {
     "attn_bwd_recompute": 0, "mlp_bwd_nores": 0,
     "flash_fwd": 0, "flash_bwd": 0,
     "mlp_fwd_rows": 0, "mlp_bwd_rows": 0,
-    "mlp_ln_fwd_rows": 0, "mlp_ln_bwd_rows": 0}
+    "mlp_ln_fwd_rows": 0, "mlp_ln_bwd_rows": 0, "opt_update": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +68,7 @@ _SIGNATURES = {
     "fc_mlp_bwd_rows": [_I] * 6 + [_P] * 19,
     "fc_mlp_ln_fwd_rows": [_I] * 5 + [_P] * 13,
     "fc_mlp_ln_bwd_rows": [_I] * 6 + [_P] * 27,
+    "fc_opt_update": [_I] * 4 + [_P] * 2 + [_I] + [_F] * 9 + [_I, _P],
     # test only: the Hopper GEMM mainloop alone (tests/test_torch_port_cuda.py)
     "fc_sm90_gemm_test": [_I] * 6 + [_P] * 4,
     # test only: the mainloop with the forwards' GELU / residual epilogues

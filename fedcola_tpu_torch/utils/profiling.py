@@ -113,7 +113,8 @@ def _levels(cuda: bool):
 class Timer:
     """One round's spans and counters.  ``sections``: host seconds by span
     name (top-level sections undotted); ``counters``: ``steps`` (stacked
-    group steps run), ``launches`` (calls of the kernels' entry points),
+    group steps run), ``opt_fused`` (those of them whose optimizer step
+    took the fused kernel), ``launches`` (calls of the kernels' entry points),
     ``readbacks`` (``.sync`` spans entered) and ``device_mallocs`` (device
     segments the caching allocator took from CUDA; None off CUDA), counted
     from the timer's creation.  The server keeps both dicts in the round's
@@ -125,7 +126,8 @@ class Timer:
                  cuda: bool = False):
         self.sections = {} if sections is None else sections
         self.counters = {} if counters is None else counters
-        for k in ("steps", "launches", "readbacks", "device_mallocs"):
+        for k in ("steps", "opt_fused", "launches", "readbacks",
+                  "device_mallocs"):
             self.counters.setdefault(k, 0)
         self.cuda = cuda
         self._base = _levels(cuda)

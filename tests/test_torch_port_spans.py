@@ -13,8 +13,9 @@ epoch), then an evaluation alone.
   host range ``_RecordFunctionFast``) is entered, in a kernel launch
   neither; with it on, a launch is the ``record_function`` the rooflines
   read;
-* ``round_counters`` holds its four counters, ``steps`` the stacked steps
-  of the chunks the feeder planned.
+* ``round_counters`` holds its five counters, ``steps`` the stacked steps
+  of the chunks the feeder planned, ``opt_fused`` none of them on the CPU
+  (the optimizer's plain version).
 """
 
 import numpy as np
@@ -185,11 +186,12 @@ def test_profiler_off_enters_no_range(round1, monkeypatch):
 def test_round_counters(round1):
     res, planned, _ = round1
     counters = res["round_counters"]
-    assert set(counters) == {"steps", "launches", "readbacks",
+    assert set(counters) == {"steps", "opt_fused", "launches", "readbacks",
                              "device_mallocs"}
     assert planned > 0 and counters["steps"] == planned
     # the CPU runs the kernels' plain versions, and has no device segments
     assert counters["launches"] == 0 and counters["device_mallocs"] is None
+    assert counters["opt_fused"] == 0
     # a readback per group's metrics, per model's finite check, per eval
     # batch drained and per ranking
     assert counters["readbacks"] >= 6

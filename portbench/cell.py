@@ -27,11 +27,9 @@ from typing import Dict, Optional
 import numpy as np
 
 from portbench import check, program
-from portbench.counts.work import eval_flops, eval_items, route_least, \
-    train_flops
+from portbench.counts.work import plan_work
 from portbench.inputs import make_datasets, make_weights, round_work, \
     sample_round
-from portbench.reference import model as M
 from portbench.reference.fedcola import Federation, Line
 from portbench.reference.precision import Products, no_tf32
 from portbench.spec import Cell, metric_reader
@@ -58,11 +56,13 @@ def window_rounds(traffic: dict, seconds: float) -> int:
 
 
 def _inputs(cell: Cell, seed: int, device: str):
+    A = cell.arch
     line = Line.from_flags(cell.traffic["flags"])
-    datasets = make_datasets(cell.traffic, cell.config, seed, device)
-    specs = {d.name: M.model_spec(cell.config, d.modality, d.task, d.classes,
+    datasets = make_datasets(cell.traffic, A.data_shapes(cell.config), seed,
+                             device)
+    specs = {d.name: A.model_spec(cell.config, d.modality, d.task, d.classes,
                                   line.with_aux) for d in datasets}
-    layouts = {ds: M.layout(s) for ds, s in specs.items()}
+    layouts = {ds: A.layout(s) for ds, s in specs.items()}
     return line, datasets, layouts
 
 
@@ -74,7 +74,7 @@ class Run:
         self.mode = cell.traffic["mode"]
         t0 = time.perf_counter()
         self.line, self.data, self.layouts = _inputs(cell, seed, device)
-        weights = make_weights(self.layouts, seed, device)
+        weights = make_weights(self.layouts, seed, device, cell.arch)
         t1 = time.perf_counter()
         self.server = program.create(cell, self.data, weights, device,
                                      str(root / "build" / "portbench_out"))
@@ -127,16 +127,8 @@ class Run:
                                          self.line.batch))
 
     def window_work(self) -> dict:
-        cfg, n = self.cell.config, len(self.records)
-        eb = self.line.eval_batch
-        flops = n * eval_flops(cfg, self.data, eb) + sum(
-            train_flops(cfg, self.data, w) for w in self.works)
-        return {"model_flops": flops,
-                "steps": sum(w.steps for w in self.works),
-                "rows": sum(w.rows for w in self.works),
-                "items": n * eval_items(self.data),
-                "least": {r: route_least(cfg, r, self.data, self.works, n, eb)
-                          for r in ("fused", "flash")}}
+        return plan_work(self.cell.arch, self.cell.config, self.data,
+                         self.works, len(self.records), self.line.eval_batch)
 
 
 def _reference(cell: Cell, seed: int, device: str, follow: int,
@@ -144,13 +136,14 @@ def _reference(cell: Cell, seed: int, device: str, follow: int,
     """The reference over the same inputs: the followed rounds' losses,
     each leaf's change, its first gradients, the evaluation."""
     line, data, layouts = _inputs(cell, seed, device)
-    w0 = make_weights(layouts, seed, device)
-    fed = Federation(line, cell.config, data, make_weights(layouts, seed,
-                                                           device),
-                     device, Products(fp8))
+    w0 = make_weights(layouts, seed, device, cell.arch)
+    fed = Federation(cell.arch, line, cell.config, data,
+                     make_weights(layouts, seed, device, cell.arch), device,
+                     Products(fp8))
     init = fed.evaluate(0) if follow else None
     losses = {r: fed.run_round(r) for r in range(1, follow + 1)}
-    delta = {ds: check.norms(fed.params[ds], w0[ds]) for ds in w0}
+    delta = {ds: check.norms(cell.arch.parts, fed.params[ds], w0[ds])
+             for ds in w0}
     return {"losses": losses, "delta": delta, "grads": fed.first_grads,
             "eval": fed.evaluate(eval_round), "init_eval": init}
 
@@ -249,8 +242,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
     if follow:
         _, _, layouts = _inputs(cell, seed, device)
-        w0 = make_weights(layouts, seed, device)
-        prog["delta"] = {ds: check.norms(after[ds], w0[ds]) for ds in after}
+        w0 = make_weights(layouts, seed, device, cell.arch)
+        prog["delta"] = {ds: check.norms(cell.arch.parts, after[ds], w0[ds])
+                         for ds in after}
         del after, w0
     t_ref = time.perf_counter()
     ref = _reference(cell, seed, device, follow, eval_round)
@@ -260,8 +254,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     metrics = {}
     if trace:
-        ctx = {"trace": summary, "work": work, "timed": timed,
-               "records": timed["records"]}
+        ctx = trace_context(cell, summary, work, timed)
         for m in cell.per_layer:
             v = metric_reader(root, m.name)(ctx)
             if v is not None:
@@ -275,6 +268,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     return {"correct": correct, "attempted": attempted, "failed": failed,
             "metrics": metrics, "summary": summary, "checks": checks,
             "readings": got, "lines": lines, "peak": peak}
+
+
+def trace_context(cell: Cell, summary: dict, work: dict, timed: dict):
+    """What the per-layer readers read (``readers.py``)."""
+    return {"trace": summary, "work": work, "timed": timed,
+            "records": timed["records"],
+            "routes": {r: v.ranges for r, v in cell.arch.routes().items()}}
 
 
 def _numbers(tree):

@@ -5,14 +5,14 @@ its limit in ``portbench/limits/<cell>.json``.
 * ``loss``, ``loss_median``: the worst and the median of the sampled
   clients' mean training losses of each followed round,
   ``|program - reference| / reference``.
-* ``change``: per parameter of every global model (``parts``: a leaf of
-  a block stack layer by layer, qkv as q, k and v), the norm of its change
-  over the followed rounds, ``|‖Δ program‖ - ‖Δ reference‖|`` over the
-  larger of the reference's ``‖Δ‖`` of that parameter and of the model's
-  median one; the worst (``change``) and the median (``change_median``).
-  Parameters whose first reference gradient is
-  under a thousandth of the model's median one's (a key's bias under
-  softmax) move by round-off alone and are left out.
+* ``change``: per parameter of every global model (the architecture's
+  ``parts`` of each leaf), the norm of its change over the followed
+  rounds, ``|‖Δ program‖ - ‖Δ reference‖|`` over the larger of the
+  reference's ``‖Δ‖`` of that parameter and of the model's median one;
+  the worst (``change``) and the median (``change_median``).  Parameters
+  whose first reference gradient is under a thousandth of the model's
+  median one's (a key's bias under softmax) move by round-off alone and
+  are left out.
 * ``eval_loss``: the worst classification test set's mean cross-entropy.
 * ``rtv_meanr``: the worst mean rank of a retrieval set (i2t and t2i, the
   whole set and the mean of its folds).
@@ -27,6 +27,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from portbench.tree import get, leaves
 
 
 def _rel(a: float, b: float) -> float:
@@ -104,25 +106,10 @@ def describe(checks: Dict[str, dict]) -> List[str]:
             for k, c in checks.items()]
 
 
-def parts(path: tuple, t):
-    """The parameters a leaf holds, as the reference model names them: a
-    block stack's leaf (``blk``, ``aux``: a leading ``depth`` axis) layer
-    by layer, and a qkv kernel or bias as its q, k and v thirds."""
-    if path[0] not in ("blk", "aux") or t.dim() == 1:
-        yield path, t
-        return
-    for layer in range(t.shape[0]):
-        x = t[layer]
-        if path[-1].startswith("qkv"):
-            for name, third in zip("qkv", x.chunk(3, dim=-1)):
-                yield path + (layer, name), third
-        else:
-            yield path + (layer,), x
-
-
-def norms(tree_a: dict, tree_b: Optional[dict] = None) -> Dict[tuple, float]:
-    """Per part (``parts``): ``‖a - b‖`` (or ``‖a‖``), in float64."""
-    from portbench.reference.model import get, leaves
+def norms(parts, tree_a: dict,
+          tree_b: Optional[dict] = None) -> Dict[tuple, float]:
+    """Per parameter (the architecture's ``parts`` of each leaf): ``‖a -
+    b‖`` (or ``‖a‖``), in float64."""
     out = {}
     for path, a in leaves(tree_a):
         d = a.double() if tree_b is None else a.double() - get(

@@ -44,8 +44,8 @@ def program_side(cell, seed: int, device: str, root: Path) -> dict:
            if follow else None, "round": run.round}
     if follow:
         _, _, layouts = _inputs(cell, seed, device)
-        w0 = make_weights(layouts, seed, device)
-        out["delta"] = {ds: check.norms(t, w0[ds])
+        w0 = make_weights(layouts, seed, device, cell.arch)
+        out["delta"] = {ds: check.norms(cell.arch.parts, t, w0[ds])
                         for ds, t in run.server.global_params.items()}
     return out
 

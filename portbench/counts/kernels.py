@@ -13,12 +13,11 @@ parameters, DropPath scales and weight gradients (4 bytes).
 
 Row 1 writes P (H·N² bf16) and the head outputs for row 2, which reads
 them back; the bytes of a call are its inputs read once and its outputs
-written once.
+written once.  An architecture's routes sum the calls of each of its
+layers (``portbench/arch/``).
 """
 
 from __future__ import annotations
-
-from portbench.counts.peaks import least_seconds
 
 
 def _attn_w(D: int) -> float:
@@ -58,24 +57,3 @@ def flash_fwd(pairs, N, hd):
 
 def flash_bwd(pairs, N, hd):
     return 10.0 * pairs * N * N * hd, pairs * 7 * N * hd * 2
-
-
-def layer_least(route: str, rows: int, n: int, N: int, config: dict,
-                train: bool) -> float:
-    """The least seconds of one layer's calls of ``route`` (``fused``:
-    rows 1-4, or 1e and 3e in evaluation; ``flash``: rows 11 and 12, or
-    11e) over ``rows`` valid sequences of ``n`` stacked clients."""
-    D, H = config["embed_dim"], config["num_heads"]
-    F = int(round(D * config["mlp_ratio"]))
-    if route == "fused":
-        calls = [attn_fwd(rows, n, N, D, H, train),
-                 mlp_fwd(rows, n, N, D, F, train)]
-        if train:
-            calls += [attn_bwd(rows, n, N, D, H), mlp_bwd(rows, n, N, D, F)]
-    elif route == "flash":
-        calls = [flash_fwd(rows * H, N, D // H)]
-        if train:
-            calls.append(flash_bwd(rows * H, N, D // H))
-    else:
-        raise ValueError(route)
-    return sum(least_seconds(o, b) for o, b in calls)

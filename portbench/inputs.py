@@ -21,7 +21,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from portbench.reference.model import put
+from portbench.tree import put
 
 
 @dataclass
@@ -97,15 +97,17 @@ def flag(flags: List[str], name: str, default=None):
     return True if not vals else (vals[0] if len(vals) == 1 else vals)
 
 
-def make_datasets(traffic: dict, config: dict, seed: int,
+def make_datasets(traffic: dict, shapes: dict, seed: int,
                   device) -> List[DatasetArrays]:
-    """The datasets of the traffic mix, in its order, on the host.  Pixels,
-    tokens, test labels and a relabelling of the train classes come from
-    ``seed`` (drawn on ``device``); train labels and the split from the
-    traffic's ``split_seed``, the line's ``--Ks`` and ``--cncntrtn``."""
+    """The datasets of the traffic mix, in its order, on the host, at the
+    architecture's ``data_shapes`` (``pixels``, ``vocab``, ``text_len``).
+    Pixels, tokens, test labels and a relabelling of the train classes
+    come from ``seed`` (drawn on ``device``); train labels and the split
+    from the traffic's ``split_seed``, the line's ``--Ks`` and
+    ``--cncntrtn``."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     split_rng = np.random.RandomState(int(traffic["split_seed"]))
-    vocab, L = int(config["vocab_size"]), int(config["max_text_len"])
+    vocab, L = shapes["vocab"], shapes["text_len"]
     Ks = flag(traffic["flags"], "--Ks")
     Ks = [int(k) for k in (Ks if isinstance(Ks, list) else [Ks])]
     alpha = float(flag(traffic["flags"], "--cncntrtn"))
@@ -117,7 +119,7 @@ def make_datasets(traffic: dict, config: dict, seed: int,
     out = []
     for i, (name, d) in enumerate(traffic["datasets"].items()):
         mod, task = d["modality"], d["task"]
-        px = int(d.get("pixels", config["img_size"]))
+        px = int(d.get("pixels", shapes["pixels"]))
         train, test = {}, {}
         if task == "cls":
             C = int(d["classes"])
@@ -207,37 +209,41 @@ def round_work(datasets: List[DatasetArrays], sampled: List[int],
 
 # -------------------------------------------------------------- weights --
 
-def make_weights(layouts: Dict[str, list], seed: int, device,
+def make_weights(layouts: Dict[str, list], seed: int, device, arch,
                  std: float = 0.02) -> Dict[str, dict]:
     """Each model's initial weights (float32, on ``device``) from one draw
-    of ``torch.Generator(device)`` seeded by ``seed``: N(0, std) for every
-    kernel, bias and embedding, 1 + N(0, std) for a LayerNorm scale, zero
-    for an aux scale, and an aux kernel a copy of the main stack's kernel
-    of its kind (the published init of the aux reparameterisation)."""
+    of ``torch.Generator(device)`` seeded by ``seed``, taken leaf by leaf in
+    layout order by the kinds that draw: N(0, std) for ``normal``, 1 +
+    N(0, std) for ``one`` (a LayerNorm scale), and the architecture's own
+    (``arch.DRAWN``); zero for ``zero``; and a ``copy`` leaf the tensor
+    the architecture's ``copy_of`` names, once the drawn leaves are in."""
+    drawn = {"normal": None, "one": None, **getattr(arch, "DRAWN", {})}
     gen = torch.Generator(device=device).manual_seed(int(seed) + 1)
-    drawn = [(ds, path, shape) for ds, lay in layouts.items()
-             for path, shape, kind in lay if kind in ("normal", "one")]
-    total = sum(math.prod(shape) for _, _, shape in drawn)
+    draws = [(ds, path, shape) for ds, lay in layouts.items()
+             for path, shape, kind in lay if kind in drawn]
+    total = sum(math.prod(shape) for _, _, shape in draws)
     flat = torch.randn(total, generator=gen, device=device) * std
     out: Dict[str, dict] = {ds: {} for ds in layouts}
     at = 0
     for ds, lay in layouts.items():
         for path, shape, kind in lay:
-            if kind in ("normal", "one"):
+            if kind in drawn:
                 n = math.prod(shape)
                 t = flat[at:at + n].reshape(shape).clone()
                 at += n
                 if kind == "one":
                     t += 1.0
+                elif drawn[kind] is not None:
+                    t = drawn[kind](t)
             elif kind == "zero":
                 t = torch.zeros(shape, device=device)
-            else:
+            elif kind == "copy":
                 continue
+            else:
+                raise ValueError(f"{'/'.join(path)}: unknown init kind "
+                                 f"{kind!r}")
             put(out[ds], path, t)
         for path, shape, kind in lay:
             if kind == "copy":
-                # an aux model is uni-modal: one block stack
-                (main,) = out[ds]["blk"].values()
-                put(out[ds], path,
-                    main[path[-1].replace("_aux", "_kernel")].clone())
+                put(out[ds], path, arch.copy_of(out[ds], path).clone())
     return out

@@ -13,19 +13,16 @@ import numpy as np
 import torch
 
 from portbench.inputs import DatasetArrays
-from portbench.reference.model import leaves
+from portbench.tree import leaves
 
 
 def flags_of(cell, device: str, out_dir: str) -> List[str]:
     """The program's command line: the traffic's line, then the
-    configuration's model, text length, DropPath rate and precision."""
-    c = cell.config
-    return list(cell.traffic["flags"]) + [
-        "--model_name", c["model_name"], "--seq_len", str(c["max_text_len"]),
-        "--dropout", str(c["drop_path_rate"]),
-        "--vocab_size", str(c["vocab_size"]),
-        "--compute_dtype", c["compute_dtype"], "--device", device,
-        "--result_path", out_dir, "--log_path", out_dir]
+    architecture's flags for the configuration (its model, widths,
+    precision), the device and the output paths."""
+    return list(cell.traffic["flags"]) + list(
+        cell.arch.program_flags(cell.config)) + [
+        "--device", device, "--result_path", out_dir, "--log_path", out_dir]
 
 
 def federated_data(datasets: List[DatasetArrays], modalities: List[str]):
@@ -74,27 +71,24 @@ def federated_data(datasets: List[DatasetArrays], modalities: List[str]):
 def create(cell, datasets, weights: Dict[str, dict], device: str,
            out_dir: str):
     """The program's server on the benchmark's data and weights, after a
-    check that its models have the configuration's widths and its
-    parameter trees the reference's layout."""
+    check that its models are the configuration's architecture (the
+    attributes and values of ``program_check``) and its parameter trees
+    the reference's layout."""
     from fedcola_tpu_torch.config import parse_args
     from fedcola_tpu_torch.federation.server import create_server
 
     cfg = parse_args(flags_of(cell, device, out_dir))
     server = create_server(cfg, federated_data(datasets, cfg.modalities))
-    c = cell.config
-    want = {"embed_dim": c["embed_dim"], "depth": c["depth"],
-            "num_heads": c["num_heads"], "img_size": c["img_size"],
-            "patch_size": c["patch_size"], "in_chans": c["in_chans"],
-            "max_text_len": c["max_text_len"],
-            "drop_path_rate": c["drop_path_rate"],
-            "compute_dtype": c["compute_dtype"],
-            "hidden_dim": int(round(c["embed_dim"] * c["mlp_ratio"])),
-            "vocab_size": c["vocab_size"]}
+    want = dict(cell.arch.program_check(cell.config))
     for ds, mcfg in server.model_cfgs.items():
-        got = {k: getattr(mcfg, k) for k in want}
-        if got != want:
-            raise RuntimeError(f"{ds}: the program's model {got} is not the "
-                               f"configuration's {want}")
+        lacks = sorted(k for k in want if not hasattr(mcfg, k))
+        got = {k: getattr(mcfg, k, None) for k in want}
+        if lacks or got != want:
+            raise RuntimeError(
+                f"{ds}: the program's model ({type(mcfg).__name__}) is not "
+                f"architecture {cell.architecture!r} as configured: "
+                f"it lacks {lacks}; it has {got}, the configuration "
+                f"{want}")
         mine = {p: tuple(t.shape) for p, t in leaves(weights[ds])}
         theirs = {p: tuple(t.shape) for p, t in leaves(server.global_params[ds])}
         if mine != theirs:

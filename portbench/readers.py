@@ -6,6 +6,8 @@ reader takes the traced run's context:
   seconds and the window of the trace of the card alone;
 * ``work``: the traced window's work from the plan (model FLOPs, group
   steps, each route's least seconds);
+* ``routes``: each kernel route of the cell's architecture with the
+  ``fc_*`` ranges its calls run under (``arch.routes()``);
 * ``timed``: as many rounds (or passes) run untraced just before, on the
   host clock: their ``window_s`` and ``model_flops``;
 * ``records``: the program's own clocks of those untraced rounds
@@ -15,23 +17,29 @@ A reader returns None where it finds nothing to read."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Optional
 
 from portbench.counts.peaks import BF16_FLOPS
 
-ROUTES = {"fused": ("fc_attn_fwd", "fc_attn_bwd", "fc_mlp_fwd", "fc_mlp_bwd",
-                    "fc_attn_bwd_recompute", "fc_mlp_bwd_nores"),
-          "flash": ("fc_flash_fwd", "fc_flash_bwd")}
-
 
 def roofline(ctx, route: str) -> Optional[float]:
     """% : the route's calls' least time (from the plan) over the device
-    time under its ranges."""
-    spent = sum(ctx["trace"]["ranges"].get(r, 0.0) for r in ROUTES[route])
+    time under its ranges; None for a route the architecture lacks."""
+    if route not in ctx["routes"]:
+        return None
+    spent = sum(ctx["trace"]["ranges"].get(r, 0.0)
+                for r in ctx["routes"][route])
     least = ctx["work"]["least"].get(route, 0.0)
     if spent <= 0 or least <= 0:
         return None
     return 100.0 * least / spent
+
+
+def route_roofline(ctx, reader: str) -> Optional[float]:
+    """The roofline share of the route a reader's file names:
+    ``metrics/<route>_roofline.<phase>.py``."""
+    return roofline(ctx, Path(reader).name.split("_roofline")[0])
 
 
 def mfu(ctx) -> Optional[float]:

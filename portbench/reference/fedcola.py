@@ -6,12 +6,14 @@ from its dataset's global model (E epochs of its shard, each reshuffled,
 batches of B, the last one partial; AdamW with torch's defaults and
 weight decay 0), folds a uni-modal client's aux into its upload, then
 aggregates each global model leaf by leaf: a client weighs in by its shard
-size where the leaf's scope admits it (attention leaves: clients whose
-modality overlaps the model's; every other leaf: the model's own
-clients), over the sizes of all overlapping clients (compensation), as
-the reference's streaming update ``g += (w - g) * c`` over sorted client
-ids.  Then each uni-modal model's aux kernels take the other modality's
-new kernels, and the learning rate decays.
+size where the leaf's scope admits it (the leaves the architecture shares
+under ``--shared_param attn``: clients whose modality overlaps the
+model's; every other leaf: the model's own clients), over the sizes of
+all overlapping clients (compensation), as the reference's streaming
+update ``g += (w - g) * c`` over sorted client ids.  Then each uni-modal
+model's aux takes the other modality's new model (the architecture's
+``exchange_aux``), and the learning rate decays.  The model is the
+cell's architecture's (``portbench/arch/``), handed in.
 
 The shuffle stream is ``numpy.random.RandomState(seed + 1)``, consumed
 dataset by dataset, client by client, epoch by epoch, as the reference's
@@ -27,13 +29,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from portbench.check import parts
 from portbench.inputs import DatasetArrays, client_index, flag, \
     sample_round
-from portbench.reference import model as M
 from portbench.reference.precision import Products
+from portbench.tree import get, leaves, put
 
-ATTN_LEAVES = ("qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias")
+# the model's input slots (reference mome.py): image 0, text 1
+SLOTS = {"img": 0, "txt": 1}
 
 
 @dataclass(frozen=True)
@@ -90,15 +92,16 @@ def _overlap(a: str, b: str) -> bool:
 class Federation:
     """The global models and the state a run carries from round to round."""
 
-    def __init__(self, line: Line, config: dict,
+    def __init__(self, arch, line: Line, config: dict,
                  datasets: List[DatasetArrays], weights: Dict[str, dict],
                  device, products: Optional[Products] = None):
+        self.arch = arch
         self.line = line
         self.data = datasets
         self.device = device
         self.mm = products or Products()
-        self.specs = {d.name: M.model_spec(config, d.modality, d.task,
-                                           d.classes, line.with_aux)
+        self.specs = {d.name: arch.model_spec(config, d.modality, d.task,
+                                              d.classes, line.with_aux)
                       for d in datasets}
         self.params = weights
         self.shuffle = np.random.RandomState(line.seed + 1)
@@ -115,24 +118,26 @@ class Federation:
                                     for k, v in d.train.items()}
         return self._arrays[d.name]
 
-    def _batch(self, d: DatasetArrays, s: M.ModelSpec, rows: np.ndarray):
+    def _batch(self, d: DatasetArrays, s, rows: np.ndarray):
         """(inputs by slot, target) of the train rows ``rows``."""
-        a = self._train_arrays(d)
+        A, a = self.arch, self._train_arrays(d)
         idx = torch.from_numpy(rows).to(self.device)
         if d.modality == "img":
-            return {0: M.preprocess(a["images"][idx], s.img_size)}, \
+            return {SLOTS["img"]: A.preprocess(s, a["images"][idx])}, \
                 a["targets"][idx]
         if d.modality == "txt":
-            return {1: a["texts"][idx]}, a["targets"][idx]
+            return {SLOTS["txt"]: a["texts"][idx]}, a["targets"][idx]
         img = a["image_store"][a["image_row"][idx]]
-        return {0: M.preprocess(img, s.img_size), 1: a["texts"][idx]}, None
+        return {SLOTS["img"]: A.preprocess(s, img),
+                SLOTS["txt"]: a["texts"][idx]}, None
 
     def _loss(self, d, s, p, rows):
+        A = self.arch
         ins, y = self._batch(d, s, rows)
-        out = M.forward(s, p, ins, self.mm)
+        out = A.forward(s, p, ins, self.mm)
         if d.modality == "img+txt":
-            return M.contrastive(out[0], out[1])
-        return M.cross_entropy(out[s.main_slot], y)
+            return A.contrastive(out[SLOTS["img"]], out[SLOTS["txt"]])
+        return A.cross_entropy(out[SLOTS[d.modality]], y)
 
     # ------------------------------------------------------- training --
 
@@ -141,10 +146,10 @@ class Federation:
         """One client's local update; returns (trained tree, mean loss)."""
         s = self.specs[d.name]
         flat = [(path, t.detach().clone().requires_grad_(True))
-                for path, t in M.leaves(self.params[d.name])]
+                for path, t in leaves(self.params[d.name])]
         tree: dict = {}
         for path, t in flat:
-            M.put(tree, path, t)
+            put(tree, path, t)
         ts = [t for _, t in flat]
         m1 = [torch.zeros_like(t) for t in ts]
         m2 = [torch.zeros_like(t) for t in ts]
@@ -158,7 +163,7 @@ class Federation:
                 self.first_grads[d.name] = {
                     sub: float(x.double().norm())
                     for (path, _), g in zip(flat, grads)
-                    for sub, x in parts(path, g)}
+                    for sub, x in self.arch.parts(path, g)}
             with torch.no_grad():
                 c1, c2 = 1 - 0.9 ** step, 1 - 0.999 ** step
                 for t, g, a, b in zip(ts, grads, m1, m2):
@@ -167,7 +172,7 @@ class Federation:
                     t.sub_(self.lr * (a / c1) / ((b / c2).sqrt() + 1e-8))
             loss_sum += float(loss.detach()) * len(rows)
             rows_sum += len(rows)
-        trained = M.fold_aux(s, tree)
+        trained = self.arch.fold_aux(s, tree)
         return ({k: v for k, v in _detach(trained).items()},
                 loss_sum / max(rows_sum, 1))
 
@@ -198,7 +203,7 @@ class Federation:
 
     @torch.no_grad()
     def _aggregate(self, sampled: List[int], uploads: Dict[int, dict]):
-        ln = self.line
+        ln, A = self.line, self.arch
         sizes = {c: len(self.data[self.where[c][0]].shards[self.where[c][1]])
                  for c in sampled}
         mod = {c: self.data[self.where[c][0]].modality for c in sampled}
@@ -207,12 +212,11 @@ class Federation:
             g = self.params[d.name]
             out = _copy(g)
             over = sum(sizes[c] for c in sampled if _overlap(mod[c], d.modality))
-            for path, leaf in M.leaves(g):
-                if path[0] == "aux":
+            for path, leaf in leaves(g):
+                if A.exchanged(path):
                     continue
-                shared = (ln.shared == "attn" and path[0] == "blk"
-                          and path[-1] in ATTN_LEAVES
-                          and ln.scope == "modality")
+                shared = (ln.shared == "attn" and ln.scope == "modality"
+                          and A.shared_leaf(path))
                 num = {c: (sizes[c] if (_overlap(mod[c], d.modality)
                                         if shared else
                                         self.where[c][0] == pos)
@@ -224,11 +228,11 @@ class Federation:
                     if coef == 0.0:
                         continue
                     try:
-                        w = M.get(uploads[c], path)
+                        w = get(uploads[c], path)
                     except KeyError:
                         continue            # the client's model lacks it
                     final = final + (w - final) * coef
-                M.put(out, path, final)
+                put(out, path, final)
             new[d.name] = out
         if ln.with_aux:
             first = {}
@@ -236,15 +240,13 @@ class Federation:
                 first.setdefault(d.modality, d.name)
             for d in self.data:
                 s = self.specs[d.name]
-                if not s.has_aux:
+                if not A.has_aux(s):
                     continue
                 other = "txt" if d.modality == "img" else "img"
                 if other not in first:
                     continue
-                src_spec = self.specs[first[other]]
-                src = new[first[other]]["blk"][str(src_spec.main_slot)]
-                for k in M.AUX_KINDS:
-                    new[d.name]["aux"][f"{k}_aux"] = src[f"{k}_kernel"]
+                A.exchange_aux(s, new[d.name], self.specs[first[other]],
+                               new[first[other]])
         self.params = new
 
     # ----------------------------------------------------- evaluation --
@@ -254,21 +256,21 @@ class Federation:
         """Central evaluation after round ``r``: per classification set
         ``{"loss", "acc1"}``, per retrieval set the recalls and ranks of
         the whole test set (``5k``) and of its five folds (``1k``)."""
-        out = {}
+        out, A = {}, self.arch
         for d in self.data:
             s, p = self.specs[d.name], self.params[d.name]
             B = self.line.eval_batch
             t = {k: torch.from_numpy(v).to(self.device)
                  for k, v in d.test.items()}
             if d.task == "cls":
-                slot = s.main_slot
+                slot = SLOTS[d.modality]
                 x = t["images"] if d.modality == "img" else t["texts"]
                 loss, correct = 0.0, 0
                 for j in range(0, len(x), B):
                     xb = x[j:j + B]
                     if d.modality == "img":
-                        xb = M.preprocess(xb, s.img_size)
-                    logits = M.forward(s, p, {slot: xb}, self.mm)[slot]
+                        xb = A.preprocess(s, xb)
+                    logits = A.forward(s, p, {slot: xb}, self.mm)[slot]
                     y = t["targets"][j:j + B]
                     loss += float(torch.nn.functional.cross_entropy(
                         logits, y, reduction="sum"))
@@ -276,11 +278,12 @@ class Federation:
                 out[d.name] = {"loss": loss / len(x), "acc1": correct / len(x)}
                 continue
             store = t["image_store"]
-            fi = torch.cat([M.forward(s, p, {0: M.preprocess(
-                store[j:j + B], s.img_size)}, self.mm, feat_out=True)[0]
+            i, x = SLOTS["img"], SLOTS["txt"]
+            fi = torch.cat([A.forward(s, p, {i: A.preprocess(
+                s, store[j:j + B])}, self.mm, feat_out=True)[i]
                 for j in range(0, len(store), B)])
-            ft = torch.cat([M.forward(s, p, {1: t["texts"][j:j + B]}, self.mm,
-                                      feat_out=True)[1]
+            ft = torch.cat([A.forward(s, p, {x: t["texts"][j:j + B]}, self.mm,
+                                      feat_out=True)[x]
                             for j in range(0, len(t["texts"]), B)])
             out[d.name] = retrieval_scores(
                 fi, ft, d.test["image_row"],

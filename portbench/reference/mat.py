@@ -13,7 +13,8 @@ token type 0, LayerNorm eps 1e-12.
 
 The parameters are a nested dict in the layout both sides share (leaves
 of a block stack carry a leading ``depth`` axis, kernels are ``[in,
-out]``); :func:`layout` lists it.
+out]``); :func:`layout` lists it.  ``portbench/arch/mat.py`` hands this
+model to the harness.
 """
 
 from __future__ import annotations
@@ -116,25 +117,6 @@ def layout(s: ModelSpec) -> List[Tuple[Tuple[str, ...], Tuple[int, ...], str]]:
             out += [(("aux", f"{k}_aux"), (L, a, b_), "copy"),
                     (("aux", f"{k}_scale"), (L,), "zero")]
     return out
-
-
-def get(tree, path):
-    for p in path:
-        tree = tree[p]
-    return tree
-
-
-def put(tree, path, value):
-    for p in path[:-1]:
-        tree = tree.setdefault(p, {})
-    tree[path[-1]] = value
-
-
-def leaves(tree, prefix=()):
-    """(path, tensor) of every leaf, keys sorted."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k], prefix + (k,))]
-    return [(prefix, tree)]
 
 
 # --------------------------------------------------------------- forward --

@@ -1,20 +1,28 @@
-"""Cells, configurations, traffic mixes and metric readers, found by name.
+"""Cells, configurations, architectures, traffic mixes and metric readers,
+found by name.
 
 ``BENCHMARK.json`` at the checkout's root names every cell; a cell names
 one configuration (``portbench/configs/<name>.json`` through the entry's
 ``file``) and one traffic mix (``portbench/traffic/<name>.json``); a
-per-layer metric ``<name>`` is the reader ``portbench/metrics/<name>.py``.
-Later additions are new files and new entries: nothing here names a cell,
-a mix or a metric.
+configuration names its architecture, ``portbench/arch/<name>.py``, under
+``architecture`` (``mat`` where it names none); a per-layer metric
+``<name>`` is the reader ``portbench/metrics/<name>.py``.  Later additions
+are new files and new entries: nothing here names a cell, a mix, an
+architecture or a metric.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
+
+DEFAULT_ARCH = "mat"
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 @dataclass(frozen=True)
@@ -29,6 +37,8 @@ class Cell:
     name: str
     chips: int
     config: dict
+    architecture: str
+    arch: ModuleType                    # portbench/arch/<architecture>.py
     traffic: dict
     end_to_end: List[Metric]
     per_layer: List[Metric]
@@ -63,6 +73,7 @@ def resolve_cell(root: Path, name: str) -> Cell:
     w = entries[name]
     cfg_entry = next(c for c in bench["configs"] if c["name"] == w["config"])
     config = json.loads((root / cfg_entry["file"]).read_text())
+    architecture = config.get("architecture", DEFAULT_ARCH)
     traffic = json.loads(
         (root / "portbench" / "traffic" / f"{w['traffic']}.json").read_text())
     cells = [x["name"] for x in bench["workloads"]]
@@ -71,16 +82,33 @@ def resolve_cell(root: Path, name: str) -> Cell:
     pick = lambda ms: [Metric(m["name"], m["unit"], m.get("moves"))  # noqa: E731
                        for m in ms if _reports(m, name, e2e_of)]
     return Cell(name=name, chips=int(w["chips"]), config=config,
+                architecture=architecture, arch=arch_of(root, architecture),
                 traffic=traffic, end_to_end=pick(bench["end_to_end"]),
                 per_layer=pick(bench["per_layer"]))
+
+
+def _load(path: Path, prefix: str, name: str) -> ModuleType:
+    """The Python file ``path``, loaded as a module of its own."""
+    if not NAME.fullmatch(name):
+        raise ValueError(f"{name!r} is not a name")
+    if not path.is_file():
+        raise FileNotFoundError(f"no {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_{prefix}_{name.replace('.', '_').replace('-', '_')}",
+        path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def metric_reader(root: Path, name: str) -> Callable:
     """``read(ctx)`` of ``portbench/metrics/<name>.py``: the metric's value
     from a traced run's context, or None when it finds nothing to read."""
-    path = Path(root) / "portbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(Path(root) / "portbench" / "metrics" / f"{name}.py",
+                 "metric", name).read
+
+
+def arch_of(root: Path, name: str) -> ModuleType:
+    """The architecture file ``portbench/arch/<name>.py``."""
+    return _load(Path(root) / "portbench" / "arch" / f"{name}.py", "arch",
+                 name)

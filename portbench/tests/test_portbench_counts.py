@@ -6,8 +6,10 @@ import json
 
 import pytest
 
-from portbench.counts import kernels, model
+from portbench.arch import mat
+from portbench.counts import kernels
 from portbench.counts.peaks import least_seconds
+from portbench.counts.work import train_row_flops
 from portbench.inputs import round_work
 from portbench.tests.tinyroot import REPO
 
@@ -16,16 +18,18 @@ TINY = json.loads((REPO / "portbench/configs/mome_tiny.json").read_text())
 
 
 def test_model_flops_hand_counts():
-    img = model.forward_flops(SMALL, "img")
-    txt = model.forward_flops(SMALL, "txt")
+    img = mat.forward_flops(SMALL, "img")
+    txt = mat.forward_flops(SMALL, "txt")
     assert img == pytest.approx(9.2e9, rel=2e-3)
     assert txt == pytest.approx(1.73e9, rel=3e-3)
-    assert model.train_row_flops(SMALL, "img") == pytest.approx(27.6e9, rel=2e-3)
-    assert model.train_row_flops(SMALL, "txt") == pytest.approx(5.2e9, rel=5e-3)
-    assert model.train_row_flops(SMALL, "img+txt") == pytest.approx(
+    assert train_row_flops(mat, SMALL, "img") == pytest.approx(27.6e9,
+                                                               rel=2e-3)
+    assert train_row_flops(mat, SMALL, "txt") == pytest.approx(5.2e9,
+                                                               rel=5e-3)
+    assert train_row_flops(mat, SMALL, "img+txt") == pytest.approx(
         32.8e9, rel=2e-3)
     # a classification head adds 2 D C
-    assert model.forward_flops(SMALL, "img", 100) - img == 2 * 384 * 100
+    assert mat.forward_flops(SMALL, "img", 100) - img == 2 * 384 * 100
 
 
 @pytest.mark.parametrize("row, call, ms", [
@@ -43,13 +47,13 @@ def test_kernel_bounds_match_perf_table(row, call, ms):
 
 
 def test_layer_least_sums_its_rows():
-    one = kernels.layer_least("fused", 96, 1, 197, SMALL, True)
+    one = mat.routes()["fused"].least(96, 1, 197, SMALL, True)
     calls = [kernels.attn_fwd(96, 1, 197, 384, 6, True),
              kernels.mlp_fwd(96, 1, 197, 384, 1536, True),
              kernels.attn_bwd(96, 1, 197, 384, 6),
              kernels.mlp_bwd(96, 1, 197, 384, 1536)]
     assert one == pytest.approx(sum(least_seconds(*c) for c in calls))
-    assert kernels.layer_least("flash", 96, 1, 197, TINY, False) == \
+    assert mat.routes()["flash"].least(96, 1, 197, TINY, False) == \
         pytest.approx(least_seconds(*kernels.flash_fwd(96 * 3, 197, 64)))
 
 

@@ -1,5 +1,5 @@
 """No module of the benchmark imports JAX or the JAX package, and the
-reference imports nothing of the program.  Names are compared whole by
+reference and the architecture files import nothing of the program.  Names are compared whole by
 their top-level part (``fedcola_tpu_torch`` begins with ``fedcola_tpu``)."""
 
 import ast
@@ -31,9 +31,12 @@ def test_no_jax(path):
     assert not set(top_level_imports(path)) & JAX
 
 
-@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(
+    (BENCH / "reference").rglob("*.py")) + sorted(
+    (BENCH / "arch").rglob("*.py")), ids=lambda p: str(p.relative_to(BENCH)))
 def test_reference_imports_nothing_of_the_program(path):
+    # nor does an architecture file: it names the program's flags and
+    # attributes, and program.py alone reads them
     assert "fedcola_tpu_torch" not in set(top_level_imports(path))
 
 

@@ -2,8 +2,11 @@
 
 import pytest
 
+from portbench.arch import mat
 from portbench.spec import metric_reader
 from portbench.tests.tinyroot import REPO
+
+ROUTES = {r: v.ranges for r, v in mat.routes().items()}
 
 CTX = {
     "trace": {"window_s": 3.0, "busy_s": 1.5,
@@ -21,6 +24,7 @@ CTX = {
     "work": {"model_flops": 1.0, "steps": 40,
              "least": {"fused": 0.06, "flash": 0.0}},
     "timed": {"window_s": 4.0, "model_flops": 989e12 * 0.4},
+    "routes": ROUTES,
 }
 
 
@@ -47,7 +51,8 @@ def test_nothing_to_read_gives_none():
                        "ranges": {}, "idle_gaps": {}},
              "records": [], "work": {"model_flops": 0.0, "steps": 0,
                                      "least": {}},
-             "timed": {"window_s": 1.0, "model_flops": 0.0}}
+             "timed": {"window_s": 1.0, "model_flops": 0.0},
+             "routes": ROUTES}
     for name in ("aggregate_ms.train", "eval_ms.train",
                  "aten_ms_per_step.train", "fused_roofline.train",
                  "mfu.train", "idle_share.train"):

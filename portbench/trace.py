@@ -4,8 +4,7 @@
 CPU and the card) gives the device time of every kernel (and copy) by
 name, the device time under each of the program's ``fc_*`` ranges (user
 annotations spanning their kernels on the device timeline, counted apart
-from the kernels, as ``fedcola_tpu_torch/profile_round.py`` counts them)
-and the longest gaps between device operations, each named by the
+from the kernels) and the longest gaps between device operations, each named by the
 innermost host operation running at its middle.  Its host events stretch
 the window, so the device's busy seconds over the window (its idle share)
 come from a trace of the card alone (``device_only``), run on rounds of

@@ -57,7 +57,15 @@ result line):
             three masked AdamW steps within 1e-6 of max|ref| of the plain
             loop, then the kernel, the plain loop and
             torch.optim.AdamW(fused=True) timed over steps back to back,
-            beside the bound of 28 bytes an element.
+            beside the bound of 28 bytes an element.  The routed
+            experts' grouped GEMM (moe_gemm.cu, no Pallas kernel;
+            ``check_moe``) at the moonlight cell's two step shapes (D
+            2048, F 1408, 8 held of 64 experts, top-6; one client's image
+            step, 96 x 197 tokens, and text step, 96 x 40, a random
+            routing): forward and backward against the plain versions
+            within the bf16 tolerance, y also in float32, a second call
+            the same bits; both steps timed beside the plain version, a
+            bf16 torch.matmul sequence a group and the bound.
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -76,6 +84,12 @@ result line):
 6. tiny     the same line at mome_tiny width (D=192, 3 heads, depth 12):
             attention through the flash kernels, no fused attention or
             MLP kernel; the optimizer step on its kernel.
+   moonlight one round of the same line at mome_moonlight_a3b
+            (Moonlight-16B-A3B's block at its published widths, about 1 B
+            parameters a dataset; ``--Cs 0.25``: one client of each
+            dataset; no dropout): both grouped-GEMM entry points and the
+            optimizer step launch, no fused attention, MLP or flash
+            kernel.
    bound    for the mome_small and the mome_tiny line each: the same two
             rounds of training from the same seed on the card (kernels)
             and on the CPU (plain versions), at full width and depth with
@@ -256,6 +270,11 @@ KERNEL_INFO = {
                         "fedcola_tpu/ops/fused_mlp.py:418", "rows"),
     # no Pallas kernel: the JAX package's update, fused by XLA
     "opt_update": ("fedcola_tpu_torch/csrc/opt_update.cu", "none", "main"),
+    # no kernel in the JAX package, which has no MoE layer
+    "moe_gemm_fwd": ("fedcola_tpu_torch/csrc/moe_gemm.cu", "none",
+                     "moonlight"),
+    "moe_gemm_bwd": ("fedcola_tpu_torch/csrc/moe_gemm.cu", "none",
+                     "moonlight"),
 }
 
 
@@ -326,9 +345,10 @@ def check_sass(kernels) -> None:
     want = {"mlp_fwd.o": wgmma, "mlp_bwd.o": wgmma,
             "attn_fwd.o": wgmma + ("HMMA",), "attn_bwd.o": wgmma + ("HMMA",),
             "flash_fwd.o": wgmma + ("HMMA",),
-            "flash_bwd.o": wgmma + ("HMMA",)}
+            "flash_bwd.o": wgmma + ("HMMA",), "moe_gemm.o": wgmma}
     # the mangled template arguments: ILi64ELi2EE is <64, 2>
-    pattern = re.compile(r"(sm90_gemm_kernel|attn_bwd_head_kernel|"
+    pattern = re.compile(r"(sm90_gemm_kernel|moe_gemm_kernel|"
+                         r"attn_bwd_head_kernel|"
                          r"attn_fwd_head_kernel|attn_fwd_head_stream_kernel|"
                          r"attn_bwd_head_rows_stream_kernel|"
                          r"attn_bwd_head_cols_stream_kernel)"
@@ -952,9 +972,11 @@ def phase_kernels():
                 torch.cuda.empty_cache()
     check_long_kernels(dev, record)
     measured["opt_update"] = check_opt(dev, record)
+    measured.update(check_moe(dev, record))
     for name in worst:
         measured[name]["max_abs_err"] = worst[name]
-        for shape in ("eval", "distill", "long", "long_eval", "tp"):
+        for shape in ("eval", "distill", "long", "long_eval", "tp",
+                      "text"):
             if f"{name}:{shape}" in measured:
                 measured[name][shape] = measured.pop(f"{name}:{shape}")
     return measured
@@ -1109,6 +1131,132 @@ def check_opt(dev, record):
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for ds, r in groups.items()}
     return main
+
+
+# Moonlight-16B-A3B's routed experts as the coco-pop1.moonlight_a3b_mat
+# cell runs them: D, the expert width, the experts held here of the
+# router's, top-k; one client, B 96, at the image and the text length
+MOE_D, MOE_F, MOE_HELD, MOE_ROUTER, MOE_K, MOE_B = 2048, 1408, 8, 64, 6, 96
+
+
+def _moe_library(xp, ws, po, dy=None, h=None, g=None, u=None):
+    """bf16 ``torch.matmul`` a group over the same buffer: the forward's
+    three products and the SiLU-mul, or (given ``dy`` and the forward's
+    ``h``, ``g``, ``u``) the backward's five products and its SiLU-mul
+    backward."""
+    import torch
+    wg, wu, wd = ws
+    outs = []
+    for e in range(len(po) - 1):
+        a, b = po[e], po[e + 1]
+        x = xp[a:b]
+        if dy is None:
+            outs.append((torch.nn.functional.silu(x @ wg[e])
+                         * (x @ wu[e])) @ wd[e])
+            continue
+        dh = dy[a:b] @ wd[e].T
+        sig = torch.sigmoid(g[a:b])
+        dg = dh * u[a:b] * sig * (1 + g[a:b] * (1 - sig))
+        du = dh * g[a:b] * sig
+        outs += [dg @ wg[e].T + du @ wu[e].T, x.T @ dg, x.T @ du,
+                 h[a:b].T @ dy[a:b]]
+    return outs
+
+
+def check_moe(dev, record):
+    """The routed experts' grouped GEMM (``fc_moe_gemm_fwd`` /
+    ``fc_moe_gemm_bwd``, csrc/moe_gemm.cu) at the moonlight cell's two
+    step shapes (``MOE_*``: one client's image step, 96 x 197 tokens, and
+    text step, 96 x 40), a routing drawn at random (top-6 of 64, about
+    0.75 held experts a token): the forward (y, h and the kept g, u) and
+    the backward (dX and the three per-expert dW) against the plain
+    versions on the same bf16 buffer and weights, y in bfloat16 (the
+    line's) and at the text step in float32 too, every output within
+    ``_compare``'s bf16 tolerance; a second call gives the same bits.
+    Both bf16 steps timed beside the plain version, a bf16
+    ``torch.matmul`` sequence a group (``_moe_library``) and the bound on
+    the rows routed (forward 6 R D F operations, backward 12 R D F).
+    Returns the image step's measurements, the text step's under
+    "text"."""
+    import torch
+    from fedcola_tpu_torch.ops import moe_gemm
+    D, Fh, held = MOE_D, MOE_F, MOE_HELD
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    for step, N in (("img", 197), ("txt", 40)):
+        T = MOE_B * N
+        idx = torch.rand(1, T, MOE_ROUTER, generator=gen,
+                         device=dev).topk(MOE_K, -1).indices
+        plan = moe_gemm.route_plan(idx, 0, held)
+        x = torch.randn(T, D, generator=gen, device=dev).bfloat16()
+        xp = moe_gemm.dispatch(x, plan)
+        ws = [(torch.randn(held, a, b, generator=gen, device=dev)
+               * a ** -0.5).bfloat16() for a, b in ((D, Fh), (D, Fh),
+                                                    (Fh, D))]
+        po = plan.poff.tolist()
+        live = po[-1]
+
+        def rows(ts, live=live, cap=plan.cap):
+            # the buffer's rows past the last group are left unwritten
+            return [t[:live] if t.shape[0] == cap else t for t in ts]
+        dy = torch.zeros(plan.cap, D, device=dev, dtype=torch.bfloat16)
+        dy[:live] = torch.randn(live, D, generator=gen,
+                                device=dev).bfloat16()
+        R = int(plan.counts.sum())
+        res = {}
+        for out_dtype in ((torch.bfloat16, torch.float32) if step == "txt"
+                          else (torch.bfloat16,)):
+            fargs = (xp, *ws, plan.poff, True, out_dtype)
+            got = moe_gemm.glu_fwd_kernel(*fargs)
+            ref = moe_gemm.glu_fwd_plain(*fargs)
+            err = _compare(rows(got), rows(ref), torch.bfloat16,
+                           ("y", "h", "g", "u"))
+            _same_bits(lambda *a: rows(moe_gemm.glu_fwd_kernel(*a)), fargs,
+                       rows(got), "moe_gemm_fwd")
+            res.setdefault("moe_gemm_fwd", {"max_abs_err": 0.0})
+            res["moe_gemm_fwd"]["max_abs_err"] = max(
+                res["moe_gemm_fwd"]["max_abs_err"], err)
+        _, h, g, u = got = moe_gemm.glu_fwd_kernel(xp, *ws, plan.poff, True,
+                                                   torch.bfloat16)
+        bargs = (dy, xp, *ws, g, u, plan.poff)
+        gotb = moe_gemm.glu_bwd_kernel(*bargs)
+        refb = moe_gemm.glu_bwd_plain(*bargs)
+        err = _compare(rows(gotb), rows(refb), torch.bfloat16,
+                       ("dx", "dwg", "dwu", "dwd"))
+        _same_bits(lambda *a: rows(moe_gemm.glu_bwd_kernel(*a)), bargs,
+                   rows(gotb), "moe_gemm_bwd")
+        res["moe_gemm_bwd"] = {"max_abs_err": err}
+        del got, ref, gotb, refb
+        w_bytes = 3 * held * D * Fh * 2
+        f = res["moe_gemm_fwd"]
+        f.update(flops=6.0 * R * D * Fh,
+                 bytes=w_bytes + 2 * R * D * 2 + 3 * R * Fh * 2,
+                 ms=time_ms(lambda: moe_gemm.glu_fwd_kernel(
+                     xp, *ws, plan.poff, True, torch.bfloat16)),
+                 plain_ms=time_ms(lambda: moe_gemm.glu_fwd_plain(
+                     xp, *ws, plan.poff, True, torch.bfloat16), iters=3,
+                     warmup=1),
+                 library_ms=time_ms(lambda: _moe_library(xp, ws, po)))
+        b = res["moe_gemm_bwd"]
+        b.update(flops=12.0 * R * D * Fh,
+                 bytes=3 * w_bytes + 3 * R * D * 2 + 5 * R * Fh * 2,
+                 ms=time_ms(lambda: moe_gemm.glu_bwd_kernel(*bargs)),
+                 plain_ms=time_ms(lambda: moe_gemm.glu_bwd_plain(*bargs),
+                                  iters=3, warmup=1),
+                 library_ms=time_ms(lambda: _moe_library(
+                     xp, ws, po, dy, h, g, u)))
+        record(res, f"{step},n=1", torch.bfloat16, N, True)
+        log(f"[kernels] moe_gemm {step} step: {T} tokens, routed rows {R} "
+            f"({R / T:.3f} a token), buffer rows {live} of {plan.cap}")
+        for name, r in res.items():
+            if step == "img":
+                out[name] = r
+            else:
+                out[name]["text"] = {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        del xp, ws, dy, h, g, u, bargs
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------- model ----
@@ -1269,6 +1417,33 @@ def phase_tiny():
              if v and k.startswith(("attn", "mlp"))}
     if fused:
         raise AssertionError(f"mome_tiny launched fused kernels: {fused}")
+    return launches
+
+
+# the coco.sh FedCola line of [main] at mome_moonlight_a3b (the
+# coco-pop1.moonlight_a3b_mat cell's model: about 1 B parameters a
+# dataset), one client of each dataset, one round, no dropout (the cell's)
+MOONLIGHT_FLAGS_CUT = {"--model_name": "mome_moonlight_a3b", "--Cs": "0.25",
+                       "--R": "1", "--dropout": None}
+
+
+def phase_moonlight():
+    """One round of [main]'s line at mome_moonlight_a3b through the entry
+    point: the routed experts on the grouped GEMM (both entry points
+    launch), the optimizer step on its kernel, no fused attention or MLP
+    kernel (MLA runs on SDPA, the dense and shared experts on cuBLAS)."""
+    from fedcola_tpu_torch import main as port_main
+    launches, _ = run_line("moonlight", port_main.cut(
+        port_main.MAIN_PATH_FLAGS, MOONLIGHT_FLAGS_CUT))
+    if not (launches["moe_gemm_fwd"] and launches["moe_gemm_bwd"]
+            and launches["opt_update"]):
+        raise AssertionError(f"the moonlight line never launched the "
+                             f"grouped GEMM or the optimizer step: "
+                             f"{launches}")
+    fused = {k: v for k, v in launches.items()
+             if v and k.startswith(("attn", "mlp", "flash"))}
+    if fused:
+        raise AssertionError(f"the moonlight line launched {fused}")
     return launches
 
 
@@ -2906,7 +3081,7 @@ def _phases(card) -> int:
     phase_model()
     main_launches, main_results, main_weights = phase_main()
     paths = {"main": main_launches, "resident": phase_resident(main_results),
-             "tiny": phase_tiny()}
+             "tiny": phase_tiny(), "moonlight": phase_moonlight()}
     paths["baselines"], (cream_results, cream_weights) = phase_baselines()
     phase_retrieval()
     paths.update(local=phase_local(), augment=phase_augment(),
@@ -2924,11 +3099,11 @@ def _phases(card) -> int:
                "replaces": replaces, "launches": paths[path][name],
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
-        for shape in ("eval", "distill", "long", "long_eval", "tp"):
+        for shape in ("eval", "distill", "long", "long_eval", "tp", "text"):
             if shape in m:
                 # the same entry point at central evaluation's, CreamFL
-                # distillation's, the long line's (N = 512) or a [tp]
-                # rank's shape
+                # distillation's, the long line's (N = 512), a [tp]
+                # rank's or the moonlight line's text step's shape
                 row[shape] = {k: m[shape][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         if "groups" in m:

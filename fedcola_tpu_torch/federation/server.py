@@ -59,7 +59,7 @@ from fedcola_tpu_torch.eval import retrieval
 from fedcola_tpu_torch.federation import aggregate as agg
 from fedcola_tpu_torch.federation.aux import (exchange_aux_weights,
                                               fold_aux_into_upload)
-from fedcola_tpu_torch.models import naming
+from fedcola_tpu_torch.models import moe, naming
 from fedcola_tpu_torch.models.mat import (MATConfig, check_kernel_support,
                                           stack_clients, tree_leaves,
                                           tree_map)
@@ -75,7 +75,7 @@ from fedcola_tpu_torch.parallel.client_update import (GroupSpec,
 from fedcola_tpu_torch.parallel.optim import init_opt_state, make_optimizer_spec
 from fedcola_tpu_torch.utils.dispatch import DispatchWindow, pad_batch_indices
 from fedcola_tpu_torch.utils.metrics import MetricManager
-from fedcola_tpu_torch.utils.profiling import Timer, readback, span
+from fedcola_tpu_torch.utils.profiling import Timer, count, readback, span
 
 logger = logging.getLogger(__name__)
 
@@ -420,12 +420,19 @@ class FedAvgServer:
                 upload = self.plan.gather_clients(
                     fold_aux_into_upload(g.mcfg, trained), n)
             acc = {k: self.plan.gather_clients(v, n) for k, v in g.acc.items()}
-            return upload, self._readback_group_metrics(acc, g.ds, g.ids)
+            return upload, self._readback_group_metrics(
+                acc, g.ds, g.ids, moe.take_routed_rows(self.device))
 
-    def _readback_group_metrics(self, acc, ds: str, ids: List[int]):
+    def _readback_group_metrics(self, acc, ds: str, ids: List[int],
+                                routed: Optional[torch.Tensor]):
+        """The group's metric sums on the host; ``routed`` (a device
+        count of an MoE model's token-expert pairs) rides the same
+        readback into the round's ``routed_rows``."""
         with readback():
             loss_sums, cor, cnt = (acc[k].cpu().numpy()
                                    for k in ("l", "c", "n"))
+            if routed is not None:
+                count("routed_rows", int(routed.cpu()))
         bad = ~np.isfinite(loss_sums)
         if bad.any():
             msg = (f"non-finite training loss in round {self.round} for "

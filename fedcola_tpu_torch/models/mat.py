@@ -27,6 +27,12 @@ region, so a recompute sees the same draws.  Numerics follow the
 reference: f32 attention scores and softmax, exact-erf GELU, LayerNorm eps
 1e-5 in blocks, 1e-6 for the final norm and 1e-12 for the text embedding.
 
+``MATConfig.block`` chooses the block: ``"vit"`` (the above) or
+``"moonlight"``, Moonlight-16B-A3B's decoder layer (MLA attention, a
+leading dense SiLU-GLU layer, then routed-expert layers), whose stack is
+``models/moe.py``'s; its final norm is RMSNorm.  The embeddings and heads
+are the same for both.
+
 Under the mesh's ``model`` axis (``parallel/mesh.py`` ``TensorParallel``)
 a training forward takes the Megatron route on the rank's shards: each
 sharded attention sublayer runs its heads through the flash kernels (11 /
@@ -97,7 +103,26 @@ class MATConfig:
     # backward kernels need (falls back to 'save_attn' where the fused
     # sublayers are off); 'save_attn': keep each layer's input and
     # attention output, recompute the rest; 'full': keep only the input
+    # (the moonlight block: 'full', or else autograd keeps what it saves)
     remat_policy: str = "kernel"
+    # the block: "vit" or "moonlight" (models/moe.py; the fields below are
+    # its widths, in the published config's terms, and unused by "vit")
+    block: str = "vit"
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_theta: float = 0.0
+    dense_layers: int = 0             # first_k_dense_replace
+    dense_hidden: int = 0             # intermediate_size
+    moe_hidden: int = 0               # moe_intermediate_size
+    router_experts: int = 0           # the router's outputs
+    held_first: int = 0               # the experts held here: held_first
+    experts_held: int = 0             # .. held_first + experts_held - 1
+    top_k: int = 0                    # num_experts_per_tok
+    shared_experts: int = 0           # n_shared_experts
+    routed_scale: float = 0.0         # routed_scaling_factor
+    rms_eps: float = 1e-5
 
     FUSED_MAX_EMBED_DIM = 1024
 
@@ -137,6 +162,12 @@ class MATConfig:
 
     @property
     def aux_layer_kinds(self) -> Tuple[str, ...]:
+        if self.block == "moonlight":
+            if self.aux_attn_only:
+                return moe.ATTN_KINDS
+            if self.aux_mlp_only:
+                return moe.DENSE_KINDS + moe.MOE_KINDS
+            return moe.AUX_KINDS
         if self.aux_attn_only:
             return ("qkv", "proj")
         if self.aux_mlp_only:
@@ -224,6 +255,11 @@ def _init_block_stack(cfg: MATConfig, gen) -> Params:
 
 def init_mat(cfg: MATConfig, gen: torch.Generator) -> Params:
     """The full parameter tree of one MAT (float32, on the CPU)."""
+    moonlight = cfg.block == "moonlight"
+    if moonlight and cfg.colearn_param != "none":
+        raise NotImplementedError("--colearn_param ties the ViT block's "
+                                  "attention leaves; the moonlight block "
+                                  "takes 'none'")
     params: Params = {"emb": {}, "blk": {}, "head": {}}
     for i, modality in enumerate(cfg.modalities):
         if modality == "img":
@@ -233,7 +269,10 @@ def init_mat(cfg: MATConfig, gen: torch.Generator) -> Params:
         elif modality is not None:
             raise NotImplementedError(modality)
         if modality is not None:
-            params["blk"][str(i)] = _init_block_stack(cfg, gen)
+            if moonlight:
+                params["blk"][str(i)] = moe.init_stack(cfg, gen)
+            else:
+                params["blk"][str(i)] = _init_block_stack(cfg, gen)
     # colearn_param='attn' ties the non-main slot's attention to the main
     # slot's (mome.py:837-841): the non-main leaves do not exist
     if cfg.colearn_param == "attn" and cfg.is_multimodal:
@@ -243,8 +282,9 @@ def init_mat(cfg: MATConfig, gen: torch.Generator) -> Params:
                 for leaf in ("qkv_kernel", "qkv_bias", "proj_kernel",
                              "proj_bias"):
                     del params["blk"][str(i)][leaf]
-    params["norm"] = {"scale": torch.ones(cfg.embed_dim),
-                      "bias": torch.zeros(cfg.embed_dim)}
+    params["norm"] = {"scale": torch.ones(cfg.embed_dim)} if moonlight else \
+        {"scale": torch.ones(cfg.embed_dim),
+         "bias": torch.zeros(cfg.embed_dim)}
     for i, task in enumerate(cfg.tasks):
         if task == "cls":
             nc = cfg.num_classes[i]
@@ -257,7 +297,11 @@ def init_mat(cfg: MATConfig, gen: torch.Generator) -> Params:
         params["aux"] = {}
         for kind in cfg.aux_layer_kinds:
             params["aux"][f"{kind}_aux"] = main_blk[f"{kind}_kernel"].clone()
-            params["aux"][f"{kind}_scale"] = torch.zeros(cfg.depth)
+            if moonlight:
+                shape = moe.aux_scale_shape(cfg, kind)
+            else:
+                shape = (cfg.depth,)
+            params["aux"][f"{kind}_scale"] = torch.zeros(shape)
     return params
 
 
@@ -277,7 +321,8 @@ def _layer_norm(x, scale, bias, eps):
 def fold_aux_kernels(cfg: MATConfig, blk: Params, aux: Params) -> Params:
     """``W_eff = W + scale * W_aux`` over ``cfg.aux_layer_kinds``
     (mome.py:58-60); single ``[depth, ...]`` or stacked ``[n, depth, ...]``
-    trees.  Shared by the forward and the upload fold-in."""
+    trees (a routed expert kernel ``[.., layers, experts, in, out]`` with
+    a scale an expert).  Shared by the forward and the upload fold-in."""
     blk = dict(blk)
     for kind in cfg.aux_layer_kinds:
         scale = aux[f"{kind}_scale"][..., :, None, None]
@@ -303,6 +348,17 @@ def check_kernel_support(cfg: MATConfig) -> None:
     kernels stream the keys past 256 tokens, and the flash route runs the
     plain attention past 1024 (``ops/flash_attention.py``), as the JAX
     package does."""
+    if cfg.block == "moonlight":
+        # the grouped GEMM takes bf16 operands with 16-byte rows; the MLA
+        # core runs on torch's scaled_dot_product_attention
+        if cfg.compute_dtype != "bfloat16" or cfg.embed_dim % 8 \
+                or cfg.moe_hidden % 8:
+            raise NotImplementedError(
+                f"the moonlight block's grouped GEMM takes bfloat16 with D "
+                f"and the expert width multiples of 8, not "
+                f"{cfg.compute_dtype}, D {cfg.embed_dim}, F "
+                f"{cfg.moe_hidden}")
+        return
     if not cfg.use_pallas:
         return
     hd = cfg.embed_dim // cfg.num_heads
@@ -421,6 +477,11 @@ def _run_stack(cfg: MATConfig, blk: Params, x: torch.Tensor, train: bool,
     """The ``depth`` blocks over x ``[n, B, N, D]`` (a Python loop), routed
     as the JAX ``_run_stack`` (mat.py:427-591); ``tp``: the rank's shards
     of the ``model`` axis, each layer on :func:`_tp_layer`."""
+    if cfg.block == "moonlight":
+        if tp is not None:
+            raise NotImplementedError("the model axis shards the ViT "
+                                      "block only")
+        return moe.run_stack(cfg, blk, x, train, gen)
     n, B, N = x.shape[:3]
     dt = x.dtype
     use_dp = train and cfg.drop_path_rate > 0
@@ -590,7 +651,11 @@ def _head(cfg: MATConfig, params: Params, i: int, h: torch.Tensor,
     """Slot ``i``'s output from the stack's ``h``: the final LayerNorm,
     then the whole normalised sequence, the normalised CLS feature, the
     class logits or the CLS token (see :func:`mat_apply_stacked`)."""
-    h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"], 1e-6)
+    if cfg.block == "moonlight":
+        h = moe.rms_norm(h, params["norm"]["scale"], cfg.rms_eps)
+    else:
+        h = _layer_norm(h, params["norm"]["scale"], params["norm"]["bias"],
+                        1e-6)
     if seq_feat_out:
         hf = h.float()
         return hf / torch.clamp(hf.norm(dim=-1, keepdim=True), min=1e-12)
@@ -617,3 +682,7 @@ def mat_apply(cfg: MATConfig, params: Params,
     outs = mat_apply_stacked(cfg, stacked, ins, feat_out, train, gen,
                              seq_feat_out)
     return [None if o is None else o[0] for o in outs]
+
+
+# the moonlight block's stack imports this module's helpers
+from fedcola_tpu_torch.models import moe  # noqa: E402

@@ -59,6 +59,43 @@ _BLK_LEAVES = {
 _AUX_LAYER_OF_KIND = {
     "qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2",
 }
+# The moonlight block (models/moe.py), under the published module names
+# (DeepSeek-V3's self_attn as ``attn``): MLA leaves are ``attn`` leaves, so
+# that ``--shared_param attn`` averages them across modalities; every FFN
+# leaf, the routed experts' included, is a ``blockses`` leaf of its
+# dataset's scope.
+_MOON_AUX_LAYER_OF_KIND = {
+    "q": "attn.q_proj", "kv_a": "attn.kv_a_proj_with_mqa",
+    "kv_b": "attn.kv_b_proj", "o": "attn.o_proj",
+    "dense_gate": "mlp.gate_proj", "dense_up": "mlp.up_proj",
+    "dense_down": "mlp.down_proj",
+    "shared_gate": "mlp.shared_experts.gate_proj",
+    "shared_up": "mlp.shared_experts.up_proj",
+    "shared_down": "mlp.shared_experts.down_proj",
+    "expert_gate": "mlp.experts.*.gate_proj",
+    "expert_up": "mlp.experts.*.up_proj",
+    "expert_down": "mlp.experts.*.down_proj",
+}
+_MOON_BLK_LEAVES = {
+    "attn_norm_scale": "blockses.{i}.*.norm1.weight",
+    "kv_norm_scale": "blockses.{i}.*.attn.kv_a_layernorm.weight",
+    "ffn_norm_scale": "blockses.{i}.*.norm2.weight",
+    "router_kernel": "blockses.{i}.*.mlp.gate.weight",
+    "router_bias": "blockses.{i}.*.mlp.gate.e_score_correction_bias",
+    **{f"{kind}_kernel": f"blockses.{{i}}.*.{layer}.weight"
+       for kind, layer in _MOON_AUX_LAYER_OF_KIND.items()},
+}
+
+
+def _blk_leaves(cfg: MATConfig) -> Dict[str, str]:
+    return _MOON_BLK_LEAVES if cfg.block == "moonlight" else _BLK_LEAVES
+
+
+def aux_layer_of_kind(cfg: MATConfig, kind: str) -> str:
+    """The reference-style layer name of an aux kind."""
+    table = _MOON_AUX_LAYER_OF_KIND if cfg.block == "moonlight" \
+        else _AUX_LAYER_OF_KIND
+    return table[kind]
 
 
 def get_name_type(name: str) -> str:
@@ -134,15 +171,16 @@ def param_names(cfg: MATConfig, include_aux: bool = True,
 
     colearn_attn = cfg.colearn_param == "attn" and cfg.is_multimodal
     attn_leaves = ("qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias")
+    blk_leaves = _blk_leaves(cfg)
     for i, modality in enumerate(cfg.modalities):
         s = str(i)
         if modality is None:
             if include_absent_blocks and cfg.share_scope == "all":
                 main = str(cfg.main_slot)
-                for leaf, tmpl in _BLK_LEAVES.items():
+                for leaf, tmpl in blk_leaves.items():
                     out.append((("blk", main, leaf), tmpl.format(i=i)))
             continue
-        for leaf, tmpl in _BLK_LEAVES.items():
+        for leaf, tmpl in blk_leaves.items():
             if colearn_attn and i != cfg.main_slot and leaf in attn_leaves:
                 # tied to the main slot: both names exist, same leaf
                 out.append((("blk", str(cfg.main_slot), leaf), tmpl.format(i=i)))
@@ -150,7 +188,8 @@ def param_names(cfg: MATConfig, include_aux: bool = True,
                 out.append((("blk", s, leaf), tmpl.format(i=i)))
 
     out.append((("norm", "scale"), "norm.weight"))
-    out.append((("norm", "bias"), "norm.bias"))
+    if cfg.block != "moonlight":            # RMSNorm has no bias
+        out.append((("norm", "bias"), "norm.bias"))
 
     for i, task in enumerate(cfg.tasks):
         if task == "cls":
@@ -160,7 +199,7 @@ def param_names(cfg: MATConfig, include_aux: bool = True,
     if include_aux and cfg.has_aux:
         main = cfg.main_slot
         for kind in cfg.aux_layer_kinds:
-            layer = _AUX_LAYER_OF_KIND[kind]
+            layer = aux_layer_of_kind(cfg, kind)
             out.append((("aux", f"{kind}_aux"),
                         f"blockses.{main}.*.{layer}.aux_weight"))
             out.append((("aux", f"{kind}_scale"),
@@ -200,7 +239,7 @@ def aux_param_names(cfg: MATConfig) -> List[Tuple[Tuple[str, ...], str]]:
     out = []
     main = cfg.main_slot
     for kind in cfg.aux_layer_kinds:
-        layer = _AUX_LAYER_OF_KIND[kind]
+        layer = aux_layer_of_kind(cfg, kind)
         out.append(((("aux", f"{kind}_aux")),
                     f"blockses.{main}.*.{layer}.aux_weight"))
     return out

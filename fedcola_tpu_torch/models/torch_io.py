@@ -41,10 +41,60 @@ _AUX_LAYER = {"qkv": "attn.qkv", "proj": "attn.proj", "fc1": "mlp.fc1",
               "fc2": "mlp.fc2"}
 
 
+def _moonlight_layers(cfg: MATConfig, leaf: str) -> range:
+    """The layers a moonlight stack leaf stacks: all, the dense ones or
+    the MoE ones."""
+    if leaf.startswith("dense_"):
+        return range(cfg.dense_layers)
+    if leaf.startswith(("router_", "shared_", "expert_")):
+        return range(cfg.dense_layers, cfg.depth)
+    return range(cfg.depth)
+
+
+def _moonlight_entries(cfg: MATConfig, tmpl: str, leaf: str, arr,
+                       transpose: bool):
+    """(name, tensor) of a stacked moonlight leaf, one a layer and, for a
+    routed expert's, one an expert (numbered in the router's range)."""
+    for j, layer in enumerate(_moonlight_layers(cfg, leaf)):
+        name = tmpl.replace("*", str(layer), 1)
+        if leaf.startswith("expert_"):
+            for e in range(arr.shape[1]):
+                x = arr[j, e]
+                yield name.replace("*", str(cfg.held_first + e)), \
+                    x.T if transpose else x
+        else:
+            yield name, arr[j].T if transpose else arr[j]
+
+
+def _moonlight_state_dict(cfg: MATConfig, p: Params) -> Dict[str, torch.Tensor]:
+    """The moonlight block's stacks and aux under the published module
+    names (models/naming.py), kernels as torch ``[out, in]``."""
+    from fedcola_tpu_torch.models import naming
+    sd: Dict[str, torch.Tensor] = {}
+    for path, tmpl in naming.param_names(cfg, include_aux=False):
+        if path[0] == "blk":
+            leaf = path[-1]
+            sd.update(_moonlight_entries(cfg, tmpl, leaf,
+                                         p["blk"][path[1]][leaf],
+                                         leaf.endswith("_kernel")))
+    if cfg.has_aux and "aux" in p:
+        for kind in cfg.aux_layer_kinds:
+            base = f"blockses.{cfg.main_slot}.*." \
+                f"{naming.aux_layer_of_kind(cfg, kind)}"
+            leaf = f"{kind}_kernel"
+            sd.update(_moonlight_entries(cfg, base + ".aux_weight", leaf,
+                                         p["aux"][f"{kind}_aux"], True))
+            for name, v in _moonlight_entries(
+                    cfg, base + ".cross_modal_scale", leaf,
+                    p["aux"][f"{kind}_scale"], False):
+                sd[name] = v.reshape(1)
+    return sd
+
+
 def to_torch_state_dict(cfg: MATConfig, params: Params) -> Dict[str, torch.Tensor]:
     """Contiguous float32 CPU tensors under the reference's names, one
-    entry per depth layer; colearn-tied leaves are read from the main
-    slot."""
+    entry per depth layer (and routed expert); colearn-tied leaves are read
+    from the main slot."""
     p = tree_map(lambda t: t.detach().to("cpu", torch.float32), params)
     sd: Dict[str, torch.Tensor] = {}
     for i, modality in enumerate(cfg.modalities):
@@ -59,7 +109,7 @@ def to_torch_state_dict(cfg: MATConfig, params: Params) -> Dict[str, torch.Tenso
             e = p["emb"][s]
             for name, leaf in _TXT_EMB:
                 sd[f"embeddings.{i}.text_embeddings.{name}"] = e[leaf]
-        if modality is None:
+        if modality is None or cfg.block == "moonlight":
             continue
         blk = p["blk"][s]
         for leaf, (suffix, transpose) in _BLK_TORCH.items():
@@ -70,13 +120,16 @@ def to_torch_state_dict(cfg: MATConfig, params: Params) -> Dict[str, torch.Tenso
                 sd[f"blockses.{i}.{j}.{suffix}"] = \
                     arr[j].T if transpose else arr[j]
     sd["norm.weight"] = p["norm"]["scale"]
-    sd["norm.bias"] = p["norm"]["bias"]
+    if cfg.block == "moonlight":
+        sd.update(_moonlight_state_dict(cfg, p))
+    else:
+        sd["norm.bias"] = p["norm"]["bias"]
     for i, task in enumerate(cfg.tasks):
         if task == "cls":
             h = p["head"][str(i)]
             sd[f"heads.{i}.head.weight"] = h["kernel"].T
             sd[f"heads.{i}.head.bias"] = h["bias"]
-    if cfg.has_aux and "aux" in p:
+    if cfg.has_aux and "aux" in p and cfg.block != "moonlight":
         for kind in cfg.aux_layer_kinds:
             aux, scale = p["aux"][f"{kind}_aux"], p["aux"][f"{kind}_scale"]
             for j in range(cfg.depth):
@@ -93,6 +146,9 @@ def from_torch_state_dict(cfg: MATConfig, params: Params,
     ``load_state_dict(strict=False)``: missing keys keep their values, and
     a group (a stacked block leaf, the final norm, a head, an aux kind)
     loads only when all of its keys are present."""
+    if cfg.block != "vit":
+        raise NotImplementedError(f"loading a state dict into the "
+                                  f"{cfg.block} block")
     out = tree_map(lambda t: t, params)
 
     def get(key):

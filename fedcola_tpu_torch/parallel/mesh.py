@@ -301,6 +301,10 @@ class TensorParallel:
 
     @staticmethod
     def build(cfg, size: int, index: int, group) -> "TensorParallel":
+        if getattr(cfg, "block", "vit") != "vit":
+            raise NotImplementedError(
+                f"the model axis shards the ViT block; the {cfg.block} "
+                f"block runs without it")
         return TensorParallel(size, index, group,
                               cfg.num_heads % size == 0,
                               cfg.hidden_dim % size == 0,

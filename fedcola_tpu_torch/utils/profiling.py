@@ -94,11 +94,11 @@ def readback():
     return span(".sync")
 
 
-def count(key: str) -> None:
-    """Add one to the round's counter ``key`` while a round is being
+def count(key: str, n: int = 1) -> None:
+    """Add ``n`` to the round's counter ``key`` while a round is being
     recorded."""
     if _timer is not None:
-        _timer.counters[key] += 1
+        _timer.counters[key] = _timer.counters.get(key, 0) + n
 
 
 def _levels(cuda: bool):

@@ -65,7 +65,14 @@ result line):
             routing): forward and backward against the plain versions
             within the bf16 tolerance, y also in float32, a second call
             the same bits; both steps timed beside the plain version, a
-            bf16 torch.matmul sequence a group and the bound.
+            bf16 torch.matmul sequence a group and the bound.  At the
+            same steps the dispatch and combine row kernels (moe_rows.cu,
+            no Pallas kernel; ``_check_moe_rows``): bit for bit against
+            their plain versions (dw within 1e-5 of its norm), padding
+            rows zero, nothing read past the last group, a second call
+            the same bits, one ``moe_fused`` count a call; timed beside
+            the plain version, PyTorch over the live rows and the bound
+            on the live rows' bytes.
 4. model    the port's MAT forward and backward on the card (kernels) vs
             on the CPU (plain versions), small float32 models on the fused
             route (D=128) and the flash route (D=96); and on the card the
@@ -87,9 +94,10 @@ result line):
    moonlight one round of the same line at mome_moonlight_a3b
             (Moonlight-16B-A3B's block at its published widths, about 1 B
             parameters a dataset; ``--Cs 0.25``: one client of each
-            dataset; no dropout): both grouped-GEMM entry points and the
-            optimizer step launch, no fused attention, MLP or flash
-            kernel.
+            dataset; no dropout): both grouped-GEMM entry points, the
+            four row kernels (as many launches as the round's
+            ``moe_fused``) and the optimizer step launch, no fused
+            attention, MLP or flash kernel.
    bound    for the mome_small and the mome_tiny line each: the same two
             rounds of training from the same seed on the card (kernels)
             and on the CPU (plain versions), at full width and depth with
@@ -275,6 +283,14 @@ KERNEL_INFO = {
                      "moonlight"),
     "moe_gemm_bwd": ("fedcola_tpu_torch/csrc/moe_gemm.cu", "none",
                      "moonlight"),
+    "moe_dispatch_fwd": ("fedcola_tpu_torch/csrc/moe_rows.cu", "none",
+                         "moonlight"),
+    "moe_combine_fwd": ("fedcola_tpu_torch/csrc/moe_rows.cu", "none",
+                        "moonlight"),
+    "moe_dispatch_bwd": ("fedcola_tpu_torch/csrc/moe_rows.cu", "none",
+                         "moonlight"),
+    "moe_combine_bwd": ("fedcola_tpu_torch/csrc/moe_rows.cu", "none",
+                        "moonlight"),
 }
 
 
@@ -1163,6 +1179,125 @@ def _moe_library(xp, ws, po, dy=None, h=None, g=None, u=None):
     return outs
 
 
+MOE_ROWS = ("moe_dispatch_fwd", "moe_combine_fwd", "moe_dispatch_bwd",
+            "moe_combine_bwd")
+
+
+def _moe_rows_library(name, t):
+    """The same function in PyTorch over the live rows alone (``t``: the
+    live rows' tokens ``tok``, weights ``wr`` and pairs ``rp``, a token
+    row of zeros appended to ``xpad`` and ``dpad``): a gather, an
+    ``index_add_`` or a gather and a row sum."""
+    import torch
+    T, D = t["x"].shape
+    if name == "moe_dispatch_fwd":
+        return t["xpad"][t["tok"]]
+    if name == "moe_combine_fwd":
+        return torch.zeros(T + 1, D, device=t["x"].device).index_add_(
+            0, t["tok"], t["yl"].float() * t["wr"][:, None])
+    if name == "moe_dispatch_bwd":
+        return torch.zeros(T + 1, D, device=t["x"].device).index_add_(
+            0, t["tok"], t["dl"].float()).bfloat16()
+    d = t["dpad"][t["tok"]]
+    dw = torch.zeros(t["P"] + 1, device=d.device).index_copy_(
+        0, t["rp"], (t["yl"].float() * d).sum(-1))
+    return (d * t["wr"][:, None]).bfloat16(), dw
+
+
+def _check_moe_rows(plan, x, gen, dev):
+    """The dispatch and combine row kernels (``csrc/moe_rows.cu``) at one
+    step of the cell against their plain versions: xp, the combine, dx and
+    dyp bit for bit on rows ``[0, poff[G])``, dw within 1e-5 of its norm;
+    the padding rows of xp and dyp zero; ``yp`` and ``dxp`` NaN past
+    ``poff[G]`` (nothing there is read); a second call's bits; one
+    ``moe_fused`` count a call.  Timed beside the plain version, the live
+    rows' PyTorch sequence (``_moe_rows_library``) and the bound on the
+    bytes the live rows need (counted on the card): each input byte read
+    once, each output byte written once."""
+    import torch
+    from fedcola_tpu_torch.ops import kernels, moe_gemm
+    from fedcola_tpu_torch.utils import profiling
+    T, D = x.shape
+    k, cap, P = plan.k, plan.cap, plan.pair_row.numel()
+    L = int(plan.poff[-1])
+    held = plan.pair_row.view(T, k) < cap
+    R, U = int(held.sum()), int(held.any(1).sum())
+    live = plan.row_pair[:L] < P
+    pad = ~live
+    yp = torch.randn(cap, D, generator=gen, device=dev).bfloat16()
+    dxp = torch.randn(cap, D, generator=gen, device=dev).bfloat16()
+    yp[L:] = float("nan")
+    dxp[L:] = float("nan")
+    w = torch.rand(T, k, generator=gen, device=dev) + 0.05
+    dout = torch.randn(T, D, generator=gen, device=dev)
+    pr, rp, po = plan.pair_row, plan.row_pair, plan.poff
+    calls = {
+        "moe_dispatch_fwd": (moe_gemm.dispatch_kernel,
+                             moe_gemm.dispatch_plain, (x, pr, rp, po, k)),
+        "moe_combine_fwd": (moe_gemm.combine_kernel, moe_gemm.combine_plain,
+                            (yp, w, pr, k)),
+        "moe_dispatch_bwd": (moe_gemm.dispatch_bwd_kernel,
+                             moe_gemm.dispatch_bwd_plain, (dxp, pr, k)),
+        "moe_combine_bwd": (moe_gemm.combine_bwd_kernel,
+                            moe_gemm.combine_bwd_plain,
+                            (dout, yp, w, pr, rp, po, k))}
+    tok = torch.where(live, rp[:L] // k, torch.full_like(rp[:L], T))
+    lib = dict(x=x, xpad=torch.cat([x, x.new_zeros(1, D)]), tok=tok,
+               wr=torch.cat([w.reshape(P), w.new_zeros(1)])[rp[:L]],
+               rp=rp[:L], yl=yp[:L], dl=dxp[:L], P=P,
+               dpad=torch.cat([dout, dout.new_zeros(1, D)]))
+    nbytes = {
+        "moe_dispatch_fwd": U * D * 2 + L * 8 + L * D * 2,
+        "moe_combine_fwd": R * D * 2 + P * 12 + T * D * 4,
+        "moe_dispatch_bwd": R * D * 2 + P * 8 + T * D * 2,
+        "moe_combine_bwd": U * D * 4 + R * D * 2 + P * 12 + L * 8
+        + L * D * 2 + P * 4}
+    flops = {"moe_dispatch_fwd": 0.0, "moe_combine_fwd": 2.0 * R * D,
+             "moe_dispatch_bwd": 1.0 * R * D,
+             "moe_combine_bwd": 3.0 * R * D}
+    # the outputs that are the buffer: only rows [0, poff[G]) are written
+    buffer_out = {"moe_dispatch_fwd": 0, "moe_combine_bwd": 0}
+
+    def trim(out):
+        out = list(out) if isinstance(out, tuple) else [out]
+        return [t[:L] if t.shape[0] == cap else t for t in out]
+
+    res = {}
+    for name, (kern, plain, args) in calls.items():
+        timer = profiling.Timer()
+        before = kernels.LAUNCHES[name]
+        with timer.recording():
+            got = trim(kern(*args))
+        if timer.counters.get("moe_fused") != 1 or \
+                kernels.LAUNCHES[name] != before + 1:
+            raise AssertionError(f"{name}: moe_fused "
+                                 f"{timer.counters.get('moe_fused')}, "
+                                 f"launches {kernels.LAUNCHES[name]}")
+        want = trim(plain(*args))
+        if name in buffer_out and (got[buffer_out[name]][pad] != 0).any():
+            raise AssertionError(f"{name}: a padding row is not zero")
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            if name == "moe_combine_bwd" and i == 1:
+                rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+                if not rel <= 1e-5:
+                    raise AssertionError(f"{name}: dw differs by {rel:.3e} "
+                                         f"of its norm")
+                err = (a - b).abs().max().item()
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{name}: output {i} differs from the "
+                                     f"plain version's bits")
+        _same_bits(lambda *a: trim(kern(*a)), args, got, name)
+        res[name] = dict(
+            max_abs_err=err, flops=flops[name], bytes=nbytes[name],
+            ms=time_ms(lambda: kern(*args)),
+            plain_ms=time_ms(lambda: plain(*args), iters=3, warmup=1),
+            library_ms=time_ms(lambda: _moe_rows_library(name, lib)))
+    log(f"[kernels] moe rows: {T} tokens, {U} with a held expert, {R} "
+        f"routed rows, {L} buffer rows of {cap}")
+    return res
+
+
 def check_moe(dev, record):
     """The routed experts' grouped GEMM (``fc_moe_gemm_fwd`` /
     ``fc_moe_gemm_bwd``, csrc/moe_gemm.cu) at the moonlight cell's two
@@ -1176,8 +1311,9 @@ def check_moe(dev, record):
     Both bf16 steps timed beside the plain version, a bf16
     ``torch.matmul`` sequence a group (``_moe_library``) and the bound on
     the rows routed (forward 6 R D F operations, backward 12 R D F).
-    Returns the image step's measurements, the text step's under
-    "text"."""
+    Then the dispatch and combine row kernels at the same steps
+    (``_check_moe_rows``).  Returns the image step's measurements, the text
+    step's under "text"."""
     import torch
     from fedcola_tpu_torch.ops import moe_gemm
     D, Fh, held = MOE_D, MOE_F, MOE_HELD
@@ -1248,6 +1384,9 @@ def check_moe(dev, record):
         record(res, f"{step},n=1", torch.bfloat16, N, True)
         log(f"[kernels] moe_gemm {step} step: {T} tokens, routed rows {R} "
             f"({R / T:.3f} a token), buffer rows {live} of {plan.cap}")
+        rows_res = _check_moe_rows(plan, x, gen, dev)
+        record(rows_res, f"{step},n=1", torch.bfloat16, N, True)
+        res.update(rows_res)
         for name, r in res.items():
             if step == "img":
                 out[name] = r
@@ -1430,16 +1569,30 @@ MOONLIGHT_FLAGS_CUT = {"--model_name": "mome_moonlight_a3b", "--Cs": "0.25",
 def phase_moonlight():
     """One round of [main]'s line at mome_moonlight_a3b through the entry
     point: the routed experts on the grouped GEMM (both entry points
-    launch), the optimizer step on its kernel, no fused attention or MLP
-    kernel (MLA runs on SDPA, the dense and shared experts on cuBLAS)."""
+    launch), every dispatch and combine pass on its row kernel (the four
+    launch, as many as the rounds' ``moe_fused``), the optimizer step on
+    its kernel, no fused attention or MLP kernel (MLA runs on SDPA, the
+    dense and shared experts on cuBLAS)."""
     from fedcola_tpu_torch import main as port_main
-    launches, _ = run_line("moonlight", port_main.cut(
+    launches, server = run_line("moonlight", port_main.cut(
         port_main.MAIN_PATH_FLAGS, MOONLIGHT_FLAGS_CUT))
     if not (launches["moe_gemm_fwd"] and launches["moe_gemm_bwd"]
             and launches["opt_update"]):
         raise AssertionError(f"the moonlight line never launched the "
                              f"grouped GEMM or the optimizer step: "
                              f"{launches}")
+    # every dispatch and combine pass took its row kernel: the rounds'
+    # moe_fused counts them, and no pass ran outside a round
+    rows = sum(launches[k] for k in MOE_ROWS)
+    fused = sum(r["round_counters"].get("moe_fused", 0)
+                for r in server.results.values())
+    log(f"[moonlight] row kernel launches {rows} "
+        f"({', '.join(f'{k} {launches[k]}' for k in MOE_ROWS)}), "
+        f"moe_fused {fused}")
+    if not all(launches[k] for k in MOE_ROWS) or fused != rows:
+        raise AssertionError(f"the moonlight line's dispatch and combine: "
+                             f"{rows} row kernel launches, moe_fused "
+                             f"{fused}")
     fused = {k: v for k, v in launches.items()
              if v and k.startswith(("attn", "mlp", "flash"))}
     if fused:

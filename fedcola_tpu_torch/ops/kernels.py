@@ -10,11 +10,13 @@ entry point launches a fixed sequence of the package's own kernels on the
 stream it is given and returns the first CUDA error (0 when none);
 :func:`launch` raises on anything else.
 
-Every entry point but three corresponds to one TPU kernel of the JAX
+Every entry point but seven corresponds to one TPU kernel of the JAX
 package; ``fc_opt_update`` (``csrc/opt_update.cu``, the group's optimizer
 step) replaces the update the JAX package left to XLA's fusion, and
 ``fc_moe_gemm_fwd`` / ``fc_moe_gemm_bwd`` (``csrc/moe_gemm.cu``, the
-routed experts' grouped GEMM) have no counterpart there.
+routed experts' grouped GEMM) and ``fc_moe_{dispatch,combine}_{fwd,bwd}``
+(``csrc/moe_rows.cu``, the MoE layer's row moves) have no counterpart
+there.
 ``LAUNCHES`` counts, per entry point, the calls that went to the card.
 """
 
@@ -43,7 +45,8 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 LIB_PATH = BUILD_DIR / "libfedcola_kernels.so"
 SOURCES = ("attn_fwd.cu", "attn_bwd.cu", "mlp_fwd.cu", "mlp_bwd.cu",
-           "flash_fwd.cu", "flash_bwd.cu", "opt_update.cu", "moe_gemm.cu")
+           "flash_fwd.cu", "flash_bwd.cu", "opt_update.cu", "moe_gemm.cu",
+           "moe_rows.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # launches per entry point, counted by the ops wrappers (CUDA branch only)
@@ -53,7 +56,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0, "flash_bwd": 0,
     "mlp_fwd_rows": 0, "mlp_bwd_rows": 0,
     "mlp_ln_fwd_rows": 0, "mlp_ln_bwd_rows": 0, "opt_update": 0,
-    "moe_gemm_fwd": 0, "moe_gemm_bwd": 0}
+    "moe_gemm_fwd": 0, "moe_gemm_bwd": 0, "moe_dispatch_fwd": 0,
+    "moe_dispatch_bwd": 0, "moe_combine_fwd": 0, "moe_combine_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,6 +84,10 @@ _SIGNATURES = {
     "fc_attn_fwd_core_test": [_I] * 4 + [_P] * 4,
     "fc_moe_gemm_fwd": [_I] * 5 + [_P] * 10,
     "fc_moe_gemm_bwd": [_I] * 4 + [_P] * 16,
+    "fc_moe_dispatch_fwd": [_I] * 5 + [_P] * 5,
+    "fc_moe_dispatch_bwd": [_I] * 4 + [_P] * 4,
+    "fc_moe_combine_fwd": [_I] * 4 + [_P] * 5,
+    "fc_moe_combine_bwd": [_I] * 5 + [_P] * 9,
 }
 
 # The bf16 fused route's Hopper GEMM (csrc/gemm_sm90.cuh): its row and K

@@ -16,7 +16,7 @@ dropped.
 
 * :func:`dispatch` gathers each pair's token row (the padding gathers a
   zero row); its backward sums a token's rows over its ``top_k`` slots in
-  slot order.
+  slot order, in float32.
 * :func:`grouped_glu` is ``down(silu(x gate_e) * (x up_e))`` of every
   row by its group's expert ``e``: bf16 operands, f32 accumulation.  On
   CUDA tensors one launch of ``fc_moe_gemm_fwd`` (gate and up in one dual
@@ -28,8 +28,18 @@ dropped.
 * :func:`combine` is ``sum_j w[t, j] * y[row(t, j)]`` over a token's slots
   in slot order, in float32; its backward writes each row once.
 
+The dispatch and the combine, each way, run on CUDA tensors one launch of
+a row kernel (``csrc/moe_rows.cu``: ``fc_moe_dispatch_fwd``,
+``fc_moe_dispatch_bwd``, ``fc_moe_combine_fwd``, ``fc_moe_combine_bwd``)
+that touches only the rows ``[0, poff[G])`` and the held pairs, counted in
+the round's ``moe_fused``; the CPU runs the plain versions
+(:func:`dispatch_plain`, :func:`combine_plain` and their backwards), which
+write every row of the buffer and whose bits the kernels give (all but
+the combine backward's dw, summed in another fixed order).  The kernels
+leave the buffer's rows past ``poff[G]`` unwritten: nothing reads them.
+
 Every sum has one writer and a fixed order, so a step is bitwise
-repeatable.  The kernel replaces no TPU kernel: the JAX package has no MoE
+repeatable.  The kernels replace no TPU kernel: the JAX package has no MoE
 layer.
 """
 
@@ -41,11 +51,12 @@ import torch
 import torch.nn.functional as F
 
 from fedcola_tpu_torch.ops import kernels
-from fedcola_tpu_torch.utils.profiling import span
+from fedcola_tpu_torch.utils.profiling import count, span
 
 Tensor = torch.Tensor
 
 BM = 128            # the kernel's row tile: a group's rows are padded to it
+MAX_SLOTS = 32      # the row kernels keep a token's slots in a warp's lanes
 
 
 @dataclass(frozen=True)
@@ -112,12 +123,14 @@ def _pad_row(x: Tensor) -> Tensor:
 
 
 def _slot_sum(rows: Tensor, pair_row: Tensor, k: int, weight=None) -> Tensor:
-    """``sum_j weight[t, j] * rows[pair_row[t * k + j]]`` in float32, slot
-    by slot (``rows`` carries a last zero row at index ``cap``)."""
+    """``sum_j weight[t, j] * rows[pair_row[t * k + j]]`` in float32 (float64
+    for float64 rows), slot by slot (``rows`` carries a last zero row at
+    index ``cap``)."""
+    acc = torch.promote_types(rows.dtype, torch.float32)
     at = pair_row.view(-1, k)
     out = None
     for j in range(k):
-        r = rows[at[:, j]].float()
+        r = rows[at[:, j]].to(acc)
         if weight is not None:
             r = r * weight[:, j, None]
         out = r if out is None else out + r
@@ -130,57 +143,86 @@ def _slot_sum(rows: Tensor, pair_row: Tensor, k: int, weight=None) -> Tensor:
 # otherwise (a library product need not repeat its bits).
 class _Dispatch(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, pair_row, row_pair, k: int):
+    def forward(ctx, x, pair_row, row_pair, poff, k: int):
         ctx.k = k
         ctx.save_for_backward(pair_row)
-        tokens = pair_row.numel() // k
-        src = torch.where(row_pair < pair_row.numel(), row_pair // k,
-                          torch.full_like(row_pair, tokens))
-        return _pad_row(x)[src]
+        return dispatch_fwd(x, pair_row, row_pair, poff, k)
 
     @staticmethod
     def backward(ctx, dxp):
         (pair_row,) = ctx.saved_tensors
         with span("moe.dispatch", timed=False, device=True):
-            dx = _slot_sum(_pad_row(dxp), pair_row, ctx.k).to(dxp.dtype)
-        return dx, None, None, None
+            dx = dispatch_bwd(dxp.contiguous(), pair_row, ctx.k)
+        return dx, None, None, None, None
 
 
 def dispatch(x: Tensor, plan: RoutePlan) -> Tensor:
     """Token rows ``x [n*T, D]`` -> the expert buffer ``[cap, D]``."""
-    return _Dispatch.apply(x, plan.pair_row, plan.row_pair, plan.k)
+    return _Dispatch.apply(x, plan.pair_row, plan.row_pair, plan.poff,
+                           plan.k)
 
 
 class _Combine(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, yp, w, pair_row, row_pair, k: int):
+    def forward(ctx, yp, w, pair_row, row_pair, poff, k: int):
         ctx.k = k
-        ctx.save_for_backward(yp, w, pair_row, row_pair)
-        return _slot_sum(_pad_row(yp), pair_row, k, w)
+        ctx.save_for_backward(yp, w, pair_row, row_pair, poff)
+        return combine_fwd(yp, w, pair_row, k)
 
     @staticmethod
     def backward(ctx, dout):
-        yp, w, pair_row, rp = ctx.saved_tensors
-        k = ctx.k
+        yp, w, pair_row, row_pair, poff = ctx.saved_tensors
         with span("moe.combine", timed=False, device=True):
-            P = pair_row.numel()
-            tok = torch.where(rp < P, rp // k, torch.full_like(rp, P // k))
-            wr = torch.cat([w.reshape(P), w.new_zeros(1)])[rp]
-            dyp = (_pad_row(dout)[tok] * wr[:, None]).to(yp.dtype)
-            ypad = _pad_row(yp)
-            at = pair_row.view(-1, k)
-            dw = torch.stack([(ypad[at[:, j]].float() * dout).sum(-1)
-                              for j in range(k)], dim=1)
-        return dyp, dw, None, None, None
+            dyp, dw = combine_bwd(dout.contiguous(), yp, w, pair_row,
+                                  row_pair, poff, ctx.k)
+        return dyp, dw, None, None, None, None
 
 
 def combine(yp: Tensor, w: Tensor, plan: RoutePlan) -> Tensor:
     """The buffer's rows ``yp [cap, D]`` back to token order, weighted by
     ``w [n*T, k]`` (float32): ``[n*T, D]`` float32."""
-    return _Combine.apply(yp, w, plan.pair_row, plan.row_pair, plan.k)
+    return _Combine.apply(yp, w, plan.pair_row, plan.row_pair, plan.poff,
+                          plan.k)
 
 
 # ----------------------------------------------------------- plain ---------
+
+def dispatch_plain(x, pair_row, row_pair, poff, k: int):
+    """``xp [cap, D]``: each row its pair's token row of ``x``, a padding
+    row (and every row past ``poff[G]``) zeros."""
+    tokens = pair_row.numel() // k
+    src = torch.where(row_pair < pair_row.numel(), row_pair // k,
+                      torch.full_like(row_pair, tokens))
+    return _pad_row(x)[src]
+
+
+def dispatch_bwd_plain(dxp, pair_row, k: int):
+    """``dx [n*T, D]``: a token's rows of ``dxp`` summed in float32 in slot
+    order, in dxp's dtype."""
+    return _slot_sum(_pad_row(dxp), pair_row, k).to(dxp.dtype)
+
+
+def combine_plain(yp, w, pair_row, k: int):
+    """``sum_j w[t, j] * yp[pair_row[t * k + j]]``, slot by slot, in
+    float32 (float64 for float64 operands)."""
+    return _slot_sum(_pad_row(yp), pair_row, k, w)
+
+
+def combine_bwd_plain(dout, yp, w, pair_row, row_pair, poff, k: int):
+    """(dyp, dw): ``dyp[row] = w[pair] * dout[token]`` in yp's dtype, zeros
+    on padding rows and past ``poff[G]``; ``dw[t, j] = yp[row] . dout[t]``,
+    zero where the slot's expert is not held."""
+    P = pair_row.numel()
+    tok = torch.where(row_pair < P, row_pair // k,
+                      torch.full_like(row_pair, P // k))
+    wr = torch.cat([w.reshape(P), w.new_zeros(1)])[row_pair]
+    dyp = (_pad_row(dout)[tok] * wr[:, None]).to(yp.dtype)
+    ypad = _pad_row(yp)
+    at = pair_row.view(-1, k)
+    dw = torch.stack([(ypad[at[:, j]].to(dout.dtype) * dout).sum(-1)
+                      for j in range(k)], dim=1)
+    return dyp, dw
+
 
 def _groups(poff: Tensor):
     po = poff.tolist()
@@ -298,6 +340,116 @@ def glu_bwd(dy, xp, wg, wu, wd, g, u, poff):
     if xp.is_cuda:
         return glu_bwd_kernel(dy, xp, wg, wu, wd, g, u, poff)
     return glu_bwd_plain(dy, xp, wg, wu, wd, g, u, poff)
+
+
+def _check_rows(pair_row, k: int, D: int, dev):
+    """The pairs' rows and the row width, as the row kernels
+    (``csrc/moe_rows.cu``) index them: a token's slots in one warp's
+    lanes, rows of whole 16-byte vectors."""
+    if not 1 <= k <= MAX_SLOTS:
+        raise ValueError(f"the row kernels take 1 to {MAX_SLOTS} slots a "
+                         f"token, not {k}")
+    if D % 8:
+        raise ValueError(f"the row kernels move rows of whole 16-byte "
+                         f"vectors: D ({D}) must be a multiple of 8")
+    kernels.check(pair_row, "pair_row", (pair_row.numel(),), torch.long, dev)
+    if pair_row.numel() % k:
+        raise ValueError(f"pair_row holds {pair_row.numel()} pairs, not "
+                         f"whole tokens of {k} slots")
+
+
+def _check_vec(t, name, shape, dtype, dev):
+    kernels.check(t, name, shape, dtype, dev)
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def dispatch_kernel(x, pair_row, row_pair, poff, k: int):
+    """``fc_moe_dispatch_fwd``: :func:`dispatch_plain`'s rows ``[0,
+    poff[G])`` (rows past it left unwritten)."""
+    tokens, D = x.shape
+    cap, G = row_pair.numel(), poff.numel() - 1
+    _check_rows(pair_row, k, D, x.device)
+    _check_vec(x, "x", (pair_row.numel() // k, D), torch.bfloat16, x.device)
+    kernels.check(row_pair, "row_pair", (cap,), torch.long, x.device)
+    kernels.check(poff, "poff", (G + 1,), torch.int32, x.device)
+    xp = torch.empty((cap, D), dtype=x.dtype, device=x.device)
+    kernels.launch("moe_dispatch_fwd", tokens, k, D, G, cap,
+                   *map(kernels.ptr, (x, row_pair, poff, xp)))
+    count("moe_fused")
+    return xp
+
+
+def dispatch_bwd_kernel(dxp, pair_row, k: int):
+    """``fc_moe_dispatch_bwd``: :func:`dispatch_bwd_plain`'s bits."""
+    cap, D = dxp.shape
+    tokens = pair_row.numel() // k
+    _check_rows(pair_row, k, D, dxp.device)
+    _check_vec(dxp, "dxp", (cap, D), torch.bfloat16, dxp.device)
+    dx = torch.empty((tokens, D), dtype=dxp.dtype, device=dxp.device)
+    kernels.launch("moe_dispatch_bwd", tokens, k, D, cap,
+                   *map(kernels.ptr, (dxp, pair_row, dx)))
+    count("moe_fused")
+    return dx
+
+
+def combine_kernel(yp, w, pair_row, k: int):
+    """``fc_moe_combine_fwd``: :func:`combine_plain`'s bits."""
+    cap, D = yp.shape
+    tokens = pair_row.numel() // k
+    _check_rows(pair_row, k, D, yp.device)
+    _check_vec(yp, "yp", (cap, D), torch.bfloat16, yp.device)
+    kernels.check(w, "w", (tokens, k), torch.float32, yp.device)
+    out = torch.empty((tokens, D), dtype=torch.float32, device=yp.device)
+    kernels.launch("moe_combine_fwd", tokens, k, D, cap,
+                   *map(kernels.ptr, (yp, w, pair_row, out)))
+    count("moe_fused")
+    return out
+
+
+def combine_bwd_kernel(dout, yp, w, pair_row, row_pair, poff, k: int):
+    """``fc_moe_combine_bwd``: :func:`combine_bwd_plain`'s dyp bit for bit
+    on rows ``[0, poff[G])`` (rows past it left unwritten), dw summed in
+    another fixed order."""
+    cap, D = yp.shape
+    tokens, G = pair_row.numel() // k, poff.numel() - 1
+    _check_rows(pair_row, k, D, yp.device)
+    _check_vec(yp, "yp", (cap, D), torch.bfloat16, yp.device)
+    _check_vec(dout, "dout", (tokens, D), torch.float32, yp.device)
+    kernels.check(w, "w", (tokens, k), torch.float32, yp.device)
+    kernels.check(row_pair, "row_pair", (cap,), torch.long, yp.device)
+    kernels.check(poff, "poff", (G + 1,), torch.int32, yp.device)
+    dyp = torch.empty_like(yp)
+    dw = torch.empty((tokens, k), dtype=torch.float32, device=yp.device)
+    kernels.launch("moe_combine_bwd", tokens, k, D, G, cap,
+                   *map(kernels.ptr, (dout, w, yp, pair_row, row_pair, poff,
+                                      dyp, dw)))
+    count("moe_fused")
+    return dyp, dw
+
+
+def dispatch_fwd(x, pair_row, row_pair, poff, k: int):
+    if x.is_cuda:
+        return dispatch_kernel(x, pair_row, row_pair, poff, k)
+    return dispatch_plain(x, pair_row, row_pair, poff, k)
+
+
+def dispatch_bwd(dxp, pair_row, k: int):
+    if dxp.is_cuda:
+        return dispatch_bwd_kernel(dxp, pair_row, k)
+    return dispatch_bwd_plain(dxp, pair_row, k)
+
+
+def combine_fwd(yp, w, pair_row, k: int):
+    if yp.is_cuda:
+        return combine_kernel(yp, w, pair_row, k)
+    return combine_plain(yp, w, pair_row, k)
+
+
+def combine_bwd(dout, yp, w, pair_row, row_pair, poff, k: int):
+    if yp.is_cuda:
+        return combine_bwd_kernel(dout, yp, w, pair_row, row_pair, poff, k)
+    return combine_bwd_plain(dout, yp, w, pair_row, row_pair, poff, k)
 
 
 class _GroupedGLU(torch.autograd.Function):

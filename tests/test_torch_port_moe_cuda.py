@@ -4,7 +4,13 @@
 y in bfloat16 and in float32; ragged groups from a random routing, groups
 left empty, and every token on one expert, over n = 1 and 3 stacked
 clients; a repeat gives the same bits; a routing plan, dispatch, experts
-and combine with no host readback of the routing counts.
+and combine with no host readback of the routing counts.  The dispatch
+and combine row kernels (``csrc/moe_rows.cu``) against their plain
+versions at the same routings and at the Moonlight cell's image and text
+steps: bit for bit but for dw (within 1e-5 of its norm: another order of
+its sums), padding rows zero, nothing past ``poff[G]`` read (NaN there),
+a repeat's bits, and a layer's four passes each on its kernel and counted
+in ``moe_fused``.
 
 Both sides take the same bf16 buffer and weights and accumulate in
 float32; they differ in the order of the sums and in the roundings to
@@ -129,6 +135,87 @@ def test_real_width_and_repeat(dev):
         assert _rel(a, b) < 5e-3
 
 
+def _rows_case(kind, n, D, T, dev, seed=0, router=16, held=4):
+    """A plan and the row kernels' inputs: x, weights and dout, and the
+    buffers yp and dxp with NaN past ``poff[G]`` (nothing there may be
+    read)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = _idx(kind, n, T, 6, router, held, gen, dev)
+    plan = moe_gemm.route_plan(idx, 0, held)
+    L = int(plan.poff[-1])
+    x = torch.randn(n * T, D, generator=gen, device=dev).bfloat16()
+    yp, dxp = (torch.randn(plan.cap, D, generator=gen, device=dev)
+               .bfloat16() for _ in range(2))
+    yp[L:] = float("nan")
+    dxp[L:] = float("nan")
+    w = torch.rand(n * T, 6, generator=gen, device=dev) + 0.05
+    dout = torch.randn(n * T, D, generator=gen, device=dev)
+    return plan, x, yp, dxp, w, dout
+
+
+def _rows_agree(plan, x, yp, dxp, w, dout):
+    """Each row kernel against its plain version: xp, the combine, dx and
+    dyp bit for bit on rows [0, poff[G]) (padding rows zero), dw within
+    1e-5 of its norm; a second call gives the same bits."""
+    pr, rp, po, k = plan.pair_row, plan.row_pair, plan.poff, plan.k
+    L = int(po[-1])
+    pad = rp[:L] >= pr.numel()
+    runs = []
+    for _ in range(2):
+        dyp, dw = moe_gemm.combine_bwd_kernel(dout, yp, w, pr, rp, po, k)
+        runs.append([moe_gemm.dispatch_kernel(x, pr, rp, po, k)[:L],
+                     moe_gemm.combine_kernel(yp, w, pr, k),
+                     moe_gemm.dispatch_bwd_kernel(dxp, pr, k), dyp[:L], dw])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    xp, out, dx, dyp, dw = runs[0]
+    want_dyp, want_dw = moe_gemm.combine_bwd_plain(dout, yp, w, pr, rp, po,
+                                                   k)
+    assert torch.equal(xp, moe_gemm.dispatch_plain(x, pr, rp, po, k)[:L])
+    assert torch.equal(out, moe_gemm.combine_plain(yp, w, pr, k))
+    assert torch.equal(dx, moe_gemm.dispatch_bwd_plain(dxp, pr, k))
+    assert torch.equal(dyp, want_dyp[:L])
+    assert _rel(dw, want_dw) < 1e-5
+    for t in (xp, dyp):
+        assert not t[pad].any()
+    for t in (out, dx, dw):
+        assert torch.isfinite(t.float()).all()
+
+
+@pytest.mark.parametrize("kind", ["ragged", "empty", "one"])
+@pytest.mark.parametrize("n", [1, 3])
+def test_row_kernels(dev, kind, n):
+    _rows_agree(*_rows_case(kind, n, 256, 300, dev))
+
+
+@pytest.mark.parametrize("T", [96 * 197, 96 * 40])
+def test_row_kernels_at_the_moonlight_steps(dev, T):
+    """Moonlight's widths (D 2048, top-6, 8 held of 64) at an image step's
+    and a text step's tokens."""
+    _rows_agree(*_rows_case("ragged", 1, 2048, T, dev, router=64, held=8))
+
+
+def test_layer_counts_every_pass(dev):
+    """A layer's forward and backward on the card: the dispatch and the
+    combine each way take their row kernel, one launch each and four
+    ``moe_fused`` counts."""
+    from fedcola_tpu_torch.utils import profiling
+    plan, x0, _, _, wts, _ = _rows_case("ragged", 2, 256, 300, dev)
+    ws = [torch.randn(plan.groups, a, b, device=dev) * a ** -0.5
+          for a, b in ((256, 128), (256, 128), (128, 256))]
+    x = x0.clone().requires_grad_(True)
+    names = ("moe_dispatch_fwd", "moe_combine_fwd", "moe_dispatch_bwd",
+             "moe_combine_bwd")
+    before = {k: kernels.LAUNCHES[k] for k in names}
+    timer = profiling.Timer(cuda=True)
+    with timer.recording():
+        yp = moe_gemm.grouped_glu(moe_gemm.dispatch(x, plan), *ws, plan.poff)
+        moe_gemm.combine(yp, wts, plan).square().sum().backward()
+    assert timer.counters["moe_fused"] == 4
+    assert all(kernels.LAUNCHES[k] == before[k] + 1 for k in names)
+    assert torch.isfinite(x.grad.float()).all()
+
+
 def test_layer_repeats_without_readback(dev):
     """Routing plan, dispatch, grouped GLU and combine, forward and
     backward, in a stream capture (which refuses a host readback), twice
@@ -153,18 +240,23 @@ def test_layer_repeats_without_readback(dev):
     layer()                                   # builds and warms up
     before = dict(kernels.LAUNCHES)
     a = layer()
-    assert kernels.LAUNCHES["moe_gemm_fwd"] == before["moe_gemm_fwd"] + 1
-    assert kernels.LAUNCHES["moe_gemm_bwd"] == before["moe_gemm_bwd"] + 1
+    for name in ("moe_gemm_fwd", "moe_gemm_bwd", "moe_dispatch_fwd",
+                 "moe_dispatch_bwd", "moe_combine_fwd", "moe_combine_bwd"):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
     torch.cuda.synchronize()
     s = torch.cuda.Stream()
     with torch.cuda.stream(s):
-        # a readback inside a capture raises: the plan and the routed
-        # experts read their counts on the device only
+        # a readback inside a capture raises: the plan, the routed experts
+        # and the row kernels read their counts on the device only
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=s):
             plan = moe_gemm.route_plan(idx, 0, held)
-            moe_gemm.grouped_glu(moe_gemm.dispatch(x0, plan),
-                                 *[t.bfloat16() for t in ws], plan.poff)
+            yp = moe_gemm.grouped_glu(moe_gemm.dispatch(x0, plan),
+                                      *[t.bfloat16() for t in ws], plan.poff)
+            out = moe_gemm.combine(yp, wts, plan)
+            moe_gemm.dispatch_bwd_kernel(yp, plan.pair_row, k)
+            moe_gemm.combine_bwd_kernel(out, yp, wts, plan.pair_row,
+                                        plan.row_pair, plan.poff, k)
     b = layer()
     for u, v in zip(a, b):
         assert torch.equal(u, v)
